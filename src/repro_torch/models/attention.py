@@ -1,0 +1,134 @@
+"""GQA attention: projections, the full-sequence block, and KV-cache decode.
+
+The full-sequence attention goes through ``kernels.ops.attention``: the
+Hopper flash-attention kernel on the card, its plain version on the CPU
+(where the reference calls ``blocked_attention``, ``attention.py:228``).
+Decode attends one token against the cache in plain PyTorch, as the
+reference does (it has no decode kernel).
+
+GQA grouping is kv-major throughout: q head h reads kv head h // g.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .common import Params, apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# projections
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
+              num_kv_heads: int, head_dim: int, qkv_bias: bool, *, lead=(),
+              dtype=torch.float32) -> Params:
+    p = {
+        "wq": dense_init(gen, d_model, num_heads * head_dim, lead=lead,
+                         dtype=dtype),
+        "wk": dense_init(gen, d_model, num_kv_heads * head_dim, lead=lead,
+                         dtype=dtype),
+        "wv": dense_init(gen, d_model, num_kv_heads * head_dim, lead=lead,
+                         dtype=dtype),
+        "wo": dense_init(gen, num_heads * head_dim, d_model, lead=lead,
+                         dtype=dtype),
+    }
+    if qkv_bias:
+        for name, width in (("bq", num_heads), ("bk", num_kv_heads),
+                            ("bv", num_kv_heads)):
+            p[name] = torch.zeros((*lead, width * head_dim), dtype=dtype,
+                                  device=gen.device)
+    return p
+
+
+def qkv_project(params: Params, x: torch.Tensor, num_heads: int,
+                num_kv_heads: int, head_dim: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
+    b, s, _ = x.shape
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return (q.reshape(b, s, num_heads, head_dim),
+            k.reshape(b, s, num_kv_heads, head_dim),
+            v.reshape(b, s, num_kv_heads, head_dim))
+
+
+def out_project(params: Params, o: torch.Tensor) -> torch.Tensor:
+    b, s, h, d = o.shape
+    return o.reshape(b, s, h * d) @ params["wo"].to(o.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode and the O(S²) oracle
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """One-token decode: q (B,1,Hq,hd) vs cache (B,L,Hkv,hd).
+
+    ``cache_len``: the number of valid cache entries, the same for the whole
+    batch (the new token is already written into the cache).  Products
+    accumulate in float32; the probabilities are cast to the cache dtype
+    before the PV product, as in the reference."""
+    b, _, hq, hd = q.shape
+    lcap, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(hd))
+    valid = torch.arange(lcap, device=q.device) < cache_len
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.to(q.dtype).reshape(b, 1, hq, hd)
+
+
+def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """O(S²)-memory oracle with a query offset (decode-style positions)."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+        / math.sqrt(hd)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# full attention block (projections + rope + core)
+# ---------------------------------------------------------------------------
+
+def attention_block(params: Params, x: torch.Tensor, cfg,
+                    positions: torch.Tensor,
+                    kv_sink: Optional[List] = None) -> torch.Tensor:
+    """Project → rope → causal attention kernel → out-project.
+
+    ``kv_sink``, when given, receives this layer's post-RoPE ``(k, v)``:
+    one-pass prefill fills the KV cache from it."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = qkv_project(params, x, hq, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_sink is not None:
+        kv_sink.append((k, v))
+    o = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return out_project(params, o)

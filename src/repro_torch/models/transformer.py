@@ -1,0 +1,194 @@
+"""Decoder-LM assembly, dense family.
+
+Same parameter layout as the reference (``repro/models/transformer.py``):
+nested dicts with a stacked leading ``L`` axis on every layer leaf and
+``(d_in, d_out)`` matrices, so ``bridge.params_from_numpy`` hands the
+reference's own params to these functions.  The reference's ``lax.scan``
+over ``L`` is a Python loop over the stacked axis here.
+
+Only the dense family is ported in this slice; the others raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .attention import attention_block, attn_init
+from .common import (Params, compute_dtype, dense_init, embed_init,
+                     norm_apply, norm_init)
+from .context import NULL_CTX, ModelContext
+from .mlp import mlp_apply, mlp_init
+
+
+def check_ported(cfg) -> None:
+    if (cfg.family != "dense" or cfg.is_encoder_decoder
+            or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: family '{cfg.family}' is not ported yet; slice 1 of "
+            f"the port (serving) covers the dense family only, the others "
+            f"are queued in ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg, seed: int = 0, *, device="cuda",
+            dtype=torch.float32) -> Params:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``);
+    the reference's layout and initializer scales, not its random numbers."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, L = cfg.d_model, (cfg.num_layers,)
+    p: Params = {"embed": embed_init(gen, cfg.vocab_size, d, dtype),
+                 "ln_f": norm_init(cfg.norm, d, device=dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype=dtype)
+    p["layers"] = {
+        "ln1": norm_init(cfg.norm, d, lead=L, device=dev),
+        "ln2": norm_init(cfg.norm, d, lead=L, device=dev),
+        "attn": attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim_, cfg.qkv_bias, lead=L, dtype=dtype),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, lead=L, dtype=dtype),
+    }
+    return p
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in params.items()}
+
+
+def _lm_head(params: Params, cfg) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                 positions: torch.Tensor, kv_sink=None) -> torch.Tensor:
+    h = norm_apply(cfg.norm, lp["ln1"], x)
+    h = ctx.shard(h, "dp", None, None)
+    x = x + attention_block(lp["attn"], h, cfg, positions, kv_sink)
+    x = ctx.shard(x, "dp", "sp", None)
+    h = norm_apply(cfg.norm, lp["ln2"], x)
+    h = ctx.shard(h, "dp", None, None)
+    x = x + mlp_apply(lp["mlp"], h, cfg.act)
+    return ctx.shard(x, "dp", "sp", None)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill / teacher forcing)
+# ---------------------------------------------------------------------------
+
+def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
+                  ctx: ModelContext = NULL_CTX,
+                  kv_sink: Optional[List] = None) -> torch.Tensor:
+    """tokens (B, S), positions 0..S-1 -> final-norm hidden states (B, S, D)
+    in the compute dtype.  ``kv_sink`` collects each layer's post-RoPE
+    (k, v) in order."""
+    check_ported(cfg)
+    x = params["embed"][tokens].to(compute_dtype(cfg))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x = ctx.shard(x, "dp", "sp", None)
+    for i in range(cfg.num_layers):
+        x = _dense_block(layer(params["layers"], i), x, cfg, ctx, positions,
+                         kv_sink=kv_sink)
+    return norm_apply(cfg.norm, params["ln_f"], x)
+
+
+def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
+                       ctx: ModelContext = NULL_CTX) -> torch.Tensor:
+    logits = x @ _lm_head(params, cfg).to(x.dtype)
+    return ctx.shard(logits, "dp", None, "tp")
+
+
+def forward(params: Params, cfg, tokens: torch.Tensor, *,
+            ctx: ModelContext = NULL_CTX) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in the compute dtype.
+
+    The reference also returns an aux loss, which is 0 for the dense family;
+    the port returns the logits alone."""
+    x = hidden_states(params, cfg, tokens, ctx=ctx)
+    return logits_from_hidden(params, cfg, x, ctx)
+
+
+# ---------------------------------------------------------------------------
+# module
+# ---------------------------------------------------------------------------
+
+_KEEP_DTYPE = ("scale", "bias")   # norm params: read in float32 by norm_apply
+
+
+def _flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+    tree: Params = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split("/")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = v
+    return tree
+
+
+class LM(nn.Module):
+    """Owns the stacked float32 parameters of one dense LM and calls the
+    functional code.
+
+    ``compute_params()`` is the tree the entry points pass on: in bf16
+    configs it holds one bf16 copy of every matrix, made once.  The reference
+    casts the same float32 values to bf16 at every product, so the copy is
+    bit-identical to that cast; norm scales stay float32, as
+    ``norm_apply`` reads them."""
+
+    def __init__(self, cfg, params: Params):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        self.weights = nn.ParameterDict({
+            path: nn.Parameter(t, requires_grad=False)
+            for path, t in _flatten(params).items()})
+        self._compute: Optional[Params] = None
+
+    @classmethod
+    def init(cls, cfg, seed: int = 0, *, device="cuda") -> "LM":
+        return cls(cfg, init_lm(cfg, seed, device=device))
+
+    @property
+    def params(self) -> Params:
+        return _unflatten(dict(self.weights.items()))
+
+    def compute_params(self) -> Params:
+        if self._compute is None:
+            dt = compute_dtype(self.cfg)
+            self._compute = _unflatten({
+                path: (w.detach() if path.rsplit("/", 1)[-1] in _KEEP_DTYPE
+                       else w.detach().to(dt))
+                for path, w in self.weights.items()})
+        return self._compute
+
+    def _apply(self, fn, *args, **kwargs):
+        self._compute = None          # .to() / .cuda(): the copy is remade
+        return super()._apply(fn, *args, **kwargs)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self.compute_params(), self.cfg, tokens)

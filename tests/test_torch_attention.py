@@ -1,0 +1,111 @@
+"""Port vs reference: attention.
+
+The port's ``kernels.ops.attention`` on CPU tensors runs the Hopper kernel's
+plain version; it is held against the reference's Pallas kernel
+(``attention(implementation="pallas")``, interpret mode on the CPU) on the
+shapes and masks of ``tests/test_kernels.py``, with its tolerances: float32
+2e-5, bf16 2e-2.  ``decode_attention`` is held against the reference's at
+float32 2e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ops import attention as jax_attention  # noqa: E402
+from repro.models import attention as ja  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import attention as ta  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, b, s, hq, hkv, hd, dtype):
+    """Same values for both frameworks: numpy normals rounded to `dtype`."""
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(seed)
+    out = []
+    for h in (hq, hkv, hkv):
+        x = jnp.asarray(rng.normal(size=(b, s, h, hd)), jdt)
+        out.append((x, torch.from_numpy(np.array(x, np.float32)).to(tdt)))
+    return out
+
+
+def _close(out, ref, tol):
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,hd", [
+    (2, 128, 4, 4, 32),     # MHA
+    (1, 256, 8, 2, 64),     # GQA
+    (2, 96, 4, 1, 16),      # MQA, ragged seq
+])
+def test_attention_matches_pallas(b, s, hq, hkv, hd, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(s + hq, b, s, hq, hkv, hd, dtype)
+    ref = jax_attention(jq, jk, jv, implementation="pallas",
+                        block_q=64, block_k=64)
+    out = ops.attention(tq, tk, tv)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(out, ref, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48)])
+def test_attention_masks_match_pallas(causal, window):
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(0, 1, 160, 2, 2, 32, "float32")
+    ref = jax_attention(jq, jk, jv, causal=causal, window=window,
+                        implementation="pallas", block_q=32, block_k=32)
+    out = ops.attention(tq, tk, tv, causal=causal, window=window)
+    _close(out, ref, 2e-5)
+
+
+def test_plain_matches_reference_attention_gqa_window():
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(4, 2, 72, 8, 2, 16, "float32")
+    ref = ja.reference_attention(jq, jk, jv, causal=True, window=20)
+    _close(fa.flash_attention_plain(tq, tk, tv, True, 20), ref, 2e-5)
+    _close(ta.reference_attention(tq, tk, tv, causal=True, window=20), ref,
+           2e-5)
+
+
+@pytest.mark.parametrize("window", [0, -3])
+def test_attention_rejects_empty_window(window):
+    t = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="window"):
+        ops.attention(t, t, t, window=window)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper launches the kernel or raises; it never computes on the
+    CPU itself (the dispatcher picks the plain version for CPU tensors)."""
+    t = torch.zeros(1, 8, 2, 16)
+    before = fa.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(t, t, t)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("cache_len", [1, 9, 16])
+def test_decode_attention_matches_reference(cache_len):
+    rng = np.random.default_rng(cache_len)
+    b, cap, hq, hkv, hd = 2, 16, 8, 2, 16
+    q = rng.normal(size=(b, 1, hq, hd)).astype(np.float32)
+    kc = rng.normal(size=(b, cap, hkv, hd)).astype(np.float32)
+    vc = rng.normal(size=(b, cap, hkv, hd)).astype(np.float32)
+    ref = ja.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                              jnp.asarray(cache_len, jnp.int32))
+    out = ta.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                              torch.from_numpy(vc), cache_len)
+    _close(out, ref, 2e-5)
+    # the same token as the last row of a full pass with a query offset
+    pos = cache_len - 1
+    full = ta.reference_attention(torch.from_numpy(q),
+                                  torch.from_numpy(kc[:, :cache_len]),
+                                  torch.from_numpy(vc[:, :cache_len]),
+                                  q_offset=pos)
+    _close(out, full.numpy(), 2e-5)

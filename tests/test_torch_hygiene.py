@@ -1,0 +1,96 @@
+"""The port stands alone and has no silent fallbacks.
+
+* no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
+  or anything of ``repro``;
+* the port has no ``try`` at all (so none around a kernel launch that could
+  fall back to the plain version) and calls no library attention or
+  ``torch.compile``;
+* entry points called without a device run on ``cuda`` and raise where no
+  card is present, instead of running on the CPU;
+* ``import repro_torch`` and every submodule import without a card, nvcc or
+  triton.
+"""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import kv_cache  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
+FORBIDDEN_CALLS = ("scaled_dot_product_attention", "torch.compile",
+                   "cudnn_attention", "flash_attn")
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    roots = set(_imported_roots(ast.parse(path.read_text())))
+    assert not roots & FORBIDDEN_ROOTS, (path, roots & FORBIDDEN_ROOTS)
+
+
+def test_package_has_no_try_and_no_library_attention():
+    for path in sorted(PKG.rglob("*.py")):
+        src = path.read_text()
+        tries = [n.lineno for n in ast.walk(ast.parse(src))
+                 if isinstance(n, ast.Try)]
+        assert not tries, (path, tries)
+        for name in FORBIDDEN_CALLS:
+            assert name not in src, (path, name)
+
+
+def test_every_module_imports_without_a_card():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")]
+    assert "repro_torch.kernels.flash_attention" in names
+    for name in names:
+        importlib.import_module(name)
+    assert build.sources()["flash_attention"].name == "flash_attention.cu"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: transformer.init_lm(cfg),
+    lambda cfg: transformer.LM.init(cfg),
+    lambda cfg: serve.make_prompts(cfg, 1, 4),
+    lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
+    lambda cfg: bridge.params_from_numpy({"w": np.zeros(2, np.float32)}),
+    lambda cfg: serve.main(["--reduced"]),
+], ids=["init_lm", "LM.init", "make_prompts", "init_decode_state",
+        "params_from_numpy", "serve.main"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg)
+
+
+def test_dispatch_has_no_path_for_other_devices():
+    t = torch.empty(1, 8, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no path"):
+        ops.attention(t, t, t)

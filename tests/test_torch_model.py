@@ -1,0 +1,128 @@
+"""Port vs reference: the dense LM forward on the reference's own params.
+
+JAX ``init_lm`` params of ``reduced(tinyllama-1.1b)`` go through
+``bridge.params_from_numpy`` into the port.  Float32 logits agree within
+1e-4 (the same float32 formulas; the attention is the kernel's plain
+version against ``blocked_attention``, which sums in another order).  In
+bf16 both round activations at every layer, in places that differ (the
+port keeps P in float32 for the PV product, ``blocked_attention`` rounds it
+to bf16), so the bound is the serving tests' atol 0.15 / rtol 0.05.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jcfg  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch import bridge, configs as tcfg  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+
+def _jax_params(cfg):
+    return jax.tree_util.tree_map(np.asarray,
+                                  JT.init_lm(cfg, jax.random.PRNGKey(0)))
+
+
+def _cfgs(dtype):
+    jc = jcfg.reduced(jcfg.get_config("tinyllama-1.1b"), dtype=dtype)
+    tc = tcfg.reduced(tcfg.get_config("tinyllama-1.1b"), dtype=dtype)
+    return jc, tc
+
+
+def _tokens(cfg, b=2, s=24, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.get_config("tinyllama-1.1b"),
+    lambda m: m.reduced(m.get_config("tinyllama-1.1b")),
+    lambda m: m.reduced(m.get_config("tinyllama-1.1b"), dtype="float32",
+                        num_layers=3),
+], ids=["full", "reduced", "reduced-f32"])
+def test_config_copy_matches_reference(make):
+    ref, port = make(jcfg), make(tcfg)
+    names = [f.name for f in dataclasses.fields(ref)]
+    assert [f.name for f in dataclasses.fields(port)] == names
+    for n in names:
+        assert getattr(port, n) == getattr(ref, n), n
+    assert port.head_dim_ == ref.head_dim_
+    assert port.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 1e-4, 1e-4),
+                                             ("bfloat16", 0.15, 0.05)])
+def test_forward_matches_reference(dtype, atol, rtol):
+    jc, tc = _cfgs(dtype)
+    npp = _jax_params(jc)
+    toks = _tokens(jc)
+    ref, _ = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
+                        jnp.asarray(toks, jnp.int32))
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    out = lm(torch.as_tensor(toks))
+    assert out.dtype == (torch.float32 if dtype == "float32"
+                         else torch.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+def test_params_round_trip_exact():
+    jc, _ = _cfgs("float32")
+    npp = _jax_params(jc)
+    back = bridge.params_to_numpy(bridge.params_from_numpy(npp, device="cpu"))
+    flat = jax.tree_util.tree_leaves_with_path(npp)
+    assert len(flat) == len(jax.tree_util.tree_leaves(back))
+    for path, leaf in flat:
+        node = back
+        for key in path:
+            node = node[key.key]
+        assert node.dtype == leaf.dtype and np.array_equal(node, leaf), path
+
+
+def test_bf16_bridge_round_trip_is_exact_on_bf16_values():
+    npp = {"w": np.asarray(jnp.asarray(
+        np.random.default_rng(0).normal(size=(4, 8)), jnp.bfloat16),
+        np.float32)}
+    t = bridge.params_from_numpy(npp, device="cpu", dtype=torch.bfloat16)
+    assert t["w"].dtype == torch.bfloat16
+    assert np.array_equal(bridge.params_to_numpy(t)["w"], npp["w"])
+
+
+def test_port_init_has_reference_layout():
+    jc, tc = _cfgs("float32")
+    ref = _jax_params(jc)
+    port = bridge.params_to_numpy(TT.init_lm(tc, seed=0, device="cpu"))
+    jshapes = jax.tree_util.tree_map(np.shape, ref)
+    pshapes = jax.tree_util.tree_map(np.shape, port)
+    assert pshapes == jshapes
+
+
+def test_compute_params_keep_norms_f32_and_cast_matrices():
+    _, tc = _cfgs("bfloat16")
+    lm = TT.LM.init(tc, seed=3, device="cpu")
+    cp = lm.compute_params()
+    assert cp["layers"]["ln1"]["scale"].dtype == torch.float32
+    assert cp["ln_f"]["scale"].dtype == torch.float32
+    for w in (cp["embed"], cp["lm_head"], cp["layers"]["attn"]["wq"],
+              cp["layers"]["mlp"]["w_down"]):
+        assert w.dtype == torch.bfloat16
+    assert torch.equal(cp["layers"]["attn"]["wo"],
+                       lm.params["layers"]["attn"]["wo"].to(torch.bfloat16))
+    assert lm.compute_params() is cp          # made once
+
+
+@pytest.mark.parametrize("arch_family", ["moe", "ssm", "hybrid", "audio"])
+def test_unported_families_raise(arch_family):
+    cfg = dataclasses.replace(
+        tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family=arch_family,
+        is_encoder_decoder=arch_family == "audio")
+    with pytest.raises(NotImplementedError, match="slice 1"):
+        TT.init_lm(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 1"):
+        TT.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
