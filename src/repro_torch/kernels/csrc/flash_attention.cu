@@ -14,9 +14,12 @@
 // src/repro/models/attention.py:119).  Inputs are read in their (B, S, H, hd)
 // layout through strides: no transpose or pad copy.
 //   bf16: both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//         f32 accumulate).  P is rounded to bf16 before the PV product, as
-//         blocked_attention does (attention.py:94); the Pallas kernel keeps it
-//         in f32, so the two differ at bf16 rounding (~1e-2).
+//         f32 accumulate).  The Pallas kernel keeps P in f32 for the PV
+//         product (it upcasts V), so P is split into P_hi = bf16(P) and
+//         P_lo = bf16(P - P_hi) and both halves go through mma.sync into the
+//         same f32 accumulator: P keeps ~16 mantissa bits, V is exact, and
+//         the output agrees with the f32-P plain version to its own bf16
+//         rounding.  This doubles the PV products and keeps P in registers.
 //   fp32: both products as plain f32 FMAs (no TF32), P through shared memory.
 //
 // Bound on the H100 at the serving path's shape (B=4, S=2048, Hq=32, Hkv=4,
@@ -77,6 +80,15 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two packed bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), so
+// that hi + lo carries x to ~16 mantissa bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // D += A(16x16, row) * B(16x8, col), bf16 inputs, f32 accumulators.
@@ -272,17 +284,22 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
     // O += P V
     if constexpr (P::kBF16) {
       // the accumulator layout of two adjacent n-tiles is the A-fragment
-      // layout of one 16-wide k step: P never leaves registers
+      // layout of one 16-wide k step: P never leaves registers.  P goes in
+      // as P_hi + P_lo (two products into one accumulator), keeping its f32
+      // precision as the Pallas kernel does
 #pragma unroll
       for (int t = 0; t < BK / 16; ++t) {
-        const uint32_t a[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                               pack_bf16(s[2 * t][2], s[2 * t][3]),
-                               pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                               pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+        uint32_t a_hi[4], a_lo[4];
+        split_bf16(s[2 * t][0], s[2 * t][1], a_hi[0], a_lo[0]);
+        split_bf16(s[2 * t][2], s[2 * t][3], a_hi[1], a_lo[1]);
+        split_bf16(s[2 * t + 1][0], s[2 * t + 1][1], a_hi[2], a_lo[2]);
+        split_bf16(s[2 * t + 1][2], s[2 * t + 1][3], a_hi[3], a_lo[3]);
 #pragma unroll
         for (int dt = 0; dt < HD / 8; ++dt) {
           const T* vb = v_s + (dt * 8 + group) * P::VTSTR + t * 16 + tig * 2;
-          mma_bf16(o_acc[dt], a, ld_pair(vb), ld_pair(vb + 8));
+          const uint32_t b0 = ld_pair(vb), b1 = ld_pair(vb + 8);
+          mma_bf16(o_acc[dt], a_hi, b0, b1);
+          mma_bf16(o_acc[dt], a_lo, b0, b1);
         }
       }
     } else {

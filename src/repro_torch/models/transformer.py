@@ -12,7 +12,7 @@ Only the dense family is ported in this slice; the others raise
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -113,13 +113,15 @@ def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *,
-            ctx: ModelContext = NULL_CTX) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) in the compute dtype.
+            ctx: ModelContext = NULL_CTX
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss).
 
-    The reference also returns an aux loss, which is 0 for the dense family;
-    the port returns the logits alone."""
+    As in the reference, the aux loss is a float32 scalar, 0 for the dense
+    family (only MoE layers add to it)."""
     x = hidden_states(params, cfg, tokens, ctx=ctx)
-    return logits_from_hidden(params, cfg, x, ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return logits_from_hidden(params, cfg, x, ctx), aux
 
 
 # ---------------------------------------------------------------------------
@@ -191,4 +193,5 @@ class LM(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.compute_params(), self.cfg, tokens)
+        """tokens (B, S) -> logits (B, S, V); the aux loss is dropped."""
+        return forward(self.compute_params(), self.cfg, tokens)[0]

@@ -65,6 +65,32 @@ def test_attention_masks_match_pallas(causal, window):
     _close(out, ref, 2e-5)
 
 
+def _bf16_ulp_bound(ref):
+    """One bf16 ulp of |ref|, at least 8e-3 (the ulp below 2)."""
+    mag = np.maximum(np.abs(ref), 1e-30)
+    return np.maximum(8e-3, 2.0 ** (np.floor(np.log2(mag)) - 7))
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,window", [
+    (2, 128, 4, 4, 32, None),
+    (1, 256, 8, 2, 64, None),
+    (2, 96, 4, 1, 16, None),
+    (1, 320, 4, 2, 64, 48),
+])
+def test_bf16_attention_follows_the_pallas_path(b, s, hq, hkv, hd, window):
+    """Of the reference's two bf16 paths, the port follows the Pallas
+    kernel, which keeps P in float32, and not ``blocked_attention``, which
+    rounds P to bf16 (attention.py:94): in bf16 the two agree to the
+    output's own rounding, one bf16 ulp (8e-3 where |o| < 2)."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(s + hd, b, s, hq, hkv, hd,
+                                           "bfloat16")
+    ref = np.asarray(jax_attention(jq, jk, jv, window=window,
+                                   implementation="pallas", block_q=64,
+                                   block_k=64), np.float32)
+    out = ops.attention(tq, tk, tv, window=window).float().numpy()
+    assert (np.abs(out - ref) <= _bf16_ulp_bound(ref)).all()
+
+
 def test_plain_matches_reference_attention_gqa_window():
     (jq, tq), (jk, tk), (jv, tv) = _inputs(4, 2, 72, 8, 2, 16, "float32")
     ref = ja.reference_attention(jq, jk, jv, causal=True, window=20)

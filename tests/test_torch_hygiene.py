@@ -23,7 +23,9 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch import bridge, configs  # noqa: E402
+from repro_torch import core  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import phase_max as pm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
@@ -64,10 +66,15 @@ def test_package_has_no_try_and_no_library_attention():
 def test_every_module_imports_without_a_card():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")]
-    assert "repro_torch.kernels.flash_attention" in names
+    for need in ("repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.phase_max", "repro_torch.core.fairshare",
+                 "repro_torch.core.simulator", "repro_torch.core.batched",
+                 "repro_torch.core.strategies.builtin"):
+        assert need in names
     for name in names:
         importlib.import_module(name)
     assert build.sources()["flash_attention"].name == "flash_attention.cu"
+    assert build.sources()["phase_max"].name == "phase_max.cu"
 
 
 @pytest.fixture
@@ -88,6 +95,31 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(cfg)
+
+
+_VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: core.simulate(core.CLUSTER512, [], "ecmp"),
+    lambda: core.ClusterSimulator(core.CLUSTER512, strategy="best"),
+    lambda: core.run_lanes(core.CLUSTER512, []),
+    lambda: core.phase_worst_loads(_VALS, _PTR),
+    lambda: core.maxmin_fair_torch([["a"], ["a", "b"]]),
+    lambda: core.maxmin_fair([["a"]], backend="torch"),
+], ids=["simulate", "ClusterSimulator", "run_lanes", "phase_worst_loads",
+        "maxmin_fair_torch", "maxmin_fair[torch]"])
+def test_simulator_entry_points_default_to_cuda_and_raise(no_card, entry):
+    before = pm.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    assert pm.launches == before
+
+
+def test_simulator_runs_on_cpu_only_when_asked():
+    jobs = core.generate_trace(core.WorkloadSpec(num_jobs=5, max_gpus=8))
+    rep = core.simulate(core.CLUSTER512, jobs, "ecmp", device="cpu")
+    assert rep.n_finished == 5
 
 
 def test_dispatch_has_no_path_for_other_devices():

@@ -61,8 +61,8 @@ def test_forward_matches_reference(dtype, atol, rtol):
     jc, tc = _cfgs(dtype)
     npp = _jax_params(jc)
     toks = _tokens(jc)
-    ref, _ = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
-                        jnp.asarray(toks, jnp.int32))
+    ref, ref_aux = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
+                              jnp.asarray(toks, jnp.int32))
     lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
     out = lm(torch.as_tensor(toks))
     assert out.dtype == (torch.float32 if dtype == "float32"
@@ -70,6 +70,11 @@ def test_forward_matches_reference(dtype, atol, rtol):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), atol=atol,
                                rtol=rtol)
+    # the functional forward returns (logits, aux) like the reference
+    logits, aux = TT.forward(lm.compute_params(), tc, torch.as_tensor(toks))
+    assert torch.equal(logits, out)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert aux.item() == float(ref_aux) == 0.0
 
 
 def test_params_round_trip_exact():

@@ -89,8 +89,8 @@ def test_decode_matches_teacher_forced_forward_bf16():
     lm = LM(tc, tp)
     prompts = tserve.make_prompts(tc, 2, 12, seed=4, device="cpu")
     res = tserve.generate(lm, prompts, gen=5)
-    full = forward(lm.compute_params(), tc,
-                   torch.cat([prompts, res.tokens[:, :-1]], dim=1))
+    full, _ = forward(lm.compute_params(), tc,
+                      torch.cat([prompts, res.tokens[:, :-1]], dim=1))
     _close(res.last_logits[:, 0].float(), full[:, -1].float().numpy(),
            tol=0.05)
     assert res.tokens.shape == (2, 5)
