@@ -18,15 +18,26 @@ Phases, in order; any failure exits non-zero before the result line:
                max at the lane engine's dispatch shapes, empty segments and
                values, ties and negatives, int64 extremes and one
                1,000,000-value segment, bit-exact against its plain version
-               and numpy.
+               and numpy; the RWKV6 chunked recurrence at the serving path's
+               shape (B·H 160, T 2048, K = V = 64, chunk 16, with and without
+               an initial state) and at every K / V in {8, ..., 128}, chunks
+               1 to 64 (12 and 7 among them) and mask kind, output and final
+               state within 1e-4.
   4. serve   — full-width tinyllama-1.1b (22 layers, seeded random weights,
                bf16) through ``repro_torch.launch.serve.generate``: prefill of
                4 x 2048 tokens and 32 greedy decode steps.  The kernel must be
-               launched once per layer by prefill.  Then a teacher-forced
+               launched once per layer by prefill, never in decode, and the
+               other kernels never.  Then a teacher-forced
                forward over prompt + generated tokens must reproduce the last
                decode logits.  torch.profiler then traces one prefill and 8
                decode steps: wall time, kernel time, device idle share and
                the kernels that take the most device time.
+  4b. serve-ssm — the same for full-width, full-depth rwkv6-3b (32 layers,
+               d_model 2560, seeded random weights, bf16): 4 x 2048 prompt,
+               32 greedy decode steps.  The recurrence kernel must be
+               launched 32 times per prefill and 32 times by the
+               teacher-forced forward, 0 times in decode; flash attention
+               and the segment max 0 times.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel: the
                golden trace (200 jobs, CLUSTER512, v2 engine) for ecmp / sr /
@@ -42,7 +53,9 @@ Phases, in order; any failure exits non-zero before the result line:
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
                events); the segment max at the grid's p50 / p90 / max calls,
-               with its numpy-to-numpy round trip and host numpy beside it.
+               with its numpy-to-numpy round trip and host numpy beside it;
+               the recurrence at its serving shape (no single PyTorch call
+               computes it, so it has no library time).
 The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +84,9 @@ GRID_JOBS, GRID_MAX_GPUS, GRID_SOLVES = 400, 64, 795
 # (benchmarks/bench_fairshare.py BATCHED_DISPATCH_SHAPES)
 DISPATCH_SHAPES = (("p50", 3345, 62), ("p90", 22652, 398),
                    ("max", 43593, 753))
+# the recurrence kernel's shape on the rwkv6-3b serving path: (B, H, T, K, V)
+# and the chunk hidden_states picks for a 2048-token prompt (_fit_chunk)
+RWKV_PATH, RWKV_CHUNK = (BATCH, 40, PROMPT, 64, 64), 16
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # Kernel vs plain: bf16 — both keep P in float32 (the kernel as bf16 hi + lo
@@ -80,6 +96,12 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 BF16_TOL, F32_TOL = 8e-3, 1e-4
 # Decode vs teacher-forced forward, bf16 (tests/test_serve.py:60-62).
 SERVE_ATOL, SERVE_RTOL = 0.15, 0.05
+# profiled device time by kind of kernel (name fragments); the rest is
+# PyTorch's elementwise, copy and reduction kernels
+KERNEL_KINDS = {"recurrence": ("rwkv6_chunked",), "attention": ("attn_fwd",),
+                "segment max": ("segment_max",),
+                "gemm": ("nvjet", "gemm", "gemv", "cutlass", "sm90_xmma"),
+                "copies": ("Memcpy", "Memset")}
 
 
 def log(msg: str) -> None:
@@ -118,19 +140,53 @@ def bound(q, k, v, causal, window):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def rwkv6_bound(bh: int, t: int, dk: int, dv: int, chunk: int,
+                exclusive: bool, with_state: bool):
+    """Least time of one recurrence call: max(live float32 operations / peak,
+    bytes / memory rate).  Per chunk: the live score pairs times K and V,
+    the cross-chunk read and the state update (C·K·V FMAs each) and the
+    decay scaling of S; each input read once, output and S written once."""
+    nc = t // chunk
+    pairs = chunk * (chunk - 1) // 2 if exclusive else chunk * (chunk + 1) // 2
+    flops = bh * nc * (2 * pairs * (dk + dv) + 4 * chunk * dk * dv + dk * dv)
+    nbytes = 4 * bh * (4 * t * dk + 2 * t * dv + nc * dk
+                       + dk * dv * (2 if with_state else 1))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def serve_bounds(cfg, batch: int, prompt: int, steps: int):
     """Least time of the served path on the card, from its shapes.
 
     Prefill: the bf16 products of every layer matrix over all prompt tokens,
     the live attention pairs, and the lm_head at the last position, over the
-    bf16 peak.  A decode step: the bytes it must read, i.e. every matrix
-    once (bf16) plus the valid part of the KV cache (its mean over the
-    steps), over the memory rate.  Returns (prefill_ms, decode_ms_per_step).
+    bf16 peak; for the ssm family, plus one recurrence bound per layer (its
+    float32 work cannot use the bf16 peak).  A decode step: the bytes it
+    must read, i.e. every matrix once (bf16) plus the valid part of the KV
+    cache (its mean over the steps) or the float32 recurrent state (read and
+    written), over the memory rate.  Returns (prefill_ms,
+    decode_ms_per_step, the recurrence's share of prefill_ms).
     """
-    d, hd = cfg.d_model, cfg.head_dim_
+    d, L = cfg.d_model, cfg.num_layers
+    if cfg.family == "ssm":
+        from repro_torch.models.transformer import _fit_chunk
+        hd = cfg.rwkv_head_dim
+        heads = d // hd
+        # r, k, v, g and the low-rank decay are products; w_o only scales
+        # channels by its row sums (ssm.py:281), so it is read, not multiplied
+        prod = 4 * d * d + 2 * d * 64 + 2 * d * cfg.d_ff
+        head = d * cfg.vocab_size
+        rec_ms = L * rwkv6_bound(batch * heads, prompt, hd, hd,
+                                 _fit_chunk(prompt, 16), True, False)[0]
+        prefill = 2 * L * prod * batch * prompt + 2 * head * batch
+        state = L * batch * (heads * hd * hd * 4 * 2 + 2 * d * 2 * 2)
+        decode = 2 * (L * (prod + d * d) + head) + state
+        return (prefill / PEAK_BF16_FLOPS * 1e3 + rec_ms,
+                decode / PEAK_BYTES * 1e3, rec_ms)
+    hd = cfg.head_dim_
     per_layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
                  + 3 * d * cfg.d_ff)
-    mats = cfg.num_layers * per_layer
+    mats = L * per_layer
     head = d * cfg.vocab_size
     attn = (cfg.num_layers * 4 * hd * cfg.num_heads * batch
             * live_pairs(prompt, prompt, True, None))
@@ -138,7 +194,7 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
     kv = cfg.num_layers * 2 * batch * (prompt + steps / 2) \
         * cfg.num_kv_heads * hd
     decode = 2 * (mats + head + kv)
-    return prefill / PEAK_BF16_FLOPS * 1e3, decode / PEAK_BYTES * 1e3
+    return prefill / PEAK_BF16_FLOPS * 1e3, decode / PEAK_BYTES * 1e3, 0.0
 
 
 def bf16_bound(ref):
@@ -186,7 +242,18 @@ def device_profile(label: str, fn, top: int = 6):
         f"device idle share {idle:.3f}")
     for ms, count, key in rows[:top]:
         log(f"profile {label}:   {ms:9.3f} ms {count:6d}x {key[:90]}")
+    split = dict.fromkeys([*KERNEL_KINDS, "other"], 0.0)
+    for ms, _, key in rows:
+        split[next((kind for kind, marks in KERNEL_KINDS.items()
+                    if any(m in key for m in marks)), "other")] += ms
+    log(f"profile {label}: device ms by kind: " + ", ".join(
+        f"{kind} {ms:.3f}" for kind, ms in split.items() if ms))
     return wall_ms, rows
+
+
+def allclose_margin(out, ref, atol: float, rtol: float) -> float:
+    """max |out - ref| / (atol + rtol |ref|): allclose holds iff <= 1."""
+    return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
 def profile_serve(lm, prompts, tokens) -> None:
@@ -253,6 +320,177 @@ def check_phase_max(dev) -> float:
             fail(f"phase_max {name}: kernel {out[:8]} plain {plain[:8]} "
                  f"numpy {want[:8]}")
     return 0.0
+
+
+def rwkv6_case_inputs(dev, shape, chunk, exclusive, decay, seed):
+    """The kernel's inputs, precomputed by ``ops.rwkv6_inputs`` from normal
+    q, k, v and a log decay that is either the model's kind ("model":
+    -exp(N(-0.5, 1)), the clamp at -4 active) or tests/test_kernels.py's
+    ("mild": log U(0.3, 1))."""
+    import torch
+    from repro_torch.kernels import ops
+    b, h, t, dk, dv = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    q, k, v = normal(b, h, t, dk), normal(b, h, t, dk), normal(b, h, t, dv)
+    if decay == "model":
+        ld = -torch.exp(normal(b, h, t, dk) - 0.5)
+    else:
+        ld = torch.log(0.3 + 0.7 * torch.rand((b, h, t, dk), generator=gen,
+                                              device=dev))
+    return ops.rwkv6_inputs(q, k, v, ld, chunk=chunk, exclusive=exclusive)
+
+
+RWKV_CASES = [  # name, (B, H, T, K, V), chunk, exclusive, initial state, decay
+    ("path", RWKV_PATH, RWKV_CHUNK, True, False, "model"),
+    ("path-s0", RWKV_PATH, RWKV_CHUNK, True, True, "model"),
+    ("reduced", (2, 4, 64, 16, 16), 16, True, False, "model"),
+    ("k8-inclusive", (2, 4, 64, 8, 8), 16, False, False, "mild"),
+    ("k32-c8", (2, 4, 64, 32, 32), 8, True, True, "model"),
+    ("k128-c64", (2, 4, 256, 128, 128), 64, False, True, "mild"),
+    ("mamba2-k64-v128", (2, 4, 256, 64, 128), 16, False, False, "model"),
+    ("k128-v8-c2", (1, 4, 64, 128, 8), 2, True, False, "model"),
+    ("k8-v128-c32", (1, 4, 64, 8, 128), 32, False, False, "mild"),
+    ("k64-c64-excl", (2, 4, 128, 64, 64), 64, True, False, "mild"),
+    # the chunks _fit_chunk gives 12-, 7- and 17-token prompts
+    ("t12-c12", (2, 4, 12, 64, 64), 12, True, True, "model"),
+    ("t7-c7", (2, 4, 7, 16, 16), 7, True, True, "model"),
+    ("t17-c1", (2, 4, 17, 16, 16), 1, True, True, "model"),
+]
+
+
+def check_rwkv6(dev) -> float:
+    """The recurrence kernel against its plain version: output and final
+    state within F32_TOL.  Returns the output's max abs error at the path's
+    shape."""
+    import torch
+    from repro_torch.kernels import rwkv6 as kr
+    path_err = None
+    for i, (name, shape, chunk, excl, with_s0, decay) in enumerate(RWKV_CASES):
+        b, h, _, dk, dv = shape
+        ins = rwkv6_case_inputs(dev, shape, chunk, excl, decay, seed=100 + i)
+        s0 = torch.randn((b * h, dk, dv), device=dev) if with_s0 else None
+        out, S = kr.rwkv6_chunked(*ins, chunk=chunk, exclusive=excl,
+                                  initial_state=s0)
+        torch.cuda.synchronize()
+        ref, ref_S = kr.rwkv6_chunked_plain(*ins, chunk=chunk, exclusive=excl,
+                                            initial_state=s0)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        s_err = (S - ref_S).abs().max().item()
+        ok = (bool(torch.isfinite(out).all() and torch.isfinite(S).all())
+              and torch.allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
+              and torch.allclose(S, ref_S, atol=F32_TOL, rtol=F32_TOL))
+        log(f"rwkv6 {name:16s} B·H {b * h:4d} T {shape[2]:5d} K {dk:3d} V "
+            f"{dv:3d} C {chunk:2d} {'exclusive' if excl else 'inclusive'} "
+            f"s0 {'yes' if with_s0 else 'no '} max_abs_err out {err:.3e} S "
+            f"{s_err:.3e} (tol {F32_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"rwkv6 {name}: kernel disagrees with its plain version "
+                 f"(out {err:.3e}, S {s_err:.3e}, tol {F32_TOL:g})")
+        if name == "path":
+            path_err = err
+        del ins, out, S, ref, ref_S
+    torch.cuda.empty_cache()
+    return path_err
+
+
+def kernel_counters():
+    """Each kernel's wrapper module under its name in the kernels line; its
+    ``launches`` counts the kernel's launches since the last reset."""
+    from repro_torch.kernels import flash_attention, phase_max, rwkv6
+    return {"flash_attention": flash_attention, "phase_max": phase_max,
+            "rwkv6_chunked": rwkv6}
+
+
+def serve_phase(dev, arch: str, kernel: str) -> int:
+    """Phases 4 and 4b: full-width ``arch`` (seeded random weights) through
+    ``generate``.  ``kernel`` must launch once per layer in a prefill, never
+    in decode and once per layer in the teacher-forced forward; every other
+    kernel never.  Returns ``kernel``'s launches in the main run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models.transformer import LM
+
+    mods = kernel_counters()
+    counter = mods[kernel]
+    cfg = get_config(arch)
+    lm = LM.init(cfg, seed=0, device=dev)
+    prompts = make_prompts(cfg, BATCH, PROMPT, seed=0, device=dev)
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+             f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
+             f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
+             f"{cfg.head_dim_}")
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}")
+    generate(lm, prompts, 2)          # warm-up: allocator, cuBLAS, kernel
+    counter.launches = 0
+    generate(lm, prompts, 1)          # a prefill alone
+    per_prefill = counter.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    res = generate(lm, prompts, DECODE_STEPS + 1)
+    launches = counter.launches
+    others = {name: mod.launches for name, mod in mods.items()
+              if name != kernel}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{cfg.name} prefill {BATCH}x{PROMPT}: {res.prefill_s * 1e3:.2f} ms; "
+        f"decode {res.decode_s / DECODE_STEPS * 1e3:.3f} ms/step, "
+        f"{DECODE_STEPS * BATCH / res.decode_s:.1f} tok/s; "
+        f"peak memory {peak_gb:.2f} GiB")
+    pre_bound, dec_bound, rec_ms = serve_bounds(cfg, BATCH, PROMPT,
+                                                DECODE_STEPS)
+    pre_how = (f"{pre_bound - rec_ms:.3f} ms of bf16 products at 989 TFLOP/s"
+               f" + {rec_ms:.3f} ms for {cfg.num_layers} recurrence calls at "
+               f"their bound" if rec_ms else "operations")
+    log(f"{cfg.name} serve bounds on the card: prefill {pre_bound:.3f} ms "
+        f"({pre_how}), decode {dec_bound:.4f} ms/step (bytes); measured / "
+        f"bound: prefill {res.prefill_s * 1e3 / pre_bound:.2f}x, decode "
+        f"{res.decode_s / DECODE_STEPS * 1e3 / dec_bound:.1f}x")
+    log(f"{kernel} launches on the {cfg.name} path: {per_prefill} per prefill"
+        f" alone, {launches} in prefill + {DECODE_STEPS} decode steps; other "
+        f"kernels {others}")
+    if per_prefill != cfg.num_layers or launches != cfg.num_layers:
+        fail(f"{kernel} launches: {per_prefill} per prefill and {launches} "
+             f"with decode, expected one per layer ({cfg.num_layers}) and "
+             f"none in decode")
+    if any(others.values()):
+        fail(f"{cfg.name} serving launched other kernels: {others}")
+    if tuple(res.tokens.shape) != (BATCH, DECODE_STEPS + 1):
+        fail(f"{cfg.name} generated tokens of shape "
+             f"{tuple(res.tokens.shape)}")
+    if not bool(torch.isfinite(res.last_logits.float()).all()):
+        fail(f"{cfg.name} decode logits are not finite")
+
+    before = counter.launches
+    with torch.inference_mode():
+        full = lm(torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1]
+    torch.cuda.synchronize()
+    tf_launches = counter.launches - before
+    dec = res.last_logits[:, 0].float()
+    err = (full.float() - dec).abs().max().item()
+    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
+    margin = allclose_margin(full.float(), dec, SERVE_ATOL, SERVE_RTOL)
+    log(f"{cfg.name} teacher-forced forward vs last decode logits: "
+        f"max_abs_err {err:.4f} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}; worst "
+        f"error / tolerance {margin:.3f}); argmax agreement {agree:.2f}; "
+        f"{kernel} launches {tf_launches}")
+    if tf_launches != cfg.num_layers:
+        fail(f"teacher-forced forward launched {kernel} {tf_launches} times")
+    if not torch.allclose(full.float(), dec, atol=SERVE_ATOL, rtol=SERVE_RTOL):
+        fail(f"{cfg.name} decode logits disagree with the teacher-forced "
+             f"forward")
+    del full
+    profile_serve(lm, prompts, res.tokens)
+    del lm, res, prompts
+    torch.cuda.empty_cache()
+    return launches
 
 
 def grid_lanes():
@@ -483,12 +721,10 @@ def main() -> None:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; the port's smoke run needs the card")
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import phase_max as pm
-    from repro_torch.launch.serve import generate, make_prompts
-    from repro_torch.models.transformer import LM
+    from repro_torch.kernels import rwkv6 as kr
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -514,6 +750,9 @@ def main() -> None:
         sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per CTA "
             f"(bytes, by head_dim): {sizes}")
+    log(f"rwkv6 dynamic shared memory per CTA (bytes): K = V = 64, chunk "
+        f"{RWKV_CHUNK}: {kr.smem_bytes(64, 64, RWKV_CHUNK)}; K = V = 128, "
+        f"chunk 64: {kr.smem_bytes(128, 128, 64)}")
 
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -565,68 +804,24 @@ def main() -> None:
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     pm_err = check_phase_max(dev)
+    rwkv_err = check_rwkv6(dev)
 
     # 4. the main path: full-width tinyllama-1.1b serving -------------------
-    cfg = get_config("tinyllama-1.1b")
-    lm = LM.init(cfg, seed=0, device=dev)
-    prompts = make_prompts(cfg, BATCH, PROMPT, seed=0, device=dev)
-    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}")
-    generate(lm, prompts, 2)          # warm-up: allocator, cuBLAS, kernel
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = pm.launches = 0
-    res = generate(lm, prompts, DECODE_STEPS + 1)
-    launches = fa.launches
-    if pm.launches:
-        fail(f"serving launched the segment-max kernel {pm.launches} times")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"prefill {BATCH}x{PROMPT}: {res.prefill_s * 1e3:.2f} ms; "
-        f"decode {res.decode_s / DECODE_STEPS * 1e3:.3f} ms/step, "
-        f"{DECODE_STEPS * BATCH / res.decode_s:.1f} tok/s; "
-        f"peak memory {peak_gb:.2f} GiB")
-    pre_bound, dec_bound = serve_bounds(cfg, BATCH, PROMPT, DECODE_STEPS)
-    log(f"serve bounds on the card: prefill {pre_bound:.3f} ms (operations), "
-        f"decode {dec_bound:.4f} ms/step (bytes); measured / bound: prefill "
-        f"{res.prefill_s * 1e3 / pre_bound:.2f}x, decode "
-        f"{res.decode_s / DECODE_STEPS * 1e3 / dec_bound:.1f}x")
-    log(f"flash_attention launches on the serve path: {launches}")
-    if launches != cfg.num_layers:
-        fail(f"prefill launched the kernel {launches} times, expected one per "
-             f"layer ({cfg.num_layers})")
-    if tuple(res.tokens.shape) != (BATCH, DECODE_STEPS + 1):
-        fail(f"generated tokens of shape {tuple(res.tokens.shape)}")
-    if not bool(torch.isfinite(res.last_logits.float()).all()):
-        fail("decode logits are not finite")
+    launches = serve_phase(dev, "tinyllama-1.1b", "flash_attention")
 
-    with torch.inference_mode():
-        full = lm(torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1]
-    torch.cuda.synchronize()
-    tf_launches = fa.launches - launches
-    dec = res.last_logits[:, 0].float()
-    err = (full.float() - dec).abs().max().item()
-    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
-    log(f"teacher-forced forward vs last decode logits: max_abs_err {err:.4f} "
-        f"(atol {SERVE_ATOL}, rtol {SERVE_RTOL}); argmax agreement "
-        f"{agree:.2f}; kernel launches {tf_launches}")
-    if tf_launches != cfg.num_layers:
-        fail(f"teacher-forced forward launched the kernel {tf_launches} times")
-    if not torch.allclose(full.float(), dec, atol=SERVE_ATOL, rtol=SERVE_RTOL):
-        fail("decode logits disagree with the teacher-forced forward")
-    del full
-    profile_serve(lm, prompts, res.tokens)
-    del lm, res
-    torch.cuda.empty_cache()
+    # 4b. the recurrence's path: full-width rwkv6-3b serving ----------------
+    rwkv_launches = serve_phase(dev, "rwkv6-3b", "rwkv6_chunked")
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
-    fa.launches = pm.launches = 0
+    fa.launches = pm.launches = kr.launches = 0
     golden_launches = simulate_golden()
     grid_launches, picks = simulate_grid()
     pm_launches = golden_launches + grid_launches
     log(f"phase_max launches on the simulate path: {pm_launches} (golden "
         f"trace {golden_launches}, grid {grid_launches})")
-    if fa.launches:
-        fail(f"the simulator launched flash attention {fa.launches} times")
+    if fa.launches or kr.launches:
+        fail(f"the simulator launched flash attention {fa.launches} and the "
+             f"recurrence {kr.launches} times")
 
     # 6. timing at the paths' shapes ----------------------------------------
     q, k, v = qkv(BATCH, PROMPT, 32, 4, 64, torch.bfloat16)
@@ -652,6 +847,19 @@ def main() -> None:
 
     pm_row = time_phase_max(picks, smi)
 
+    ins = rwkv6_case_inputs(dev, RWKV_PATH, RWKV_CHUNK, True, "model", 0)
+    rwkv_ms = time_ms(lambda: kr.rwkv6_chunked(*ins, chunk=RWKV_CHUNK))
+    rwkv_plain_ms = time_ms(lambda: kr.rwkv6_chunked_plain(
+        *ins, chunk=RWKV_CHUNK), iters=3)
+    b, h, t, dk, dv = RWKV_PATH
+    rwkv_bound_ms, rwkv_by = rwkv6_bound(b * h, t, dk, dv, RWKV_CHUNK, True,
+                                         False)
+    log(f"rwkv6 at the path's shape (B·H {b * h}, T {t}, K {dk}, V {dv}, "
+        f"chunk {RWKV_CHUNK}, exclusive): kernel {rwkv_ms:.4f} ms, plain "
+        f"{rwkv_plain_ms:.4f} ms, bound {rwkv_bound_ms:.4f} ms ({rwkv_by}); "
+        f"no single PyTorch call computes it (library none); {smi}")
+    del ins
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -669,6 +877,14 @@ def main() -> None:
         "plain_ms": pm_row["plain_ms"], "bound_ms": pm_row["bound_ms"],
         "bound_by": "bytes", "library_ms": pm_row["library_ms"],
         "shape": "the grid's p50 call",
+    }, {
+        "name": "rwkv6_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:31",
+        "launches": rwkv_launches, "max_abs_err": rwkv_err,
+        "ms": rwkv_ms, "kernel_ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
+        "bound_ms": rwkv_bound_ms, "bound_by": rwkv_by, "library_ms": None,
+        "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk {RWKV_CHUNK}",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,8 @@
-"""Serving launcher: batched greedy decoding with a KV cache.
+"""Serving launcher: batched greedy decoding with a KV cache (dense) or a
+recurrent state (ssm).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Runs on the card unless ``--device cpu`` is given.  The first generated
@@ -21,6 +23,7 @@ import torch
 from ..configs import get_config, reduced
 from ..device import resolve_device
 from ..kernels import flash_attention as fa
+from ..kernels import rwkv6
 from ..models.transformer import LM
 from ..serve.decode import decode_step, prefill
 
@@ -85,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     lm = LM.init(cfg, seed=0, device=args.device)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, seed=0,
                            device=args.device)
-    fa.launches = 0
+    fa.launches = rwkv6.launches = 0
     res = generate(lm, prompts, args.gen)
     print(f"[serve] {cfg.name} on {prompts.device}: prefill {args.batch}x"
           f"{args.prompt_len} tokens in {res.prefill_s * 1e3:.1f} ms")
@@ -94,7 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
         print(f"[serve] {steps} decode steps x {args.batch}: "
               f"{res.decode_s / steps * 1e3:.2f} ms/step, "
               f"{steps * args.batch / res.decode_s:.1f} tok/s")
-    print(f"[serve] flash-attention kernel launches: {fa.launches}")
+    for name, mod in (("flash-attention", fa), ("rwkv6", rwkv6)):
+        print(f"[serve] {name} kernel launches: {mod.launches}")
     print("[serve] sample:", res.tokens[0, :16].tolist())
     return res
 

@@ -15,6 +15,7 @@ import torch
 
 @dataclass(frozen=True)
 class ModelContext:
+    ssm_chunk: int = 16     # chunk of the RWKV6 recurrence (cut by _fit_chunk)
 
     def shard(self, x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
         return x

@@ -1,0 +1,169 @@
+"""Attention-free sequence mixer: RWKV6 time-mix and channel-mix.
+
+The time-mix is a chunked linear recurrence with a per-channel decay,
+
+    S_t = diag(d_t) · S_{t-1} + k_t vᵀ_t          (state: (K, V) per head)
+    o_t = qᵀ_t · S_t  (+ the bonus diagonal)
+
+clamped at LOG_DECAY_MIN and centred per chunk as in the reference
+(``repro/models/ssm.py``).  The full-sequence pass goes through
+``kernels.ops.rwkv6_mix_state``: the Hopper chunked-recurrence kernel on the
+card, its plain version on the CPU (where the reference scans the jnp chunked
+form, ``ssm.py:204,271``).  Decode steps one token in plain PyTorch, as the
+reference does (it has no decode kernel).  Mamba2 comes with the hybrid
+family.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.rwkv6 import LOG_DECAY_MIN
+from .common import Params, dense_init, norm_apply, norm_init
+
+
+# ---------------------------------------------------------------------------
+# chunked linear recurrence with per-channel decay
+# ---------------------------------------------------------------------------
+
+def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, log_decay: torch.Tensor,
+                             bonus: Optional[torch.Tensor] = None,
+                             chunk: int = 16,
+                             initial_state: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q,k,v: (B,H,T,K/V); log_decay: (B,H,T,K) (<=0); bonus u: (H,K) or None.
+
+    Returns (out (B,H,T,V) in q's dtype, final_state (B,H,K,V) float32).
+    RWKV6 convention: with a bonus, o_t reads S_{t-1} and the current token
+    enters through u ⊙ k_t."""
+    return ops.rwkv6_mix_state(q, k, v, log_decay, bonus=bonus, chunk=chunk,
+                               initial_state=initial_state)
+
+
+def linear_attention_step(q, k, v, log_decay, S,
+                          bonus: Optional[torch.Tensor] = None):
+    """Single-token decode step.  q,k,v: (B,H,K/V); S: (B,H,K,V) float32."""
+    ld = log_decay.float().clamp(LOG_DECAY_MIN, 0.0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    S_new = torch.exp(ld)[..., None] * S + kf[..., None] * vf[..., None, :]
+    if bonus is not None:
+        o = torch.einsum("bhk,bhkv->bhv", qf, S) \
+            + torch.einsum("bhk,hk,bhk->bh", qf, bonus.float(),
+                           kf)[..., None] * vf
+    else:
+        o = torch.einsum("bhk,bhkv->bhv", qf, S_new)
+    return o.to(q.dtype), S_new
+
+
+def linear_attention_reference(q, k, v, log_decay, bonus=None,
+                               initial_state=None):
+    """Sequential oracle: one :func:`linear_attention_step` per token."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    S = (initial_state.float() if initial_state is not None else
+         torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device))
+    outs = []
+    for i in range(t):
+        o, S = linear_attention_step(q[:, :, i], k[:, :, i], v[:, :, i],
+                                     log_decay[:, :, i], S, bonus=bonus)
+        outs.append(o)
+    return torch.stack(outs, dim=2).to(q.dtype), S
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block (time-mix + channel-mix)
+# ---------------------------------------------------------------------------
+
+def rwkv6_init(gen: torch.Generator, d_model: int, head_dim: int, *,
+               lead=(), dtype=torch.float32) -> Params:
+    heads = d_model // head_dim
+    dev = gen.device
+
+    def dense(d_in, d_out):
+        return dense_init(gen, d_in, d_out, lead=lead, dtype=dtype)
+    return {
+        "w_r": dense(d_model, d_model), "w_k": dense(d_model, d_model),
+        "w_v": dense(d_model, d_model), "w_g": dense(d_model, d_model),
+        "w_o": dense(d_model, d_model),
+        # data-dependent decay: low-rank path w = exp(-exp(base + x@A@B))
+        "w_decay_a": dense(d_model, 64), "w_decay_b": dense(64, d_model),
+        "decay_base": torch.full((*lead, d_model), -0.5, device=dev),
+        "bonus_u": torch.randn((*lead, heads, head_dim), generator=gen,
+                               device=dev) * 0.1,
+        "mix_x": torch.full((*lead, 5, d_model), 0.5, device=dev),
+        "ln_x": norm_init("layernorm", d_model, device=dev, lead=lead),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]):
+    """x shifted one step later: the previous token's vector at each
+    position, zeros (or the decode state's ``last``) at the first."""
+    if last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
+                   chunk: int = 16, state: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,T,D).  state (decode): {"S": (B,H,K,V), "last": (B,D)}.
+
+    ``decay_base`` and ``bonus_u`` are read in float32 and the log decay is
+    rounded to x's dtype before the clamp, as in the reference
+    (``ssm.py:264,269``)."""
+    b, t, d = x.shape
+    heads = d // head_dim
+    last = _token_shift(x, None if state is None else state["last"])
+    mix = params["mix_x"].to(x.dtype)
+    xs = [x + (last - x) * mix[i] for i in range(5)]  # r,k,v,g,w token-shift
+    r = xs[0] @ params["w_r"].to(x.dtype)
+    k = xs[1] @ params["w_k"].to(x.dtype)
+    v = xs[2] @ params["w_v"].to(x.dtype)
+    g = F.silu(xs[3] @ params["w_g"].to(x.dtype))
+    dec = (torch.tanh(xs[4] @ params["w_decay_a"].to(x.dtype))
+           @ params["w_decay_b"].to(x.dtype)).float()
+    log_decay = -torch.exp(params["decay_base"] + dec)        # (B,T,D) < 0
+
+    def split_heads(y):
+        return y.reshape(b, t, heads, head_dim).transpose(1, 2)
+
+    rq, kk, vv, ld = map(split_heads, (r, k, v, log_decay.to(x.dtype)))
+    if state is None:
+        out, S = chunked_linear_attention(rq, kk, vv, ld, chunk=chunk,
+                                          bonus=params["bonus_u"])
+    else:
+        o, S = linear_attention_step(rq[:, :, 0], kk[:, :, 0], vv[:, :, 0],
+                                     ld[:, :, 0], state["S"],
+                                     bonus=params["bonus_u"])
+        out = o[:, :, None]
+    y = out.transpose(1, 2).reshape(b, t, d)
+    y = norm_apply("layernorm", params["ln_x"], y) * g
+    # the reference's einsum("btd,de->btd", y, w_o) sums w_o over e: each
+    # channel is scaled by a row sum of w_o; it is not a matrix product
+    y = y * params["w_o"].to(x.dtype).sum(dim=-1)
+    return y, {"S": S, "last": x[:, -1]}
+
+
+def rwkv6_channel_mix_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                           lead=(), dtype=torch.float32) -> Params:
+    return {
+        "w_k": dense_init(gen, d_model, d_ff, lead=lead, dtype=dtype),
+        "w_v": dense_init(gen, d_ff, d_model, lead=lead, dtype=dtype),
+        "mix": torch.full((*lead, d_model), 0.5, device=gen.device),
+    }
+
+
+def rwkv6_channel_mix(params: Params, x: torch.Tensor,
+                      state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,T,D); state (decode): the previous token's x (B,D).  Returns
+    (y, x[:, -1])."""
+    last = _token_shift(x, state)
+    xk = x + (last - x) * params["mix"].to(x.dtype)
+    h = F.relu(xk @ params["w_k"].to(x.dtype)).square()
+    return h @ params["w_v"].to(x.dtype), x[:, -1]

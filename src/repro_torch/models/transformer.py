@@ -1,4 +1,4 @@
-"""Decoder-LM assembly, dense family.
+"""Decoder-LM assembly, dense and ssm (RWKV6) families.
 
 Same parameter layout as the reference (``repro/models/transformer.py``):
 nested dicts with a stacked leading ``L`` axis on every layer leaf and
@@ -6,8 +6,8 @@ nested dicts with a stacked leading ``L`` axis on every layer leaf and
 reference's own params to these functions.  The reference's ``lax.scan``
 over ``L`` is a Python loop over the stacked axis here.
 
-Only the dense family is ported in this slice; the others raise
-``NotImplementedError``.
+The dense family (slice 1 of the port) and the ssm family (slice 3) are
+ported; the others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,15 +23,17 @@ from .common import (Params, compute_dtype, dense_init, embed_init,
                      norm_apply, norm_init)
 from .context import NULL_CTX, ModelContext
 from .mlp import mlp_apply, mlp_init
+from .ssm import (rwkv6_channel_mix, rwkv6_channel_mix_init, rwkv6_init,
+                  rwkv6_time_mix)
 
 
 def check_ported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.is_encoder_decoder
+    if (cfg.family not in ("dense", "ssm") or cfg.is_encoder_decoder
             or cfg.frontend is not None):
         raise NotImplementedError(
-            f"{cfg.name}: family '{cfg.family}' is not ported yet; slice 1 of "
-            f"the port (serving) covers the dense family only, the others "
-            f"are queued in ROADMAP.md")
+            f"{cfg.name}: family '{cfg.family}' is not ported yet; the port "
+            f"covers the dense family (slice 1) and the ssm family (slice 3), "
+            f"the others are queued in ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
@@ -53,10 +55,17 @@ def init_lm(cfg, seed: int = 0, *, device="cuda",
     p["layers"] = {
         "ln1": norm_init(cfg.norm, d, lead=L, device=dev),
         "ln2": norm_init(cfg.norm, d, lead=L, device=dev),
-        "attn": attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.head_dim_, cfg.qkv_bias, lead=L, dtype=dtype),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, lead=L, dtype=dtype),
     }
+    if cfg.family == "ssm":  # rwkv6
+        p["layers"].update(
+            tmix=rwkv6_init(gen, d, cfg.rwkv_head_dim, lead=L, dtype=dtype),
+            cmix=rwkv6_channel_mix_init(gen, d, cfg.d_ff, lead=L,
+                                        dtype=dtype))
+        return p
+    p["layers"].update(
+        attn=attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim_, cfg.qkv_bias, lead=L, dtype=dtype),
+        mlp=mlp_init(gen, d, cfg.d_ff, cfg.act, lead=L, dtype=dtype))
     return p
 
 
@@ -68,6 +77,14 @@ def layer(params: Params, i: int) -> Params:
 
 def _lm_head(params: Params, cfg) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _fit_chunk(t: int, chunk: int) -> int:
+    """Largest power-of-two-ish chunk <= `chunk` dividing sequence length."""
+    c = min(chunk, t)
+    while t % c:
+        c //= 2
+    return max(c, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -86,23 +103,41 @@ def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
     return ctx.shard(x, "dp", "sp", None)
 
 
+def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                 chunk: int, sink=None) -> torch.Tensor:
+    h = norm_apply(cfg.norm, lp["ln1"], x)
+    y, st = rwkv6_time_mix(lp["tmix"], h, cfg.rwkv_head_dim, chunk=chunk)
+    x = x + y
+    h = norm_apply(cfg.norm, lp["ln2"], x)
+    y, cmix_last = rwkv6_channel_mix(lp["cmix"], h)
+    if sink is not None:
+        sink.append((st["S"], st["last"], cmix_last))
+    return ctx.shard(x + y, "dp", "sp", None)
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill / teacher forcing)
 # ---------------------------------------------------------------------------
 
 def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
                   ctx: ModelContext = NULL_CTX,
-                  kv_sink: Optional[List] = None) -> torch.Tensor:
+                  sink: Optional[List] = None) -> torch.Tensor:
     """tokens (B, S), positions 0..S-1 -> final-norm hidden states (B, S, D)
-    in the compute dtype.  ``kv_sink`` collects each layer's post-RoPE
-    (k, v) in order."""
+    in the compute dtype.  ``sink`` collects each layer's decode state in
+    order: dense, its post-RoPE (k, v); ssm, the recurrence's final S and
+    the last position of the normed time-mix and channel-mix inputs."""
     check_ported(cfg)
+    s = tokens.shape[1]
     x = params["embed"][tokens].to(compute_dtype(cfg))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    positions = torch.arange(s, device=tokens.device)[None]
     x = ctx.shard(x, "dp", "sp", None)
+    chunk = _fit_chunk(s, ctx.ssm_chunk)
     for i in range(cfg.num_layers):
-        x = _dense_block(layer(params["layers"], i), x, cfg, ctx, positions,
-                         kv_sink=kv_sink)
+        lp = layer(params["layers"], i)
+        if cfg.family == "ssm":
+            x = _rwkv6_block(lp, x, cfg, ctx, chunk, sink)
+        else:
+            x = _dense_block(lp, x, cfg, ctx, positions, kv_sink=sink)
     return norm_apply(cfg.norm, params["ln_f"], x)
 
 
@@ -118,7 +153,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
     """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss).
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
-    family (only MoE layers add to it)."""
+    and ssm families (only MoE layers add to it)."""
     x = hidden_states(params, cfg, tokens, ctx=ctx)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits_from_hidden(params, cfg, x, ctx), aux
@@ -128,7 +163,10 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
 # module
 # ---------------------------------------------------------------------------
 
-_KEEP_DTYPE = ("scale", "bias")   # norm params: read in float32 by norm_apply
+# leaves the compute copy keeps in float32, as the reference reads them:
+# norm params (norm_apply), and the RWKV6 decay base and bonus, which enter
+# float32 arithmetic (ssm.py:264 and :100-101)
+_KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u")
 
 
 def _flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -153,14 +191,14 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
 
 
 class LM(nn.Module):
-    """Owns the stacked float32 parameters of one dense LM and calls the
+    """Owns the stacked float32 parameters of one LM and calls the
     functional code.
 
     ``compute_params()`` is the tree the entry points pass on: in bf16
-    configs it holds one bf16 copy of every matrix, made once.  The reference
-    casts the same float32 values to bf16 at every product, so the copy is
-    bit-identical to that cast; norm scales stay float32, as
-    ``norm_apply`` reads them."""
+    configs it holds one bf16 copy of every other leaf, made once.  The
+    reference casts the same float32 values to bf16 where it uses them, so
+    the copy is bit-identical to that cast; the leaves of ``_KEEP_DTYPE``
+    stay float32, as the reference reads them."""
 
     def __init__(self, cfg, params: Params):
         super().__init__()

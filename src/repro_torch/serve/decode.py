@@ -1,10 +1,16 @@
-"""Serving, dense family: one-pass prefill and one-token decode steps.
+"""Serving, dense and ssm families: one-pass prefill and one-token decode
+steps.
 
-``prefill`` runs the prompt through one full-sequence pass (the attention
-kernel on the card) and writes every layer's post-RoPE K/V into the cache.
-It returns the same last-position logits and decode state as the
-reference's token-by-token ``repro.serve.decode.prefill``.  ``decode_step``
-attends one new token against the cache with ``decode_attention``.
+``prefill`` runs the prompt through one full-sequence pass and fills the
+decode state from it: for the dense family every layer's post-RoPE K/V goes
+into the cache (the attention kernel on the card); for the ssm family every
+layer leaves the chunked recurrence's final S (the recurrence kernel on the
+card, once per layer) and the last position of its normed time-mix and
+channel-mix inputs.  It returns the same last-position logits and decode
+state as the reference's token-by-token ``repro.serve.decode.prefill``.
+``decode_step`` moves one token on: dense attends it against the cache with
+``decode_attention``, ssm steps the recurrence with
+``linear_attention_step``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from ..models.attention import decode_attention, out_project, qkv_project
 from ..models.common import apply_rope, compute_dtype, norm_apply
 from ..models.context import NULL_CTX, ModelContext
 from ..models.mlp import mlp_apply
+from ..models.ssm import rwkv6_channel_mix, rwkv6_time_mix
 from ..models.transformer import (check_ported, hidden_states, layer,
                                   logits_from_hidden)
 from .kv_cache import cache_write, init_decode_state
@@ -35,11 +42,29 @@ def _attn_decode(layer_attn: Dict, x: torch.Tensor, cfg, pos: int,
     return out_project(layer_attn, o.to(x.dtype))
 
 
+def _rwkv6_decode(lp: Dict, x: torch.Tensor, cfg, state: Dict,
+                  i: int) -> torch.Tensor:
+    """x: (B,1,D); steps layer ``i``'s recurrence and token shifts, writing
+    its S and last vectors into ``state`` in place."""
+    h = norm_apply(cfg.norm, lp["ln1"], x)
+    o, st = rwkv6_time_mix(lp["tmix"], h, cfg.rwkv_head_dim,
+                           state={"S": state["rwkv_S"][i],
+                                  "last": state["tmix_last"][i]})
+    x = x + o
+    h = norm_apply(cfg.norm, lp["ln2"], x)
+    o, cmix_last = rwkv6_channel_mix(lp["cmix"], h,
+                                     state=state["cmix_last"][i])
+    state["rwkv_S"][i] = st["S"]
+    state["tmix_last"][i] = st["last"]
+    state["cmix_last"][i] = cmix_last
+    return x + o
+
+
 def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
                 ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int -> (logits (B, 1, V), new state).
 
-    The caches of ``state`` are updated in place and shared with the new
+    The tensors of ``state`` are updated in place and shared with the new
     state; ``cache_len`` advances by one."""
     check_ported(cfg)
     x = params["embed"][token].to(compute_dtype(cfg))
@@ -47,6 +72,9 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
     pos = state["cache_len"]
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
+        if cfg.family == "ssm":
+            x = _rwkv6_decode(lp, x, cfg, state, i)
+            continue
         h = norm_apply(cfg.norm, lp["ln1"], x)
         x = x + _attn_decode(lp["attn"], h, cfg, pos, state["k_cache"][i],
                              state["v_cache"][i])
@@ -61,20 +89,29 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
             ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, S) -> (last-position logits (B, 1, V), decode state).
 
-    One ``hidden_states`` pass over the prompt; each layer's K/V goes into
-    the cache, in the cache dtype, at slots pos % cap (for a rolling cache
-    shorter than the prompt, only the last ``cap`` positions, which are the
-    ones a token-by-token prefill leaves behind)."""
+    One ``hidden_states`` pass over the prompt.  Dense: each layer's K/V goes
+    into the cache, in the cache dtype, at slots pos % cap (for a rolling
+    cache shorter than the prompt, only the last ``cap`` positions, which
+    are the ones a token-by-token prefill leaves behind).  Ssm: each layer's
+    final S and last normed inputs go into the state."""
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
                               device=tokens.device)
-    kv: list = []
-    x = hidden_states(params, cfg, tokens, ctx=ctx, kv_sink=kv)
-    cap = state["k_cache"].shape[2]
-    first = max(0, s - cap)
-    slots = torch.arange(first, s, device=tokens.device) % cap
-    for i, (k, v) in enumerate(kv):
-        state["k_cache"][i][:, slots] = k[:, first:].to(state["k_cache"].dtype)
-        state["v_cache"][i][:, slots] = v[:, first:].to(state["v_cache"].dtype)
+    sink: list = []
+    x = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink)
+    if cfg.family == "ssm":
+        for i, (S, tmix_last, cmix_last) in enumerate(sink):
+            state["rwkv_S"][i] = S
+            state["tmix_last"][i] = tmix_last
+            state["cmix_last"][i] = cmix_last
+    else:
+        cap = state["k_cache"].shape[2]
+        first = max(0, s - cap)
+        slots = torch.arange(first, s, device=tokens.device) % cap
+        for i, (k, v) in enumerate(sink):
+            state["k_cache"][i][:, slots] = k[:, first:].to(
+                state["k_cache"].dtype)
+            state["v_cache"][i][:, slots] = v[:, first:].to(
+                state["v_cache"].dtype)
     state["cache_len"] = s
     return logits_from_hidden(params, cfg, x[:, -1:], ctx), state

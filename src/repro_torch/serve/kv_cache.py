@@ -1,10 +1,13 @@
-"""Decode state of the dense family: per-layer KV caches.
+"""Decode state: per-layer KV caches (dense), recurrent states (ssm).
 
-Layout as the reference's: k/v ``(L, B, cap, Hkv, hd)``, with
-``cap = min(max_len, window or inf)``; SWA caches are rolling, slot =
-pos % cap.  ``cache_len`` is a Python int, the number of tokens already
-written.  Unlike the reference's functional updates, the port writes the
-caches in place.
+Layouts as the reference's:
+  dense   k/v ``(L, B, cap, Hkv, hd)``, ``cap = min(max_len, window or inf)``;
+          SWA caches are rolling, slot = pos % cap
+  rwkv6   ``rwkv_S`` (L, B, H, K, V) float32; ``tmix_last`` / ``cmix_last``
+          (L, B, D), the last normed time-mix / channel-mix inputs, in the
+          compute dtype; O(1) in the context length
+``cache_len`` is a Python int, the number of tokens already written.  Unlike
+the reference's functional updates, the port writes the state in place.
 """
 
 from __future__ import annotations
@@ -24,8 +27,16 @@ def attn_cache_len(cfg, max_len: int) -> int:
 
 def init_decode_state(cfg, batch: int, max_len: int, *,
                       dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
-    """Zeroed caches for one dense model."""
+    """Zeroed decode state for one model."""
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        h, k = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        last = (cfg.num_layers, batch, cfg.d_model)
+        return {"cache_len": 0,
+                "rwkv_S": torch.zeros((cfg.num_layers, batch, h, k, k),
+                                      dtype=torch.float32, device=dev),
+                "tmix_last": torch.zeros(last, dtype=dtype, device=dev),
+                "cmix_last": torch.zeros(last, dtype=dtype, device=dev)}
     shape = (cfg.num_layers, batch, attn_cache_len(cfg, max_len),
              cfg.num_kv_heads, cfg.head_dim_)
     return {"cache_len": 0,

@@ -12,7 +12,13 @@ float32 precision as the plain version does and only the output's own
 rounding differs), float32 1e-4 (same f32 arithmetic in another summation
 order, no TF32).  Segment max: bit-exact against its plain version and
 numpy.  The simulator on ``cuda`` gives schedules identical to ``cpu``,
-with one kernel launch per rate-resolution solve.
+with one kernel launch per rate-resolution solve.  RWKV6 chunked recurrence:
+output and final state within 1e-4 of its plain version (float32 FMA in
+another summation order) on every K / V in {8, ..., 128}, chunks from 1 to
+64 (powers of two and the 12, 7, 13 and 3 that ``_fit_chunk`` or a caller
+may give) and mask kind; reduced rwkv6-3b prefill on ``cuda`` of 40, 12 and
+7 tokens (chunks 8, 12 and 7) launches it once per layer and matches
+``device="cpu"``.
 """
 
 import numpy as np
@@ -27,6 +33,7 @@ from repro_torch.core import simulator as cs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
+from repro_torch.kernels import rwkv6 as kr  # noqa: E402
 from repro_torch.models.transformer import LM, forward  # noqa: E402
 from repro_torch.serve.decode import prefill  # noqa: E402
 
@@ -238,3 +245,106 @@ def test_maxmin_torch_on_cuda_matches_cpu(cuda):
                                atol=1e-6)
     np.testing.assert_allclose(core.maxmin_fair_torch(flows),
                                core.maxmin_fair_numpy(flows), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 chunked recurrence
+# ---------------------------------------------------------------------------
+
+def _rwkv_inputs(dev, b, h, t, dk, dv, seed=0, bonus=True):
+    """q, k, v (normal), log decay in [log 0.3, 0], bonus, on ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k = (torch.randn(b, h, t, dk, generator=g) for _ in range(2))
+    v = torch.randn(b, h, t, dv, generator=g)
+    ld = torch.log(0.3 + 0.7 * torch.rand(b, h, t, dk, generator=g))
+    u = torch.randn(h, dk, generator=g) * 0.2 if bonus else None
+    return [None if x is None else x.to(dev) for x in (q, k, v, ld, u)]
+
+
+RWKV_CASES = (   # (t, K, V, chunk)
+    [(64, d, d, 16) for d in kr.KV_DIMS]               # every K = V
+    + [(128, 64, 128, 16), (64, 128, 8, 8), (64, 8, 64, 4)]   # K != V
+    + [(2048, 64, 64, 16)]                             # the serving path's T
+    + [(96, 64, 64, c) for c in (1, 2, 4, 8, 32)]      # every chunk
+    + [(128, 64, 64, 64), (12, 16, 16, 4), (7, 16, 16, 1)]
+    + [(12, 16, 16, 12), (7, 16, 16, 7), (39, 64, 64, 13), (60, 32, 32, 3)])
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("exclusive", [True, False])
+@pytest.mark.parametrize("t,dk,dv,chunk", RWKV_CASES,
+                         ids=[f"t{t}-k{a}-v{b}-c{c}"
+                              for t, a, b, c in RWKV_CASES])
+def test_rwkv6_kernel_matches_plain(cuda, t, dk, dv, chunk, exclusive,
+                                    with_state):
+    q, k, v, ld, _ = _rwkv_inputs(cuda, 2, 3, t, dk, dv, seed=t + dk + dv)
+    ins = ops.rwkv6_inputs(q, k, v, ld, chunk=chunk, exclusive=exclusive)
+    s0 = (torch.randn(6, dk, dv, device=cuda) if with_state else None)
+    before = kr.launches
+    out, S = kr.rwkv6_chunked(*ins, chunk=chunk, exclusive=exclusive,
+                              initial_state=s0)
+    torch.cuda.synchronize()
+    assert kr.launches == before + 1
+    ref, ref_S = kr.rwkv6_chunked_plain(*ins, chunk=chunk,
+                                        exclusive=exclusive, initial_state=s0)
+    assert out.shape == ref.shape and S.shape == ref_S.shape
+    assert torch.isfinite(out).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_rwkv6_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
+    q, k, v, ld, u = _rwkv_inputs(cuda, 1, 2, 32, 16, 16)
+    before = kr.launches
+    out = ops.rwkv6_mix(q, k, v, ld, bonus=u, chunk=16)
+    assert kr.launches == before + 1 and out.is_cuda
+    ref = ops.rwkv6_mix(*(x.cpu() for x in (q, k, v, ld)), bonus=u.cpu(),
+                        chunk=16)
+    torch.testing.assert_close(out.cpu(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, ld, _ = _rwkv_inputs(cuda, 1, 2, 32, 16, 16)
+    ins = list(ops.rwkv6_inputs(q, k, v, ld, chunk=16, exclusive=True))
+    before = kr.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.rwkv6_chunked(ins[0].transpose(1, 2).contiguous().transpose(1, 2),
+                         *ins[1:], chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        kr.rwkv6_chunked(*(x.double() for x in ins), chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        kr.rwkv6_chunked(ins[0], ins[1][:, :16].contiguous(), *ins[2:],
+                         chunk=16)
+    with pytest.raises(ValueError, match="K=24"):
+        wide = [torch.zeros(2, 32, 24, device=cuda)] * 4
+        kr.rwkv6_chunked(*wide, ins[4], torch.zeros(2, 2, 24, device=cuda),
+                         chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        kr.rwkv6_chunked(*ins, chunk=128)
+    with pytest.raises(ValueError, match="initial_state"):
+        kr.rwkv6_chunked(*ins, chunk=16,
+                         initial_state=torch.zeros(2, 16, 8, device=cuda))
+    assert kr.launches == before
+
+
+@pytest.mark.parametrize("s", [40, 12, 7],
+                         ids=["chunk-8", "chunk-12", "chunk-7"])
+def test_rwkv6_prefill_launches_once_per_layer_and_matches_cpu(cuda, s):
+    cfg = configs.reduced(configs.get_config("rwkv6-3b"), dtype="float32",
+                          num_layers=3)
+    lm_cpu = LM.init(cfg, seed=2, device="cpu")
+    lm_gpu = LM(cfg, lm_cpu.params).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, s)))
+    kr.launches = fa.launches = 0
+    with torch.inference_mode():
+        logits, state = prefill(lm_gpu.compute_params(), cfg, toks.to(cuda),
+                                max_len=s + 8)
+        torch.cuda.synchronize()
+        assert kr.launches == cfg.num_layers and fa.launches == 0
+        ref, ref_state = prefill(lm_cpu.compute_params(), cfg, toks,
+                                 max_len=s + 8)
+    torch.testing.assert_close(logits.cpu(), ref, atol=F32_TOL, rtol=F32_TOL)
+    for name in ("rwkv_S", "tmix_last", "cmix_last"):
+        torch.testing.assert_close(state[name].cpu(), ref_state[name],
+                                   atol=F32_TOL, rtol=F32_TOL)

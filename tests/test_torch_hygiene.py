@@ -26,6 +26,7 @@ from repro_torch import bridge, configs  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
+from repro_torch.kernels import rwkv6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
@@ -67,7 +68,8 @@ def test_every_module_imports_without_a_card():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")]
     for need in ("repro_torch.kernels.flash_attention",
-                 "repro_torch.kernels.phase_max", "repro_torch.core.fairshare",
+                 "repro_torch.kernels.phase_max", "repro_torch.kernels.rwkv6",
+                 "repro_torch.models.ssm", "repro_torch.core.fairshare",
                  "repro_torch.core.simulator", "repro_torch.core.batched",
                  "repro_torch.core.strategies.builtin"):
         assert need in names
@@ -75,6 +77,7 @@ def test_every_module_imports_without_a_card():
         importlib.import_module(name)
     assert build.sources()["flash_attention"].name == "flash_attention.cu"
     assert build.sources()["phase_max"].name == "phase_max.cu"
+    assert build.sources()["rwkv6"].name == "rwkv6.cu"
 
 
 @pytest.fixture
@@ -95,6 +98,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(cfg)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: transformer.init_lm(cfg),
+    lambda cfg: transformer.LM.init(cfg),
+    lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
+    lambda cfg: serve.main(["--arch", "rwkv6-3b", "--reduced"]),
+], ids=["init_lm", "LM.init", "init_decode_state", "serve.main"])
+def test_ssm_entry_points_default_to_cuda_and_raise(no_card, entry):
+    cfg = configs.reduced(configs.get_config("rwkv6-3b"))
+    before = rwkv6.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg)
+    assert rwkv6.launches == before
 
 
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
@@ -126,3 +143,5 @@ def test_dispatch_has_no_path_for_other_devices():
     t = torch.empty(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no path"):
         ops.attention(t, t, t)
+    with pytest.raises(ValueError, match="no path"):
+        ops.rwkv6_mix(t, t, t, t, chunk=8)

@@ -1,12 +1,15 @@
-"""Port vs reference: the dense LM forward on the reference's own params.
+"""Port vs reference: the LM forward on the reference's own params.
 
-JAX ``init_lm`` params of ``reduced(tinyllama-1.1b)`` go through
-``bridge.params_from_numpy`` into the port.  Float32 logits agree within
+JAX ``init_lm`` params of ``reduced(tinyllama-1.1b)`` (dense) and
+``reduced(rwkv6-3b)`` (ssm) go through ``bridge.params_from_numpy`` into the
+port.  Float32 logits agree within
 1e-4 (the same float32 formulas; the attention is the kernel's plain
 version against ``blocked_attention``, which sums in another order).  In
 bf16 both round activations at every layer, in places that differ (the
 port keeps P in float32 for the PV product, ``blocked_attention`` rounds it
 to bf16), so the bound is the serving tests' atol 0.15 / rtol 0.05.
+The ssm forward runs the recurrence's plain version against the reference's
+jnp chunked scan, the same float32 formulas: 1e-4; bf16 0.15 / 0.05.
 """
 
 import dataclasses
@@ -29,9 +32,9 @@ def _jax_params(cfg):
                                   JT.init_lm(cfg, jax.random.PRNGKey(0)))
 
 
-def _cfgs(dtype):
-    jc = jcfg.reduced(jcfg.get_config("tinyllama-1.1b"), dtype=dtype)
-    tc = tcfg.reduced(tcfg.get_config("tinyllama-1.1b"), dtype=dtype)
+def _cfgs(dtype, arch="tinyllama-1.1b"):
+    jc = jcfg.reduced(jcfg.get_config(arch), dtype=dtype)
+    tc = tcfg.reduced(tcfg.get_config(arch), dtype=dtype)
     return jc, tc
 
 
@@ -44,7 +47,11 @@ def _tokens(cfg, b=2, s=24, seed=1):
     lambda m: m.reduced(m.get_config("tinyllama-1.1b")),
     lambda m: m.reduced(m.get_config("tinyllama-1.1b"), dtype="float32",
                         num_layers=3),
-], ids=["full", "reduced", "reduced-f32"])
+    lambda m: m.get_config("rwkv6-3b"),
+    lambda m: m.reduced(m.get_config("rwkv6-3b")),
+    lambda m: m.reduced(m.get_config("rwkv6-3b"), dtype="float32"),
+], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
+        "rwkv6-reduced-f32"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -122,12 +129,58 @@ def test_compute_params_keep_norms_f32_and_cast_matrices():
     assert lm.compute_params() is cp          # made once
 
 
-@pytest.mark.parametrize("arch_family", ["moe", "ssm", "hybrid", "audio"])
+UNPORTED = r"dense family \(slice 1\) and the ssm family \(slice 3\)"
+
+
+@pytest.mark.parametrize("arch_family", ["moe", "hybrid", "audio"])
 def test_unported_families_raise(arch_family):
     cfg = dataclasses.replace(
         tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family=arch_family,
         is_encoder_decoder=arch_family == "audio")
-    with pytest.raises(NotImplementedError, match="slice 1"):
+    with pytest.raises(NotImplementedError, match=UNPORTED):
         TT.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 1"):
+    with pytest.raises(NotImplementedError, match=UNPORTED):
         TT.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+
+
+def test_ssm_family_runs():
+    """The ssm family, which slice 3 ports, inits and runs forward."""
+    _, tc = _cfgs("bfloat16", "rwkv6-3b")
+    lm = TT.LM.init(tc, seed=0, device="cpu")
+    logits, aux = TT.forward(lm.compute_params(), tc,
+                             torch.zeros(2, 7, dtype=torch.long))
+    assert tuple(logits.shape) == (2, 7, tc.vocab_size)
+    assert logits.dtype == torch.bfloat16 and aux.item() == 0.0
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.parametrize("s", [24, 13], ids=["chunk-8", "chunk-13"])
+@pytest.mark.parametrize("dtype,atol,rtol", [("float32", 1e-4, 1e-4),
+                                             ("bfloat16", 0.15, 0.05)])
+def test_ssm_forward_matches_reference(dtype, atol, rtol, s):
+    jc, tc = _cfgs(dtype, "rwkv6-3b")
+    npp = _jax_params(jc)
+    toks = _tokens(jc, s=s)
+    ref, ref_aux = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
+                              jnp.asarray(toks, jnp.int32))
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    out = lm(torch.as_tensor(toks))
+    assert out.dtype == (torch.float32 if dtype == "float32"
+                         else torch.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol,
+                               rtol=rtol)
+    assert float(ref_aux) == 0.0
+
+
+def test_ssm_port_init_has_reference_layout():
+    jc, tc = _cfgs("float32", "rwkv6-3b")
+    ref = _jax_params(jc)
+    port = bridge.params_to_numpy(TT.init_lm(tc, seed=0, device="cpu"))
+    assert (jax.tree_util.tree_map(np.shape, port)
+            == jax.tree_util.tree_map(np.shape, ref))
+    assert (jax.tree_util.tree_map(lambda a: a.dtype, port)
+            == jax.tree_util.tree_map(lambda a: a.dtype, ref))
+    tm = port["layers"]["tmix"]
+    assert (tm["decay_base"] == -0.5).all() and (tm["mix_x"] == 0.5).all()
+    assert (port["layers"]["cmix"]["mix"] == 0.5).all()

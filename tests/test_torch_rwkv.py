@@ -1,0 +1,332 @@
+"""Port vs reference: the RWKV6 chunked recurrence and the RWKV6 block.
+
+Seeded numpy inputs go to both packages.
+* ``rwkv6_chunked_plain`` (the Hopper kernel's plain version) against the
+  reference's Pallas ``rwkv6_chunked_fwd`` (interpret mode on the CPU) on the
+  same precomputed inputs, at the shapes of ``tests/test_kernels.py`` plus
+  chunk 64, both mask kinds: 1e-5 (the same float32 products in another
+  summation order).
+* ``ops.rwkv6_mix`` on CPU tensors against ``rwkv6_mix(implementation=
+  "pallas")`` and the sequential ``rwkv6_ref``: 5e-4, the reference's own
+  kernel tolerance (``tests/test_kernels.py:114``).
+* ``chunked_linear_attention`` (output and final state, with and without
+  ``initial_state``), ``linear_attention_step``,
+  ``linear_attention_reference``, ``rwkv6_time_mix`` and
+  ``rwkv6_channel_mix`` (each with and without decode state): float32 1e-5;
+  bf16 0.15 / 0.05 where the reference rounds activations to bf16.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jcfg  # noqa: E402
+from repro.kernels.ops import rwkv6_mix as jax_rwkv6_mix  # noqa: E402
+from repro.kernels.ref import rwkv6_ref  # noqa: E402
+from repro.kernels.rwkv6 import rwkv6_chunked_fwd  # noqa: E402
+from repro.models import ssm as js  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch import bridge, configs as tcfg  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rwkv6 as kr  # noqa: E402
+from repro_torch.models import ssm as ts  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+# (t, K, V, chunk): tests/test_kernels.py:97-99, plus chunk 64
+SHAPES = [(64, 8, 8, 16), (128, 16, 32, 32), (96, 8, 8, 32), (128, 16, 16, 64)]
+IDS = [f"t{t}-k{k}-v{v}-c{c}" for t, k, v, c in SHAPES]
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=tol)
+
+
+def _seq_inputs(seed, t, kdim, vdim, b=2, h=3, bonus=True):
+    """q, k, v, log decay (as tests/test_kernels.py draws them) and a bonus,
+    as numpy float32."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.normal(size=(b, h, t, kdim)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(b, h, t, vdim)).astype(np.float32)
+    ld = np.log(rng.uniform(0.3, 1.0, (b, h, t, kdim))).astype(np.float32)
+    u = ((rng.normal(size=(h, kdim)) * 0.2).astype(np.float32) if bonus
+         else None)
+    return q, k, v, ld, u
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("exclusive", [True, False])
+@pytest.mark.parametrize("t,kdim,vdim,chunk", SHAPES, ids=IDS)
+def test_plain_matches_pallas_kernel(t, kdim, vdim, chunk, exclusive):
+    q, k, v, ld, _ = _seq_inputs(t + kdim, t, kdim, vdim)
+    ins = ops.rwkv6_inputs(_t(q), _t(k), _t(v), _t(ld), chunk=chunk,
+                           exclusive=exclusive)
+    ref = rwkv6_chunked_fwd(*(jnp.asarray(x.numpy()) for x in ins),
+                            chunk=chunk, exclusive=exclusive)
+    out, S = kr.rwkv6_chunked_plain(*ins, chunk=chunk, exclusive=exclusive)
+    assert out.dtype == S.dtype == torch.float32
+    assert tuple(S.shape) == (6, kdim, vdim)
+    _close(out, ref, 1e-5)
+    # the final state the TPU kernel drops equals the jnp chunked scan's
+    _, js_fin = js.chunked_linear_attention(
+        _j(q), _j(k), _j(v), _j(ld), chunk=chunk,
+        bonus=jnp.zeros((3, kdim)) if exclusive else None)
+    _close(S.reshape(2, 3, kdim, vdim), js_fin, 1e-5)
+
+
+@pytest.mark.parametrize("with_bonus", [False, True])
+@pytest.mark.parametrize("t,kdim,vdim,chunk", SHAPES, ids=IDS)
+def test_rwkv6_mix_matches_reference(t, kdim, vdim, chunk, with_bonus):
+    q, k, v, ld, u = _seq_inputs(t + kdim, t, kdim, vdim, bonus=with_bonus)
+    out = ops.rwkv6_mix(_t(q), _t(k), _t(v), _t(ld), bonus=_t(u), chunk=chunk)
+    pallas = jax_rwkv6_mix(_j(q), _j(k), _j(v), _j(ld), bonus=_j(u),
+                           chunk=chunk, implementation="pallas")
+    seq, _ = rwkv6_ref(_j(q), _j(k), _j(v), _j(ld), bonus=_j(u))
+    _close(out, pallas, 5e-4)
+    _close(out, seq, 5e-4)
+
+
+def test_rwkv6_mix_default_chunk_is_the_reference_one():
+    q, k, v, ld, u = _seq_inputs(0, 128, 8, 8)
+    out = ops.rwkv6_mix(_t(q), _t(k), _t(v), _t(ld), bonus=_t(u))
+    ref = jax_rwkv6_mix(_j(q), _j(k), _j(v), _j(ld), bonus=_j(u),
+                        implementation="pallas")
+    _close(out, ref, 5e-4)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.rwkv6_mix(_t(q)[:, :, :96], _t(k)[:, :, :96], _t(v)[:, :, :96],
+                      _t(ld)[:, :, :96])
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("with_bonus", [False, True])
+def test_chunked_linear_attention_matches_reference(with_bonus, with_state):
+    q, k, v, ld, u = _seq_inputs(3, 64, 16, 32, bonus=with_bonus)
+    s0 = (np.random.default_rng(4).normal(size=(2, 3, 16, 32))
+          .astype(np.float32) if with_state else None)
+    out, S = ts.chunked_linear_attention(_t(q), _t(k), _t(v), _t(ld),
+                                         bonus=_t(u), chunk=16,
+                                         initial_state=_t(s0))
+    ref, ref_S = js.chunked_linear_attention(_j(q), _j(k), _j(v), _j(ld),
+                                             bonus=_j(u), chunk=16,
+                                             initial_state=_j(s0))
+    assert S.dtype == torch.float32 and tuple(S.shape) == (2, 3, 16, 32)
+    _close(out, ref, 1e-5)
+    _close(S, ref_S, 1e-5)
+    # and the sequential oracles agree with each other and with the chunks
+    seq, seq_S = ts.linear_attention_reference(_t(q), _t(k), _t(v), _t(ld),
+                                               bonus=_t(u),
+                                               initial_state=_t(s0))
+    jseq, jseq_S = js.linear_attention_reference(_j(q), _j(k), _j(v), _j(ld),
+                                                 bonus=_j(u),
+                                                 initial_state=_j(s0))
+    _close(seq, jseq, 1e-5)
+    _close(seq_S, jseq_S, 1e-5)
+    _close(out, seq, 5e-4)
+    _close(S, seq_S, 5e-4)
+
+
+def test_chunked_linear_attention_bf16_inputs():
+    """bf16 q/k/v/log decay: the output comes back in bf16, as the
+    reference's; the state stays float32."""
+    q, k, v, ld, u = _seq_inputs(5, 32, 16, 16)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, ld)]
+    tb = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+          for x in bf]
+    out, S = ts.chunked_linear_attention(*tb, bonus=_t(u), chunk=8)
+    ref, ref_S = js.chunked_linear_attention(*bf, bonus=_j(u), chunk=8)
+    assert out.dtype == torch.bfloat16 and S.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(ref), atol=0.15, rtol=0.05)
+    _close(S, ref_S, 1e-5)
+
+
+@pytest.mark.parametrize("with_bonus", [False, True])
+def test_linear_attention_step_matches_reference(with_bonus):
+    q, k, v, ld, u = _seq_inputs(6, 1, 16, 8, bonus=with_bonus)
+    S = np.random.default_rng(7).normal(size=(2, 3, 16, 8)).astype(np.float32)
+    o, S_new = ts.linear_attention_step(_t(q[:, :, 0]), _t(k[:, :, 0]),
+                                        _t(v[:, :, 0]), _t(ld[:, :, 0]),
+                                        _t(S), bonus=_t(u))
+    jo, jS = js.linear_attention_step(_j(q[:, :, 0]), _j(k[:, :, 0]),
+                                      _j(v[:, :, 0]), _j(ld[:, :, 0]), _j(S),
+                                      bonus=_j(u))
+    _close(o, jo, 1e-5)
+    _close(S_new, jS, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the RWKV6 block on the reference's own params
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _layer0(dtype="float32"):
+    """Layer 0 of reduced rwkv6-3b's reference params (numpy), its config,
+    and the same params in the port's compute copy."""
+    jc = jcfg.reduced(jcfg.get_config("rwkv6-3b"), dtype=dtype)
+    tc = tcfg.reduced(tcfg.get_config("rwkv6-3b"), dtype=dtype)
+    npp = jax.tree_util.tree_map(np.asarray,
+                                 JT.init_lm(jc, jax.random.PRNGKey(0)))
+    cp = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu")) \
+        .compute_params()
+    lay = jax.tree_util.tree_map(lambda a: a[0], npp["layers"])
+    return jc, lay, TT.layer(cp["layers"], 0)
+
+
+def _x(dtype, b=2, t=12, d=64, seed=8):
+    x = np.random.default_rng(seed).normal(size=(b, t, d)).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    tx = torch.from_numpy(np.array(jx, np.float32))
+    return jx, tx.to(torch.bfloat16) if dtype == "bfloat16" else tx
+
+
+DTOL = {"float32": (1e-5, 1e-5), "bfloat16": (0.15, 0.05)}
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["sequence", "decode"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_time_mix_matches_reference(dtype, decode):
+    jc, lay, tl = _layer0(dtype)
+    hd = jc.rwkv_head_dim
+    jx, tx = _x(dtype, t=1 if decode else 12)
+    jst = tst = None
+    if decode:
+        rng = np.random.default_rng(9)
+        S = rng.normal(size=(2, 4, hd, hd)).astype(np.float32)
+        last, _ = _x(dtype, t=1, seed=10)
+        jst = {"S": jnp.asarray(S), "last": last[:, 0]}
+        tst = {"S": torch.from_numpy(S),
+               "last": torch.from_numpy(np.array(last[:, 0], np.float32))
+               .to(tx.dtype)}
+    y, st = ts.rwkv6_time_mix(tl["tmix"], tx, hd, chunk=4, state=tst)
+    jy, jst_out = js.rwkv6_time_mix(lay["tmix"], jx, hd, chunk=4, state=jst)
+    atol, rtol = DTOL[dtype]
+    assert y.dtype == tx.dtype
+    np.testing.assert_allclose(_np(y), _np(jy), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(_np(st["S"]), _np(jst_out["S"]),
+                               atol=atol, rtol=rtol)
+    _close(st["last"], jst_out["last"], 1e-5)
+
+
+@pytest.mark.parametrize("decode", [False, True], ids=["sequence", "decode"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_channel_mix_matches_reference(dtype, decode):
+    _, lay, tl = _layer0(dtype)
+    jx, tx = _x(dtype, t=1 if decode else 12)
+    jlast, tlast = _x(dtype, t=1, seed=11)
+    y, last = ts.rwkv6_channel_mix(tl["cmix"], tx,
+                                   state=tlast[:, 0] if decode else None)
+    jy, jl = js.rwkv6_channel_mix(lay["cmix"], jx,
+                                  state=jlast[:, 0] if decode else None)
+    atol, rtol = DTOL[dtype]
+    np.testing.assert_allclose(_np(y), _np(jy), atol=atol, rtol=rtol)
+    _close(last, jl, 1e-5)
+
+
+def test_w_o_scales_by_row_sums_not_a_matmul():
+    """``ssm.py:281`` projects with einsum("btd,de->btd"): each channel times
+    the row sum of w_o.  With a non-symmetric w_o the port matches the
+    reference and a plain ``y @ w_o`` would not."""
+    jc, lay, tl = _layer0()
+    hd = jc.rwkv_head_dim
+    d = jc.d_model
+    w_o = np.random.default_rng(12).normal(size=(d, d)).astype(np.float32)
+    w_o += np.triu(np.ones((d, d), np.float32))        # non-symmetric
+    assert not np.allclose(w_o, w_o.T)
+    jx, tx = _x("float32")
+    jt = {**lay["tmix"], "w_o": w_o}
+    tt = {**tl["tmix"], "w_o": torch.from_numpy(w_o)}
+    y, _ = ts.rwkv6_time_mix(tt, tx, hd, chunk=4)
+    jy, _ = js.rwkv6_time_mix(jt, jx, hd, chunk=4)
+    _close(y, jy, 1e-4)
+    # the output before the projection: an identity w_o has unit row sums
+    pre, _ = ts.rwkv6_time_mix({**tt, "w_o": torch.eye(d)}, tx, hd, chunk=4)
+    _close(pre * torch.from_numpy(w_o.sum(axis=1)), jy, 1e-4)
+    assert not np.allclose(_np(pre @ torch.from_numpy(w_o)), _np(jy),
+                           atol=1e-2)
+
+
+def test_compute_copy_keeps_float32_leaves():
+    """The bf16 compute copy keeps ``decay_base`` and ``bonus_u`` in float32,
+    as the reference reads them (``ssm.py:264``, ``:100-101``); ``mix_x``
+    and ``cmix/mix`` are cast to bf16 by the reference too.  Rounding the
+    decay base to bf16 would change the log decay the reference computes."""
+    tc = tcfg.reduced(tcfg.get_config("rwkv6-3b"))
+    params = TT.init_lm(tc, seed=1, device="cpu")
+    base = params["layers"]["tmix"]["decay_base"]
+    base += torch.linspace(0.0, 1e-2, base.shape[-1])   # not bf16 values
+    assert not torch.equal(base.to(torch.bfloat16).float(), base)
+    cp = TT.LM(tc, params).compute_params()
+    tmix = cp["layers"]["tmix"]
+    for name in ("decay_base", "bonus_u"):
+        assert tmix[name].dtype == torch.float32, name
+        assert torch.equal(tmix[name], params["layers"]["tmix"][name]), name
+    for w in (tmix["mix_x"], tmix["w_r"], tmix["w_o"],
+              cp["layers"]["cmix"]["mix"], cp["layers"]["cmix"]["w_k"]):
+        assert w.dtype == torch.bfloat16
+    assert tmix["ln_x"]["scale"].dtype == torch.float32
+
+
+def test_time_mix_bf16_reads_decay_base_in_float32():
+    """On bf16 activations the port's time-mix equals the reference's on the
+    same params, whose decay base is not a bf16 value."""
+    jc, lay, tl = _layer0("bfloat16")
+    hd = jc.rwkv_head_dim
+    base = lay["tmix"]["decay_base"] + np.linspace(0, 1e-2, jc.d_model,
+                                                   dtype=np.float32)
+    jt = {**lay["tmix"], "decay_base": base}
+    tt = {**tl["tmix"], "decay_base": torch.from_numpy(base)}
+    jx, tx = _x("bfloat16")
+    y, st = ts.rwkv6_time_mix(tt, tx, hd, chunk=4)
+    jy, jst = js.rwkv6_time_mix(jt, jx, hd, chunk=4)
+    np.testing.assert_allclose(_np(y), _np(jy), atol=0.15, rtol=0.05)
+    _close(st["S"], jst["S"], 2e-2)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper takes CUDA tensors only; the CPU goes to the plain
+    version through ``ops``."""
+    q, k, v, ld, _ = _seq_inputs(0, 16, 8, 8)
+    ins = ops.rwkv6_inputs(_t(q), _t(k), _t(v), _t(ld), chunk=16,
+                           exclusive=True)
+    before = kr.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kr.rwkv6_chunked(*ins, chunk=16)
+    assert kr.launches == before
+
+
+@pytest.mark.parametrize("t,chunk", [(12, 8), (12, 5), (256, 128), (12, 0),
+                                     (65, 65)])
+def test_check_chunk_refuses(t, chunk):
+    with pytest.raises(ValueError, match="chunk"):
+        kr.check_chunk(t, chunk)
+
+
+def test_check_chunk_takes_every_chunk_the_model_path_fits():
+    """The kernel takes whatever ``_fit_chunk`` gives a prompt, powers of
+    two or not (12 tokens: chunk 12; 7 tokens: chunk 7)."""
+    for t in range(1, 2100):
+        chunk = TT._fit_chunk(t, 16)
+        assert chunk == JT._fit_chunk(t, 16)
+        kr.check_chunk(t, chunk)
+    assert TT._fit_chunk(12, 16) == 12 and TT._fit_chunk(7, 16) == 7
+
+
+def test_fit_chunk_matches_reference():
+    for t in (1, 7, 12, 16, 96, 2048, 2080):
+        assert TT._fit_chunk(t, 16) == JT._fit_chunk(t, 16), t
