@@ -13,8 +13,11 @@ Phases, in order; any failure exits non-zero before the result line:
                ptxas registers / shared memory.
   3. kernels — each kernel against its plain PyTorch version on the card:
                flash attention at the serving path's shape and at MHA / MQA /
-               ragged / non-causal / windowed / other head-dim cases (bf16
-               within one bf16 ulp of the output, float32 1e-4); the segment
+               GQA-8 / ragged / non-causal / windowed / other head-dim cases,
+               at the wgmma kernel's tile edges (S 1, 127, 129, 300 with
+               windows 48 and 200) and on views of a fused qkv projection,
+               on both kernels of the source (bf16 within one bf16 ulp of the
+               output, float32 1e-4); the segment
                max at the lane engine's dispatch shapes, empty segments and
                values, ties and negatives, int64 extremes and one
                1,000,000-value segment, bit-exact against its plain version
@@ -27,7 +30,7 @@ Phases, in order; any failure exits non-zero before the result line:
                bf16) through ``repro_torch.launch.serve.generate``: prefill of
                4 x 2048 tokens and 32 greedy decode steps.  The kernel must be
                launched once per layer by prefill, never in decode, and the
-               other kernels never.  Then a teacher-forced
+               other kernels never; prefill must take the wgmma variant.  Then a teacher-forced
                forward over prompt + generated tokens must reproduce the last
                decode logits.  torch.profiler then traces one prefill and 8
                decode steps: wall time, kernel time, device idle share and
@@ -52,7 +55,9 @@ Phases, in order; any failure exits non-zero before the result line:
                under torch.profiler, the rest on the host).
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
-               events); the segment max at the grid's p50 / p90 / max calls,
+               events); the attention variant the path took and the ptxas
+               report (registers, spills, wgmma serialisation) of each
+               attention variant; the segment max at the grid's p50 / p90 / max calls,
                with its numpy-to-numpy round trip and host numpy beside it;
                the recurrence at its serving shape (no single PyTorch call
                computes it, so it has no library time).
@@ -202,6 +207,18 @@ def bf16_bound(ref):
     import torch
     mag = ref.abs().clamp_min(1e-30)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp_min(BF16_TOL)
+
+
+def log_ptxas(name: str, text: str) -> None:
+    """Log a kernel source's -Xptxas -v report: each entry function (one
+    per variant) with its registers, stack and spills, and any wgmma
+    serialisation warning (C7512, which names its function)."""
+    for line in text.splitlines():
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            log(f"ptxas {name}: {entry.group(1)}")
+        elif "registers" in line or "spill" in line or "C7512" in line:
+            log(f"ptxas {name}:   {line.strip()}")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -740,12 +757,7 @@ def main() -> None:
     report = build.build_all()
     log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, text in report.items():
-        for line in text.splitlines():   # ptxas -v: one entry per variant
-            entry = re.search(r"entry function '(\S+)'", line)
-            if entry:
-                log(f"ptxas {name}: {entry.group(1)}")
-            elif "registers" in line or "spill" in line:
-                log(f"ptxas {name}:   {line.strip()}")
+        log_ptxas(name, text)
     for dtype in (torch.bfloat16, torch.float32):
         sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per CTA "
@@ -757,29 +769,47 @@ def main() -> None:
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(b, s, hq, hkv, hd, dtype):
+    def qkv(b, s, hq, hkv, hd, dtype, fused=False):
+        if fused:   # views of one (B, S, (Hq + 2 Hkv) * hd) projection
+            x = torch.randn((b, s, (hq + 2 * hkv) * hd), generator=gen,
+                            device=dev).to(dtype).view(b, s, hq + 2 * hkv, hd)
+            return x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
         return [torch.randn((b, s, h, hd), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
                 for h in (hq, hkv, hkv)]
 
-    cases = [  # name, (B, S, Hq, Hkv, hd), dtype, causal, window
-        ("path-bf16", (BATCH, PROMPT, 32, 4, 64), torch.bfloat16, True, None),
-        ("path-f32", (BATCH, PROMPT, 32, 4, 64), torch.float32, True, None),
-        ("mha", (2, 512, 8, 8, 64), torch.bfloat16, True, None),
-        ("mqa", (2, 512, 8, 1, 64), torch.bfloat16, True, None),
-        ("ragged-1000", (2, 1000, 8, 4, 64), torch.bfloat16, True, None),
-        ("ragged-1000-f32", (2, 1000, 8, 4, 64), torch.float32, True, None),
-        ("non-causal", (2, 1000, 8, 4, 64), torch.bfloat16, False, None),
-        ("window-48", (2, 1000, 8, 4, 64), torch.bfloat16, True, 48),
-        ("window-48-f32", (2, 1000, 8, 4, 64), torch.float32, True, 48),
-        ("hd16", (1, 300, 4, 2, 16), torch.bfloat16, True, None),
-        ("hd32", (1, 300, 4, 2, 32), torch.bfloat16, True, None),
-        ("hd128", (1, 300, 4, 2, 128), torch.bfloat16, True, None),
-        ("hd128-f32", (1, 300, 4, 2, 128), torch.float32, True, None),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, (B, S, Hq, Hkv, hd), dtype, causal, window[, fused]
+        ("path-bf16", (BATCH, PROMPT, 32, 4, 64), bf16, True, None),
+        ("path-f32", (BATCH, PROMPT, 32, 4, 64), f32, True, None),
+        ("mha", (2, 512, 8, 8, 64), bf16, True, None),
+        ("mqa", (2, 512, 8, 1, 64), bf16, True, None),
+        ("gqa-8", (2, 512, 16, 2, 64), bf16, True, None),
+        ("ragged-1000", (2, 1000, 8, 4, 64), bf16, True, None),
+        ("ragged-1000-f32", (2, 1000, 8, 4, 64), f32, True, None),
+        ("non-causal", (2, 1000, 8, 4, 64), bf16, False, None),
+        ("window-48", (2, 1000, 8, 4, 64), bf16, True, 48),
+        ("window-48-f32", (2, 1000, 8, 4, 64), f32, True, 48),
+        ("s1", (2, 1, 8, 2, 64), bf16, True, None),
+        ("s127", (2, 127, 8, 2, 64), bf16, True, None),
+        ("s129", (2, 129, 8, 2, 64), bf16, True, None),
+        ("s129-f32", (2, 129, 8, 2, 64), f32, True, None),
+        ("s300-window-48", (2, 300, 8, 2, 64), bf16, True, 48),
+        ("s300-window-200", (2, 300, 8, 2, 64), bf16, True, 200),
+        ("s300-hd128-w200", (2, 300, 8, 2, 128), bf16, True, 200),
+        ("s300-nc-w200-f32", (2, 300, 8, 2, 64), f32, False, 200),
+        ("fused-hd64", (2, 257, 8, 2, 64), bf16, True, None, True),
+        ("fused-hd128-w100", (2, 257, 8, 2, 128), bf16, True, 100, True),
+        ("fused-hd32", (2, 257, 8, 2, 32), bf16, True, None, True),
+        ("fused-hd64-f32", (2, 257, 8, 2, 64), f32, True, None, True),
+        ("hd16", (1, 300, 4, 2, 16), bf16, True, None),
+        ("hd32", (1, 300, 4, 2, 32), bf16, True, None),
+        ("hd128", (1, 300, 4, 2, 128), bf16, True, None),
+        ("hd128-f32", (1, 300, 4, 2, 128), f32, True, None),
     ]
     path_err = None
-    for name, shape, dtype, causal, window in cases:
-        q, k, v = qkv(*shape, dtype)
+    for name, shape, dtype, causal, window, *fused in cases:
+        q, k, v = qkv(*shape, dtype, fused=bool(fused))
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, causal, window)
@@ -794,8 +824,9 @@ def main() -> None:
             within = torch.allclose(out.float(), ref.float(), atol=F32_TOL,
                                     rtol=F32_TOL)
         ok = bool(torch.isfinite(out.float()).all()) and within
-        log(f"flash_attention {name:16s} {str(dtype):15s} max_abs_err "
-            f"{err:.3e} (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+        log(f"flash_attention {name:16s} {str(dtype):15s} "
+            f"{fa.last_variant:9s} max_abs_err {err:.3e} (tol {tol}) "
+            f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"flash_attention {name}: kernel disagrees with its plain "
                  f"version (max_abs_err {err:.3e}, tol {tol})")
@@ -808,6 +839,10 @@ def main() -> None:
 
     # 4. the main path: full-width tinyllama-1.1b serving -------------------
     launches = serve_phase(dev, "tinyllama-1.1b", "flash_attention")
+    path_variant = fa.last_variant
+    if path_variant != "wgmma_tma":
+        fail(f"tinyllama prefill ran the {path_variant} attention variant, "
+             f"not wgmma_tma")
 
     # 4b. the recurrence's path: full-width rwkv6-3b serving ----------------
     rwkv_launches = serve_phase(dev, "rwkv6-3b", "rwkv6_chunked")
@@ -838,7 +873,11 @@ def main() -> None:
     bound_ms, bound_by = bound(q, k, v, True, None)
     log(f"flash_attention at the path's shape: kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); {smi}")
+        f"{bound_ms:.4f} ms ({bound_by}; {1.5 * bound_ms:.4f} ms with the "
+        f"split PV product's 1.5x tensor-core work); {smi}")
+    log(f"flash_attention variant on the tinyllama path: {path_variant} "
+        f"({fa.last_variant} at the timed shape)")
+    log_ptxas("flash_attention", report["flash_attention"])
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), iters=5)
     f32_bound, f32_by = bound(qf, kf, vf, True, None)
@@ -865,6 +904,7 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
+        "variant": path_variant,
         "launches": launches, "max_abs_err": path_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,

@@ -49,9 +49,10 @@ def _target(src: Path) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Build the named kernels (default: all) in parallel.
 
-    Returns, per kernel, the ``-Xptxas -v`` report of this build (registers,
-    shared memory, spills), or ``"cached"`` when the library already existed.
-    Raises ``RuntimeError`` with the compiler's output when a build fails.
+    Returns, per kernel, the ``-Xptxas -v`` report of its build (registers,
+    shared memory, spills), kept beside the library so that a cached build
+    reports it too.  Raises ``RuntimeError`` with the compiler's output when
+    a build fails.
     """
     srcs = sources()
     todo = list(srcs) if names is None else list(names)
@@ -60,7 +61,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for name in todo:
         target = _target(srcs[name])
         if target.exists():
-            report[name] = "cached"
+            log = target.with_suffix(".log")
+            report[name] = log.read_text() if log.exists() else "cached"
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
@@ -71,6 +73,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {srcs[name]}:\n{out}")
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)   # atomic: a concurrent loader sees all or nothing
         report[name] = out
     return report

@@ -5,31 +5,63 @@
 // online-softmax attention with float32 running max / sum / accumulator, causal
 // and sliding-window masks, fully masked tiles skipped with the reference's
 // liveness tests, ragged sequence ends masked by kpos < Skv, masked scores set
-// to -1e30 (not -inf) and the finalize acc / max(l, 1e-20).
-//
-// Design.  One CTA of 4 warps per (batch, q head, 64-row q tile); each warp owns
-// 16 q rows.  A loop over 64-row K/V tiles staged in shared memory takes the
-// place of the TPU grid's sequential kv axis.  GQA reads kv head
+// to -1e30 (not -inf) and the finalize acc / max(l, 1e-20).  GQA reads kv head
 // h / (Hq / Hkv) directly instead of repeating K/V (kv-major grouping, as
 // src/repro/models/attention.py:119).  Inputs are read in their (B, S, H, hd)
 // layout through strides: no transpose or pad copy.
-//   bf16: both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//         f32 accumulate).  The Pallas kernel keeps P in f32 for the PV
-//         product (it upcasts V), so P is split into P_hi = bf16(P) and
-//         P_lo = bf16(P - P_hi) and both halves go through mma.sync into the
-//         same f32 accumulator: P keeps ~16 mantissa bits, V is exact, and
-//         the output agrees with the f32-P plain version to its own bf16
-//         rounding.  This doubles the PV products and keeps P in registers.
-//   fp32: both products as plain f32 FMAs (no TF32), P through shared memory.
 //
 // Bound on the H100 at the serving path's shape (B=4, S=2048, Hq=32, Hkv=4,
-// hd=64, causal, bf16): ~69 GFLOP of products against ~75 MB of q/k/v/o, so it
-// is bound by the tensor cores (~70 us at 989 TFLOP/s), not by memory (~22 us
-// at 3.35 TB/s).  This kernel uses mma.sync with synchronous loads, no wgmma,
-// no TMA and no load/compute overlap, so it runs well below that bound.
-// Making it fast (wgmma, TMA, a ring of K/V stages, warp specialisation) is
-// later work.
+// hd=64, causal, bf16): ~69 GFLOP of live products against ~75 MB of q/k/v/o,
+// so it is bound by the tensor cores (0.0695 ms at 989 TFLOP/s), not by memory
+// (~22 us at 3.35 TB/s).  The Pallas kernel keeps P in float32 for the PV
+// product; here P goes through the tensor cores as two bf16 halves
+// (P_hi = bf16(P), P_lo = bf16(P - P_hi)) into one float32 accumulator, which
+// is 1.5x the products the bound counts: 0.104 ms at the peak rate.
+//
+// Variants, chosen by dtype and head_dim in dispatch_hd (never one for another):
+//
+//   attn_fwd_wgmma_kernel — bf16, head_dim 64 and 128.  One CTA of three
+//     warpgroups takes 128 q rows.  What held the mma.sync design back, and
+//     what this one does about it:
+//     * mma.sync m16n8k16 with fragments read from shared memory by 32-bit
+//       loads reaches a fraction of the tensor cores' rate.  Both products are
+//       wgmma.mma_async m64nNk16: S = Q K^T with Q and K read from shared
+//       memory (SS, K-major: K's natural layout), O += P V with P from
+//       registers as the A operand (RS; P_hi then P_lo) and V read in its
+//       natural (kv, hd) layout through the transposed-B mode of 16-bit wgmma.
+//     * Tiles were loaded by every thread (16 bytes each, then stored), and
+//       V was transposed into shared memory one element at a time with bank
+//       conflicts.  Q, K and V come in by TMA (cp.async.bulk.tensor, 4-D maps
+//       over (hd, S, H, B) with the inputs' byte strides) into 128-byte
+//       swizzled shared memory, complete on mbarriers, and TMA's zero fill
+//       past Sq / Skv replaces the masked loads.  head_dim 128 is two
+//       64-column boxes.
+//     * Load -> sync -> compute -> sync on every tile let no copy overlap a
+//       product.  A ring of 4 K/V stages (16 KB of Q and 16 KB a stage at
+//       hd 64, 81 KB in all; 32 and 32 KB at hd 128) with full and empty
+//       mbarriers is fed by one producer warp (its warpgroup gives registers
+//       to the consumers with setmaxnreg).
+//     * 64 q rows a CTA loaded every K/V tile for little work.  Two consumer
+//       warpgroups of 64 rows share each K/V tile.
+//     * The softmax left the tensor cores idle.  A warpgroup issues tile n's
+//       S = Q K^T together with tile n - 1's P V and runs tile n's softmax
+//       while that product is in flight, and the two warpgroups take turns
+//       at issuing (named barriers), so one's softmax overlaps the other's
+//       products.  The K/V tiles are 64 rows, not 128: at 128, S, P_hi +
+//       P_lo and O in flight at once need more registers than ptxas gives
+//       the consumers, and it serialises the wgmmas.
+//     Online softmax runs on the accumulator registers, in base 2 with
+//     log2(e) folded into the scale (one FFMA and one ex2.approx a score,
+//     the ex2 on the special-function unit, which then bounds the softmax).
+//     Tiles the masks leave dead are never loaded, and only tiles
+//     that a mask cuts are masked element by element.  Longest causal rows
+//     first.
+//   attn_fwd_mma_kernel — bf16 head_dim 16 and 32 (mma.sync m16n8k16, P as
+//     P_hi + P_lo from registers, V transposed into shared memory), and all
+//     of float32 (plain FMAs, no TF32, P through shared memory): 64 q rows a
+//     CTA of 4 warps, 64-row K/V tiles loaded synchronously.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,10 +70,6 @@
 
 namespace {
 
-constexpr int BQ = 64;              // q rows per CTA
-constexpr int BK = 64;              // kv rows per tile
-constexpr int NWARPS = BQ / 16;     // one warp per 16 q rows
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;   // the reference's sentinel, never -inf
 
 struct Params {
@@ -55,6 +83,31 @@ struct Params {
   int window;                       // <= 0: no window
   float sm_scale;
 };
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two packed bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), so
+// that hi + lo carries x to ~16 mantissa bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// ---------------------------------------------------------------------------
+// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 and float32
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+constexpr int BQ = 64;              // q rows per CTA
+constexpr int BK = 64;              // kv rows per tile
+constexpr int NWARPS = BQ / 16;     // one warp per 16 q rows
+constexpr int NTHREADS = NWARPS * 32;
 
 // Shared-memory plan.  Rows are padded by 16 bytes: keeps 16-byte stores
 // aligned and spreads the fragment reads of one warp over distinct banks.
@@ -75,20 +128,6 @@ struct Plan {
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as two packed bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), so
-// that hi + lo carries x to ~16 mantissa bits.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // D += A(16x16, row) * B(16x8, col), bf16 inputs, f32 accumulators.
@@ -138,7 +177,7 @@ __device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* vt,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) {
   using P = Plan<T, HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);
@@ -345,37 +384,594 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
   }
 }
 
+
 template <typename T, int HD>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr size_t bytes = Plan<T, HD>::kBytes;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        attn_fwd_mma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, batch);
-  attn_fwd_kernel<T, HD><<<grid, NTHREADS, bytes, stream>>>(p);
+  attn_fwd_mma_kernel<T, HD><<<grid, NTHREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const Params& p, int hd, int batch, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// attn_fwd_wgmma_kernel: bf16 head_dim 64 / 128
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BQ = 128;             // q rows per CTA: two consumer warpgroups
+constexpr int BK = 64;              // kv rows per tile
+constexpr int NTHREADS = 384;       // warpgroup 0 produces, 1 and 2 consume
+constexpr int Q_BOX = BQ * 128;     // one TMA box of Q: 128 rows x 64 bf16
+constexpr int KV_BOX = BK * 128;    // one TMA box of K or V: 64 rows x 64 bf16
+constexpr uint32_t WAIT_LIMIT = 1u << 24;    // mbarrier tries before a trap
+// A running max below this is the masking sentinel times the scale: the row
+// has met no live score yet.
+constexpr float DEAD_MAX = -1e28f;
+
+template <int HD>
+struct Plan {
+  static constexpr int NBOX = HD / 64;              // 64-column boxes per row
+  static constexpr int STAGES = 4;                  // K/V ring depth
+  static constexpr int Q_TILE = NBOX * Q_BOX;
+  static constexpr int KV_TILE = NBOX * KV_BOX;     // a K or a V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]; 1 KB to align
+  static constexpr size_t kBytes = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of `bar` with this parity to complete.  A barrier that
+// never completes (a lost arrival) traps after WAIT_LIMIT tries instead of
+// hanging the card: the launch then fails with an error.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0; !mbar_try(bar, parity);)
+    if (++tries == WAIT_LIMIT) __trap();
+}
+
+// Named barriers 1 and 2 give the two consumer warpgroups turns at issuing
+// their products (ping-pong): a warpgroup syncs on its own and, once it has
+// issued, arrives on the other's, so one's softmax runs while the other's
+// products do.
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + cw) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - cw) : "memory");
+}
+
+// One TMA box of a 4-D map (hd, inner, outer, B) into shared memory,
+// completing on `bar`.  `heads_inner` says which of S and H is the map's
+// second dimension (the one with the smaller stride).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int b, int heads_inner) {
+  const int c1 = heads_inner ? head : row, c2 = heads_inner ? row : head;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c1), "r"(c2), "r"(b),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 128B.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// 2^x on the special-function unit (flushes subnormal results to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of accumulator registers above the
+// wait that completes the asynchronous products writing them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D(64 x N, f32) (+)= A * B: m64nNk16 bf16.  _ss: A and B from shared
+// memory, both K-major.  _rs: A from registers (the m16n8k16 A-fragment
+// layout, per warp), B from shared memory, MN-major (transposed B).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N> struct Rs;
+template <> struct Rs<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    wgmma_rs_n64(d, a, db);
+  }
+};
+template <> struct Rs<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    wgmma_rs_n128(d, a, db);
+  }
+};
+
+// The softmax state of one consumer thread's two rows (qpos[0] and
+// qpos[0] + 8 of its warpgroup): the keys each may see, [klo, khi], its
+// running max m (base 2, scaled) and sum l.
+struct Rows {
+  int first;                 // the warpgroup's first q row
+  int tig;                   // the thread's column pair within an n8 block
+  float scale;               // sm_scale * log2(e)
+  int qpos[2], klo[2], khi[2];
+  float m[2], l[2];
+};
+
+// S = Q K^T for one warpgroup's 64 rows against a BK-key tile: hd / 16
+// k16 steps, the second 64-column box (hd 128) one box further.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q, uint32_t k) {
+  static_assert(BK == 64, "S is one m64n64 accumulator");
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(s, sw128_desc(q + (kk / 4) * Q_BOX + col, 16, 1024),
+                 sw128_desc(k + (kk / 4) * KV_BOX + col, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V with P as P_hi then P_lo: V (kv, hd) is MN-major B, 16 kv rows a
+// k16 step, the second 64-column box (hd 128) one leading offset away.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&a_hi)[BK / 16][4],
+                                         const uint32_t (&a_lo)[BK / 16][4], uint32_t v) {
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt) {
+    const uint64_t db = sw128_desc(v + kt * 16 * 128, KV_BOX, 1024);
+    Rs<HD>::run(o, a_hi[kt], db);
+    Rs<HD>::run(o, a_lo[kt], db);
+  }
+}
+
+// Online softmax of one BK-key tile starting at k0, in place: s holds the
+// raw scores and leaves holding P (float32); alpha is the factor by which
+// the accumulator must be rescaled.  The mask is applied only where one cuts
+// the tile; a row's BK columns lie in the 4 threads of a quad; then
+// p = 2^(s * scale - m) as one FFMA and one ex2.
+__device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&alpha)[2], Rows& r,
+                                        const Params& p, int k0) {
+  if (k0 + BK > p.Skv || (p.causal && k0 + BK - 1 > r.first) ||
+      (p.window > 0 && r.first + 63 - k0 >= p.window)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = k0 + 8 * j + 2 * r.tig + (i & 1);
+        const bool ok = kpos >= r.klo[i >> 1] && kpos <= r.khi[i >> 1];
+        s[4 * j + i] = ok ? s[4 * j + i] : NEG_INF;
+      }
+    }
+  }
+  float mx[2][4];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mx[hr][c] = fmaxf(s[4 * c + 2 * hr], s[4 * c + 2 * hr + 1]);
+#pragma unroll
+  for (int j = 4; j < BK / 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      mx[hr][j & 3] = fmaxf(mx[hr][j & 3], fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+  float sc[2], neg_m[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float m = fmaxf(fmaxf(mx[hr][0], mx[hr][1]), fmaxf(mx[hr][2], mx[hr][3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(r.m[hr], m * r.scale);
+    alpha[hr] = ex2(r.m[hr] - m_new);
+    r.m[hr] = m_new;
+    // a row with no live score so far holds only the sentinel: p = 1 for
+    // each, as exp(-1e30 - (-1e30)) is in the reference, exactly
+    const bool dead = m_new < DEAD_MAX;
+    sc[hr] = dead ? 0.f : r.scale;
+    neg_m[hr] = dead ? 0.f : -m_new;
+  }
+  float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float e = ex2(fmaf(s[4 * j + i], sc[i >> 1], neg_m[i >> 1]));
+      s[4 * j + i] = e;
+      rs[i >> 1][((j & 1) << 1) | (i & 1)] += e;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = (rs[hr][0] + rs[hr][1]) + (rs[hr][2] + rs[hr][3]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    r.l[hr] = r.l[hr] * alpha[hr] + sum;
+  }
+}
+
+// P as the PV product's A fragments: accumulator n-blocks 2t and 2t + 1 are
+// the A fragment of k16 step t.  P_hi + P_lo keep its float32 precision.
+__device__ __forceinline__ void to_fragments(const float (&s)[BK / 2], uint32_t (&a_hi)[BK / 16][4],
+                                             uint32_t (&a_lo)[BK / 16][4]) {
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      split_bf16(s[8 * kt + 2 * f], s[8 * kt + 2 * f + 1], a_hi[kt][f], a_lo[kt][f]);
+}
+
+// Thread roles: warpgroup 0 is the producer (one thread issues every TMA
+// load), warpgroups 1 and 2 each own 64 of the CTA's 128 q rows.  Thread t
+// of a consumer warpgroup holds, as a wgmma accumulator does, rows
+// 16 * (t / 32) + (t % 32) / 4 and that + 8; element 4 * j + i of a row block
+// is column 8 * j + 2 * (t % 4) + (i & 1) of row half i >> 1.
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const Params p,
+                      const int q_hin, const int k_hin, const int v_hin) {
+  using P = Plan<HD>;
+  constexpr int NBOX = P::NBOX, STAGES = P::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;      // swizzle atoms are 1 KB
+  const uint32_t q_s = base + P::Q_OFF;
+  const uint32_t bar = base + P::BAR_OFF;
+  auto k_s = [&](int st) { return base + P::K_OFF + st * P::KV_TILE; };
+  auto v_s = [&](int st) { return base + P::V_OFF + st * P::KV_TILE; };
+  const uint32_t q_full = bar;
+  auto k_full = [&](int st) { return bar + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bar + 8u * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bar + 8u * (1 + 2 * STAGES + st); };
+
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;   // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+
+  // the live K/V tiles [j_lo, j_hi] of these 128 rows (the liveness tests
+  // of flash_attention.py:52-56)
+  const int nk = (p.Skv + BK - 1) / BK;
+  int j_hi = nk - 1, j_lo = 0;
+  if (p.causal) j_hi = min(j_hi, (q0 + BQ - 1) / BK);
+  if (p.window > 0) {
+    const int first = q0 - p.window + 2 - BK;    // least live k0
+    j_lo = first <= 0 ? 0 : (first + BK - 1) / BK;
+  }
+  const int ntiles = max(0, j_hi - j_lo + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 8);               // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, P::Q_TILE);
+      for (int c = 0; c < NBOX; ++c)
+        tma_load(q_s + c * Q_BOX, &tq, q_full, c * 64, q0, h, b, q_hin);
+      for (int n = 0; n < ntiles; ++n) {
+        const int st = n % STAGES;
+        if (n >= STAGES) mbar_wait(empty(st), ((n / STAGES) & 1) ^ 1);
+        const int k0 = (j_lo + n) * BK;
+        mbar_expect_tx(k_full(st), P::KV_TILE);
+        for (int c = 0; c < NBOX; ++c)
+          tma_load(k_s(st) + c * KV_BOX, &tk, k_full(st), c * 64, k0, hk, b, k_hin);
+        mbar_expect_tx(v_full(st), P::KV_TILE);
+        for (int c = 0; c < NBOX; ++c)
+          tma_load(v_s(st) + c * KV_BOX, &tv, v_full(st), c * 64, k0, hk, b, v_hin);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;          // consumer warpgroup: 0 or 1
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int group = lane >> 2, tig = lane & 3;
+  Rows rows;
+  rows.first = q0 + 64 * cw;                     // this warpgroup's first row
+  rows.scale = p.sm_scale * 1.4426950408889634f;  // base-2 softmax
+  rows.tig = tig;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rows.qpos[hr] = rows.first + warp * 16 + group + 8 * hr;
+    rows.klo[hr] = p.window > 0 ? rows.qpos[hr] - p.window + 1 : 0;
+    rows.khi[hr] = p.causal ? min(rows.qpos[hr], p.Skv - 1) : p.Skv - 1;
+    rows.m[hr] = NEG_INF;
+    rows.l[hr] = 0.f;
+  }
+  const uint32_t q_wg = q_s + 64 * 128 * cw;      // this warpgroup's Q rows
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float s[BK / 2], alpha[2];
+  uint32_t a_hi[BK / 16][4], a_lo[BK / 16][4];
+
+  // Tile n's S = Q K^T and tile n - 1's O += P V are issued together, in
+  // this warpgroup's turn (warpgroup 0 first); the softmax of tile n runs
+  // while the PV product is still on the tensor cores.  Each warpgroup takes
+  // ntiles + 1 turns, and each turn's pass is awaited, so no arrival is left
+  // at exit.
+  mbar_wait(q_full, 0);
+  if (ntiles > 0) {
+    if (cw == 1) turn_pass(cw);
+    mbar_wait(k_full(0), 0);
+    turn_wait(cw);
+    wgmma_fence();
+    issue_qk<HD>(s, q_wg, k_s(0));
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(s, alpha, rows, p, j_lo * BK);
+    to_fragments(s, a_hi, a_lo);
+  }
+  for (int n = 1; n < ntiles; ++n) {
+    const int st = n % STAGES, prev = (n - 1) % STAGES;
+    mbar_wait(k_full(st), (n / STAGES) & 1);
+    mbar_wait(v_full(prev), ((n - 1) / STAGES) & 1);
+    turn_wait(cw);
+    wgmma_fence();
+    issue_qk<HD>(s, q_wg, k_s(st));
+    wgmma_commit();
+    issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
+    wgmma_commit();
+    turn_pass(cw);
+    wgmma_wait<1>();                             // S of tile n is in
+    fence_regs(s);
+    softmax(s, alpha, rows, p, (j_lo + n) * BK);
+    wgmma_wait<0>();                             // PV of tile n - 1 is done
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(prev));     // this warp is done with it
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    to_fragments(s, a_hi, a_lo);
+  }
+  if (ntiles > 0) {
+    const int last = (ntiles - 1) % STAGES;
+    mbar_wait(v_full(last), ((ntiles - 1) / STAGES) & 1);
+    turn_wait(cw);
+    wgmma_fence();
+    issue_pv<HD>(o, a_hi, a_lo, v_s(last));
+    wgmma_commit();
+    if (cw == 0) turn_pass(cw);
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  // finalize: acc / max(l, 1e-20), written in bf16
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rows.qpos[hr] >= p.Sq) continue;
+    const float l = fmaxf(rows.l[hr], 1e-20f);
+    __nv_bfloat16* orow = og + rows.qpos[hr] * p.o_ss;
+#pragma unroll
+    for (int d8 = 0; d8 < HD / 8; ++d8) {
+      const float x0 = o[4 * d8 + 2 * hr] / l, x1 = o[4 * d8 + 2 * hr + 1] / l;
+      *reinterpret_cast<__nv_bfloat162*>(orow + d8 * 8 + tig * 2) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library links against
+// the CUDA runtime alone.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The 4-D map of one (B, S, H, hd) input: dimensions (hd, inner, outer, B)
+// where inner is whichever of S and H has the smaller stride, a box of 64
+// columns x box_rows rows, 128-byte swizzle, zeros past the ends.  A
+// dimension of size 1 gets a nominal stride.  Returns false if
+// cuTensorMapEncodeTiled refuses the map.
+bool encode(CUtensorMap* map, const void* ptr, int hd, int s, int h, int batch, long long ss,
+            long long sh, long long sb, int box_rows, int* heads_inner) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  if (s == 1) ss = hd;
+  if (h == 1) sh = hd;
+  if (batch == 1) sb = hd;
+  const bool hin = sh <= ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)(hin ? h : s),
+                              (cuuint64_t)(hin ? s : h), (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (hin ? sh : ss)),
+                                 (cuuint64_t)(2 * (hin ? ss : sh)), (cuuint64_t)(2 * sb)};
+  const cuuint32_t rows = (cuuint32_t)box_rows;
+  const cuuint32_t box[4] = {64, hin ? 1u : rows, hin ? rows : 1u, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  *heads_inner = hin ? 1 : 0;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int q_hin, k_hin, v_hin;
+  const int hd = HD;
+  if (!encode(&tq, p.q, hd, p.Sq, p.Hq, batch, p.q_ss, p.q_sh, p.q_sb, BQ, &q_hin) ||
+      !encode(&tk, p.k, hd, p.Skv, p.Hkv, batch, p.k_ss, p.k_sh, p.k_sb, BK, &k_hin) ||
+      !encode(&tv, p.v, hd, p.Skv, p.Hkv, batch, p.v_ss, p.v_sh, p.v_sb, BK, &v_hin))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = Plan<HD>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, batch);
+  attn_fwd_wgmma_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p, q_hin, k_hin,
+                                                                 v_hin);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// The variant that takes (dtype, head_dim): 0 attn_fwd_mma_kernel with FMAs
+// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32),
+// 2 attn_fwd_wgmma_kernel (bf16 hd 64 / 128); -1 none.
+int variant(int dtype, int hd) {
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return -1;
+  if (dtype == 0) return 0;
+  if (dtype == 1) return hd >= 64 ? 2 : 1;
+  return -1;
+}
+
+cudaError_t dispatch_hd(const Params& p, int dtype, int hd, int batch, cudaStream_t stream) {
+  switch (variant(dtype, hd) * 1000 + hd) {
+    case 16: return mma::launch<float, 16>(p, batch, stream);
+    case 32: return mma::launch<float, 32>(p, batch, stream);
+    case 64: return mma::launch<float, 64>(p, batch, stream);
+    case 128: return mma::launch<float, 128>(p, batch, stream);
+    case 1016: return mma::launch<__nv_bfloat16, 16>(p, batch, stream);
+    case 1032: return mma::launch<__nv_bfloat16, 32>(p, batch, stream);
+    case 2064: return wg::launch<64>(p, batch, stream);
+    case 2128: return wg::launch<128>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int smem_bytes(int hd) {
-  switch (hd) {
-    case 16: return (int)Plan<T, 16>::kBytes;
-    case 32: return (int)Plan<T, 32>::kBytes;
-    case 64: return (int)Plan<T, 64>::kBytes;
-    case 128: return (int)Plan<T, 128>::kBytes;
+int smem_bytes(int dtype, int hd) {
+  switch (variant(dtype, hd) * 1000 + hd) {
+    case 16: return (int)mma::Plan<float, 16>::kBytes;
+    case 32: return (int)mma::Plan<float, 32>::kBytes;
+    case 64: return (int)mma::Plan<float, 64>::kBytes;
+    case 128: return (int)mma::Plan<float, 128>::kBytes;
+    case 1016: return (int)mma::Plan<__nv_bfloat16, 16>::kBytes;
+    case 1032: return (int)mma::Plan<__nv_bfloat16, 32>::kBytes;
+    case 2064: return (int)wg::Plan<64>::kBytes;
+    case 2128: return (int)wg::Plan<128>::kBytes;
     default: return -1;
   }
 }
@@ -383,16 +979,17 @@ int smem_bytes(int hd) {
 }  // namespace
 
 // Dynamic shared memory of one CTA, in bytes (-1: not a supported variant).
-extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
-  if (dtype == 0) return smem_bytes<float>(hd);
-  if (dtype == 1) return smem_bytes<__nv_bfloat16>(hd);
-  return -1;
-}
+extern "C" int flash_attention_smem_bytes(int dtype, int hd) { return smem_bytes(dtype, hd); }
+
+// Which kernel variant flash_attention_fwd launches for (dtype, head_dim):
+// 0 mma kernel with FMAs, 1 mma kernel with mma.sync, 2 wgmma + TMA; -1 none.
+extern "C" int flash_attention_variant(int dtype, int hd) { return variant(dtype, hd); }
 
 // q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), o (B, Sq, Hq, hd), each with a unit
 // last stride; strides[12] holds the (batch, seq, head) strides, in elements,
 // of q, k, v and o in that order.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// the cudaError_t of the launch (0 on success).
+// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue also when
+// cuTensorMapEncodeTiled refuses a TMA map).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int batch, int sq, int skv, int hq, int hkv,
                                    int hd, const long long* strides, int causal, int window,
@@ -405,8 +1002,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
   p.causal = causal; p.window = window; p.sm_scale = sm_scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_hd<float>(p, hd, batch, s);
-  if (dtype == 1) return (int)dispatch_hd<__nv_bfloat16>(p, hd, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_hd(p, dtype, hd, batch, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,11 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu``, the counterpart of
 the Pallas TPU kernel ``repro/kernels/flash_attention.py::_attn_kernel`` and
 its GQA wrapper ``repro/kernels/ops.py::flash_attention``.  It takes CUDA
-tensors only and raises on what the kernel does not take.
+tensors only and raises on what the kernel does not take.  The source holds
+two kernels, chosen by dtype and head_dim (``check_layout`` names the one a
+call launches): bf16 at head_dim 64 / 128 runs ``attn_fwd_wgmma_kernel``
+(wgmma, TMA, a ring of K/V stages), bf16 at 16 / 32 and all of float32 run
+``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
 ``flash_attention_plain`` computes the same function in plain PyTorch, with
 the same ``-1e30`` masking sentinel, ``max(l, 1e-20)`` finalize and kv-major
 GQA grouping; the CPU path and the on-card comparisons use it.
@@ -29,6 +33,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
+last_variant = None   # the variant of the last launch (VARIANTS)
 
 
 def check_window(window: Optional[int]) -> None:
@@ -60,8 +65,49 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, hq, hd).to(q.dtype)
 
 
+# The kernel variants of csrc/flash_attention.cu, by the code its
+# flash_attention_variant returns: float32 on FMAs and bf16 head_dim 16 / 32
+# on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 / 128 runs
+# attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
+VARIANTS = ("mma_fma", "mma_sync", "wgmma_tma")
+WGMMA_HEAD_DIMS = (64, 128)
+_TMA_STRIDE_LIMIT = 2 ** 40
+
+
+def check_layout(shapes, strides, element_size: int, bases) -> str:
+    """Refuse a q/k/v layout the kernel cannot read; name the variant.
+
+    ``shapes`` and ``strides`` are the (B, S, H, hd) shapes and element
+    strides of q, k and v, ``bases`` their data addresses; ``element_size``
+    is 4 (float32) or 2 (bf16).  Every variant needs a unit last stride, a
+    16-byte aligned base and byte strides that are multiples of 16 (the TMA
+    maps' rule, and the 16-byte loads' of the mma kernel), and a head_dim in
+    ``HEAD_DIMS``; the TMA maps also need each stride in (0, 2**40) bytes.
+    A dimension of size 1 is never stepped over, so its stride is free."""
+    hd = shapes[0][3]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if element_size == 4:
+        variant = "mma_fma"
+    else:
+        variant = "wgmma_tma" if hd in WGMMA_HEAD_DIMS else "mma_sync"
+    for name, shape, stride, base in zip("qkv", shapes, strides, bases):
+        steps = [st * element_size for n, st in zip(shape[:3], stride[:3])
+                 if n > 1]                   # byte strides that are walked
+        if stride[3] != 1 or base % 16 or any(b % 16 for b in steps):
+            raise ValueError(f"flash_attention: {name} needs a unit last "
+                             f"stride, 16-byte aligned rows and base; got "
+                             f"strides {tuple(stride)}, base {base:#x}")
+        if variant == "wgmma_tma" and any(
+                not 0 < b < _TMA_STRIDE_LIMIT for b in steps):
+            raise ValueError(f"flash_attention: {name} byte strides must be "
+                             f"in (0, 2**40) for a TMA map; got strides "
+                             f"{tuple(stride)}")
+    return variant
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           window: Optional[int]) -> str:
     check_window(window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -73,21 +119,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, hd), "
                              f"got shape {tuple(t.shape)}")
-        vec = 16 // t.element_size()
-        if (t.stride(3) != 1 or any(s % vec for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"flash_attention: {name} needs a unit last "
-                             f"stride, 16-byte aligned rows and base; got "
-                             f"strides {t.stride()}")
     b, _, hq, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if k.shape[2] == 0 or hq % k.shape[2]:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={k.shape[2]}")
+    return check_layout([t.shape for t in (q, k, v)],
+                        [t.stride() for t in (q, k, v)], q.element_size(),
+                        [t.data_ptr() for t in (q, k, v)])
 
 
 def _lib() -> ctypes.CDLL:
@@ -99,8 +140,9 @@ def _lib() -> ctypes.CDLL:
                        ctypes.POINTER(ctypes.c_longlong), i, i,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [i, i]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_int
+        for name in ("flash_attention_smem_bytes", "flash_attention_variant"):
+            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -109,12 +151,19 @@ def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     return _lib().flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim)
 
 
+def built_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The variant the built library launches for (dtype, head_dim): the
+    C side's own dispatch, against which ``check_layout``'s name is held."""
+    return VARIANTS[_lib().flash_attention_variant(_DTYPE_CODE[dtype],
+                                                   head_dim)]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors; returns (B, Sq, Hq, hd)."""
-    global launches
-    _check(q, k, v, window)
+    global launches, last_variant
+    variant = _check(q, k, v, window)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=q.device)
@@ -132,4 +181,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: kernel launch failed with "
                            f"cudaError_t {err}")
     launches += 1
+    last_variant = variant
     return out

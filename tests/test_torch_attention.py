@@ -135,3 +135,76 @@ def test_decode_attention_matches_reference(cache_len):
                                   torch.from_numpy(vc[:, :cache_len]),
                                   q_offset=pos)
     _close(out, full.numpy(), 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's layout rule and kernel variant, as a function of shapes,
+# strides, element size and base addresses (no card needed)
+# ---------------------------------------------------------------------------
+
+def _layout(b=2, s=64, hq=8, hkv=2, hd=64, elt=2, fused=False):
+    """(shapes, strides, bases) of contiguous q/k/v, or of views into one
+    fused (B, S, (Hq + 2 Hkv) * hd) projection."""
+    shapes = [(b, s, h, hd) for h in (hq, hkv, hkv)]
+    if fused:
+        row = (hq + 2 * hkv) * hd
+        strides = [(s * row, row, hd, 1)] * 3
+        bases = [4096, 4096 + hq * hd * elt, 4096 + (hq + hkv) * hd * elt]
+    else:
+        strides = [(s * h * hd, h * hd, hd, 1) for h in (hq, hkv, hkv)]
+        bases = [4096, 1 << 20, 1 << 21]
+    return shapes, strides, bases
+
+
+@pytest.mark.parametrize("elt,hd,variant", [
+    (2, 64, "wgmma_tma"), (2, 128, "wgmma_tma"),
+    (2, 16, "mma_sync"), (2, 32, "mma_sync"),
+    (4, 16, "mma_fma"), (4, 32, "mma_fma"), (4, 64, "mma_fma"),
+    (4, 128, "mma_fma"),
+])
+@pytest.mark.parametrize("fused", [False, True], ids=["contiguous", "fused"])
+def test_check_layout_names_the_variant(elt, hd, variant, fused):
+    shapes, strides, bases = _layout(hd=hd, elt=elt, fused=fused)
+    assert fa.check_layout(shapes, strides, elt, bases) == variant
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_dim 48", "head_dim"),
+    ("head_dim 256", "head_dim"),
+    ("row stride 8 bytes off", "16-byte"),
+    ("base 8 bytes off", "16-byte"),
+    ("last stride 2", "unit last stride"),
+    ("zero head stride", "2\\*\\*40"),
+    ("stride of 2**40 bytes", "2\\*\\*40"),
+])
+def test_check_layout_refuses_what_a_tma_map_cannot_take(case, match):
+    shapes, strides, bases = _layout()
+    strides = [list(st) for st in strides]
+    if case.startswith("head_dim"):
+        hd = int(case.split()[1])
+        shapes = [sh[:3] + (hd,) for sh in shapes]
+    elif case == "row stride 8 bytes off":
+        strides[1][1] += 4                      # k: 8 bytes more a row
+    elif case == "base 8 bytes off":
+        bases[2] += 8
+    elif case == "last stride 2":
+        strides[0][3] = 2
+    elif case == "zero head stride":
+        strides[1][2] = 0                       # k broadcast over its heads
+    else:
+        strides[0][0] = 2 ** 39                 # q's batch stride: 2**40 bytes
+    with pytest.raises(ValueError, match=match):
+        fa.check_layout(shapes, strides, 2, bases)
+
+
+def test_check_layout_ignores_the_stride_of_a_size_one_dim():
+    """A dimension of size 1 is never stepped over: B = 1, S = 1 or H = 1
+    may carry any stride (as a sliced or unsqueezed view does), on every
+    variant; the mma kernel also takes a zero stride elsewhere."""
+    shapes = [(1, 1, 1, 64)] * 3
+    strides = [(3, 5, 7, 1)] * 3
+    assert fa.check_layout(shapes, strides, 2, [0, 16, 32]) == "wgmma_tma"
+    assert fa.check_layout(shapes, strides, 4, [0, 16, 32]) == "mma_fma"
+    shapes, strides, bases = _layout(hd=32)
+    strides[1] = (strides[1][0], strides[1][1], 0, 1)   # k broadcast
+    assert fa.check_layout(shapes, strides, 2, bases) == "mma_sync"

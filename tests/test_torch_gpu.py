@@ -10,7 +10,10 @@ Flash attention: bf16 within one bf16 ulp of the output (8e-3 where
 |o| < 2; the kernel carries P as bf16 hi + lo halves, so it keeps P's
 float32 precision as the plain version does and only the output's own
 rounding differs), float32 1e-4 (same f32 arithmetic in another summation
-order, no TF32).  Segment max: bit-exact against its plain version and
+order, no TF32); on both kernels of the source (wgmma + TMA for bf16 at
+head_dim 64 / 128, mma.sync or FMAs for the rest), at the wgmma kernel's
+tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
+1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact against its plain version and
 numpy.  The simulator on ``cuda`` gives schedules identical to ``cpu``,
 with one kernel launch per rate-resolution solve.  RWKV6 chunked recurrence:
 output and final state within 1e-4 of its plain version (float32 FMA in
@@ -62,11 +65,13 @@ def _qkv(dev, b, s, hq, hkv, hd, dtype, seed=0):
             for h in (hq, hkv, hkv)]
 
 
-def _check(q, k, v, **kw):
+def _check(q, k, v, variant=None, **kw):
     before = fa.launches
     out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    if variant is not None:
+        assert fa.last_variant == variant
     ref = fa.flash_attention_plain(q, k, v, kw.get("causal", True),
                                    kw.get("window"))
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -105,6 +110,71 @@ def test_kernel_reads_strided_inputs(cuda):
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     assert not q.is_contiguous()
     _check(q, k, v)
+
+
+# The wgmma kernel takes 128 q rows a CTA and 128-key tiles (TMA boxes
+# zero-filled past S); the mma kernel 64 and 64.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1, 127, 129, 1000, 2048])
+def test_kernel_tile_edges(cuda, s, dtype):
+    variant = "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma"
+    _check(*_qkv(cuda, 2, s, 8, 2, 64, dtype, seed=s), variant=variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (True, 200), (False, 200)])
+@pytest.mark.parametrize("s", [300, 1000])
+def test_kernel_windows_across_tile_edges(cuda, s, causal, window, hd,
+                                          dtype):
+    """Sq not a multiple of 128, windows that start inside a K/V tile."""
+    _check(*_qkv(cuda, 1, s, 4, 2, hd, dtype, seed=hd + s), causal=causal,
+           window=window)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (16, 2)],
+                         ids=["group1", "group4", "group8"])
+@pytest.mark.parametrize("hd,variant", [(64, "wgmma_tma"),
+                                        (128, "wgmma_tma"),
+                                        (16, "mma_sync"), (32, "mma_sync")])
+def test_kernel_gqa_groups_and_variants(cuda, hq, hkv, hd, variant):
+    _check(*_qkv(cuda, 2, 333, hq, hkv, hd, torch.bfloat16, seed=hq),
+           variant=variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
+    """q/k/v as strided views of one (B, S, (Hq + 2 Hkv) * hd) tensor, the
+    output of a fused qkv projection; each map's rows are (Hq + 2 Hkv) * hd
+    apart and k / v start mid-row."""
+    b, s = 2, 257
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    fused = torch.randn(b, s, (hq + 2 * hkv) * hd, generator=g).to(cuda,
+                                                                     dtype)
+    heads = fused.view(b, s, hq + 2 * hkv, hd)
+    q, k, v = heads[:, :, :hq], heads[:, :, hq:hq + hkv], \
+        heads[:, :, hq + hkv:]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    _check(q, k, v)
+    _check(q, k, v, causal=True, window=100)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
+    """The C side's dispatch_hd and the wrapper's check_layout name the
+    same variant for every (dtype, head_dim)."""
+    q, k, v = _qkv(cuda, 1, 8, 2, 1, hd, dtype)
+    named = fa.check_layout([t.shape for t in (q, k, v)],
+                            [t.stride() for t in (q, k, v)],
+                            q.element_size(),
+                            [t.data_ptr() for t in (q, k, v)])
+    assert fa.built_variant(dtype, hd) == named
+    assert fa.smem_bytes(dtype, hd) > 0
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
