@@ -21,11 +21,14 @@ Phases, in order; any failure exits non-zero before the result line:
                max at the lane engine's dispatch shapes, empty segments and
                values, ties and negatives, int64 extremes and one
                1,000,000-value segment, bit-exact against its plain version
-               and numpy; the RWKV6 chunked recurrence at the serving path's
-               shape (B·H 160, T 2048, K = V = 64, chunk 16, with and without
-               an initial state) and at every K / V in {8, ..., 128}, chunks
-               1 to 64 (12 and 7 among them) and mask kind, output and final
-               state within 1e-4.
+               and numpy; the fused RWKV6 recurrence from raw q / k / v /
+               log decay (a bonus on the exclusive cases) at the serving
+               path's shape (B·H 160, T 2048, K = V = 64, chunk 16, with and
+               without an initial state) and at every K / V in {8, ..., 128},
+               chunks 1 to 64 (12 and 7 among them) and mask kind, float32
+               output and final state within 1e-4; then the path's case in
+               bf16 from the model's split_heads views, output within one
+               bf16 ulp; each case logs the VB and loads it took.
   4. serve   — full-width tinyllama-1.1b (22 layers, seeded random weights,
                bf16) through ``repro_torch.launch.serve.generate``: prefill of
                4 x 2048 tokens and 32 greedy decode steps.  The kernel must be
@@ -59,8 +62,11 @@ Phases, in order; any failure exits non-zero before the result line:
                report (registers, spills, wgmma serialisation) of each
                attention variant; the segment max at the grid's p50 / p90 / max calls,
                with its numpy-to-numpy round trip and host numpy beside it;
-               the recurrence at its serving shape (no single PyTorch call
-               computes it, so it has no library time).
+               the recurrence at its serving shape in bf16 from split_heads
+               views, at the plan the library makes (no single PyTorch call
+               computes it, so it has no library time), then at VB 16, 32
+               and 64 (each a compile-time instance there) at batch 4 and 1
+               (B·H 160 and 40).
 The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
@@ -94,6 +100,10 @@ DISPATCH_SHAPES = (("p50", 3345, 62), ("p90", 22652, 398),
 RWKV_PATH, RWKV_CHUNK = (BATCH, 40, PROMPT, 64, 64), 16
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32_FLOPS = 495e12
+# the recurrence's column blocks timed against each other (each a
+# compile-time instance on the path) and the batches they are timed at
+RWKV_SWEEP_VBS, RWKV_SWEEP_BATCHES = (16, 32, 64), (BATCH, 1)
 # Kernel vs plain: bf16 — both keep P in float32 (the kernel as bf16 hi + lo
 # halves), so they differ by the output's own bf16 rounding: one ulp, 8e-3
 # where |o| < 2; float32 — the same float32 arithmetic summed in another
@@ -146,17 +156,27 @@ def bound(q, k, v, causal, window):
 
 
 def rwkv6_bound(bh: int, t: int, dk: int, dv: int, chunk: int,
-                exclusive: bool, with_state: bool):
-    """Least time of one recurrence call: max(live float32 operations / peak,
-    bytes / memory rate).  Per chunk: the live score pairs times K and V,
-    the cross-chunk read and the state update (C·K·V FMAs each) and the
-    decay scaling of S; each input read once, output and S written once."""
+                exclusive: bool, with_state: bool, esize: int = 2,
+                heads: int = 0):
+    """Least time of one fused recurrence call: max(live float32 operations
+    at their rate, bytes / memory rate).  Per chunk: the live score pairs
+    times K and V, the cross-chunk read and the state update (C·K·V FMAs
+    each): products the kernel runs in 3xTF32, three TF32 products each on
+    the tensor cores, so at PEAK_TF32_FLOPS / 3; the decay scaling of S and,
+    per row with a bonus, Σ_k q·u·k (3·K) and its product with v added
+    (2·V), at PEAK_F32_FLOPS.  Bytes: q, k, log decay and v read once and
+    the output written once in their dtype (``esize`` bytes), S written and
+    s0 read in float32, the bonus (heads, K) read in float32."""
     nc = t // chunk
     pairs = chunk * (chunk - 1) // 2 if exclusive else chunk * (chunk + 1) // 2
-    flops = bh * nc * (2 * pairs * (dk + dv) + 4 * chunk * dk * dv + dk * dv)
-    nbytes = 4 * bh * (4 * t * dk + 2 * t * dv + nc * dk
-                       + dk * dv * (2 if with_state else 1))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    products = bh * nc * (2 * pairs * (dk + dv) + 4 * chunk * dk * dv)
+    other = bh * nc * dk * dv + (bh * t * (3 * dk + 2 * dv) if exclusive
+                                 else 0)
+    nbytes = (bh * (esize * (3 * t * dk + 2 * t * dv)
+                    + 4 * dk * dv * (2 if with_state else 1))
+              + (4 * heads * dk if exclusive else 0))
+    t_ops = (3 * products / PEAK_TF32_FLOPS + other / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -181,8 +201,10 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
         # channels by its row sums (ssm.py:281), so it is read, not multiplied
         prod = 4 * d * d + 2 * d * 64 + 2 * d * cfg.d_ff
         head = d * cfg.vocab_size
+        esize = 2 if cfg.dtype == "bfloat16" else 4
         rec_ms = L * rwkv6_bound(batch * heads, prompt, hd, hd,
-                                 _fit_chunk(prompt, 16), True, False)[0]
+                                 _fit_chunk(prompt, 16), True, False,
+                                 esize, heads)[0]
         prefill = 2 * L * prod * batch * prompt + 2 * head * batch
         state = L * batch * (heads * hd * hd * 4 * 2 + 2 * d * 2 * 2)
         decode = 2 * (L * (prod + d * d) + head) + state
@@ -339,14 +361,16 @@ def check_phase_max(dev) -> float:
     return 0.0
 
 
-def rwkv6_case_inputs(dev, shape, chunk, exclusive, decay, seed):
-    """The kernel's inputs, precomputed by ``ops.rwkv6_inputs`` from normal
-    q, k, v and a log decay that is either the model's kind ("model":
-    -exp(N(-0.5, 1)), the clamp at -4 active) or tests/test_kernels.py's
-    ("mild": log U(0.3, 1))."""
+def rwkv6_case_inputs(dev, shape, exclusive, decay, seed,
+                      dtype_name="float32", views=False):
+    """Raw q, k, v, log decay (B, H, T, K/V) and, on exclusive cases, a
+    bonus (H, K): normal q, k, v and a log decay that is either the model's
+    kind ("model": -exp(N(-0.5, 1)), the clamp at -4 active) or
+    tests/test_kernels.py's ("mild": log U(0.3, 1)).  ``views``: the model's
+    ``split_heads`` views of contiguous (B, T, H·D) tensors."""
     import torch
-    from repro_torch.kernels import ops
     b, h, t, dk, dv = shape
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(*size):
@@ -357,7 +381,16 @@ def rwkv6_case_inputs(dev, shape, chunk, exclusive, decay, seed):
     else:
         ld = torch.log(0.3 + 0.7 * torch.rand((b, h, t, dk), generator=gen,
                                               device=dev))
-    return ops.rwkv6_inputs(q, k, v, ld, chunk=chunk, exclusive=exclusive)
+    ins = []
+    for x in (q, k, v, ld):
+        x = x.to(dtype)
+        if views:
+            d = x.shape[-1]
+            x = (x.transpose(1, 2).contiguous().view(b, t, h * d)
+                 .view(b, t, h, d).transpose(1, 2))
+        ins.append(x)
+    u = normal(h, dk) * 0.1 if exclusive else None
+    return (*ins, u)
 
 
 RWKV_CASES = [  # name, (B, H, T, K, V), chunk, exclusive, initial state, decay
@@ -379,37 +412,56 @@ RWKV_CASES = [  # name, (B, H, T, K, V), chunk, exclusive, initial state, decay
 
 
 def check_rwkv6(dev) -> float:
-    """The recurrence kernel against its plain version: output and final
-    state within F32_TOL.  Returns the output's max abs error at the path's
-    shape."""
+    """The fused recurrence kernel against its plain version on raw q / k /
+    v / log decay, a bonus on the exclusive cases: float32 output and final
+    state within F32_TOL; then the path's case in bf16 from ``split_heads``
+    views, output within one bf16 ulp, state within F32_TOL.  Logs the VB
+    and the loads each case took.  Returns the output's max abs error on
+    the path's bf16 views."""
     import torch
     from repro_torch.kernels import rwkv6 as kr
+    cases = [(*c, "float32", False) for c in RWKV_CASES]
+    cases.append(("path-bf16-views", RWKV_PATH, RWKV_CHUNK, True, False,
+                  "model", "bfloat16", True))
     path_err = None
-    for i, (name, shape, chunk, excl, with_s0, decay) in enumerate(RWKV_CASES):
+    for i, (name, shape, chunk, excl, with_s0, decay, dt, views) in \
+            enumerate(cases):
         b, h, _, dk, dv = shape
-        ins = rwkv6_case_inputs(dev, shape, chunk, excl, decay, seed=100 + i)
+        q, k, v, ld, u = rwkv6_case_inputs(dev, shape, excl, decay,
+                                           100 + i, dt, views)
         s0 = torch.randn((b * h, dk, dv), device=dev) if with_s0 else None
-        out, S = kr.rwkv6_chunked(*ins, chunk=chunk, exclusive=excl,
-                                  initial_state=s0)
+        out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=chunk,
+                                initial_state=s0)
         torch.cuda.synchronize()
-        ref, ref_S = kr.rwkv6_chunked_plain(*ins, chunk=chunk, exclusive=excl,
-                                            initial_state=s0)
+        plan = kr.last_plan
+        ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=chunk,
+                                          initial_state=s0)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
         s_err = (S - ref_S).abs().max().item()
-        ok = (bool(torch.isfinite(out).all() and torch.isfinite(S).all())
-              and torch.allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
+        if dt == "bfloat16":
+            tol = "one bf16 ulp, 8e-3 where |o| < 2"
+            within = bool((diff <= bf16_bound(ref.float())).all())
+        else:
+            tol = f"{F32_TOL:g}"
+            within = torch.allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
+        ok = (bool(torch.isfinite(out.float()).all()
+                   and torch.isfinite(S).all()) and within
+              and out.dtype == q.dtype
               and torch.allclose(S, ref_S, atol=F32_TOL, rtol=F32_TOL))
-        log(f"rwkv6 {name:16s} B·H {b * h:4d} T {shape[2]:5d} K {dk:3d} V "
-            f"{dv:3d} C {chunk:2d} {'exclusive' if excl else 'inclusive'} "
-            f"s0 {'yes' if with_s0 else 'no '} max_abs_err out {err:.3e} S "
+        log(f"rwkv6 {name:16s} {dt:8s} B·H {b * h:4d} T {shape[2]:5d} K "
+            f"{dk:3d} V {dv:3d} C {chunk:2d} "
+            f"{'bonus    ' if excl else 'inclusive'} s0 "
+            f"{'yes' if with_s0 else 'no '} VB {plan['vb']:2d} "
+            f"{plan['loads']:6s} max_abs_err out {err:.3e} (tol {tol}) S "
             f"{s_err:.3e} (tol {F32_TOL:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"rwkv6 {name}: kernel disagrees with its plain version "
-                 f"(out {err:.3e}, S {s_err:.3e}, tol {F32_TOL:g})")
-        if name == "path":
+                 f"(out {err:.3e}, S {s_err:.3e})")
+        if name == "path-bf16-views":
             path_err = err
-        del ins, out, S, ref, ref_S
+        del q, k, v, ld, out, S, ref, ref_S, diff
     torch.cuda.empty_cache()
     return path_err
 
@@ -762,9 +814,6 @@ def main() -> None:
         sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per CTA "
             f"(bytes, by head_dim): {sizes}")
-    log(f"rwkv6 dynamic shared memory per CTA (bytes): K = V = 64, chunk "
-        f"{RWKV_CHUNK}: {kr.smem_bytes(64, 64, RWKV_CHUNK)}; K = V = 128, "
-        f"chunk 64: {kr.smem_bytes(128, 128, 64)}")
 
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -886,18 +935,35 @@ def main() -> None:
 
     pm_row = time_phase_max(picks, smi)
 
-    ins = rwkv6_case_inputs(dev, RWKV_PATH, RWKV_CHUNK, True, "model", 0)
-    rwkv_ms = time_ms(lambda: kr.rwkv6_chunked(*ins, chunk=RWKV_CHUNK))
-    rwkv_plain_ms = time_ms(lambda: kr.rwkv6_chunked_plain(
-        *ins, chunk=RWKV_CHUNK), iters=3)
+    # the recurrence at the rwkv6-3b path's shape: bf16 split_heads views
+    q, k, v, ld, u = rwkv6_case_inputs(dev, RWKV_PATH, True, "model", 0,
+                                       "bfloat16", True)
+    rwkv_ms = time_ms(lambda: kr.rwkv6_fused(q, k, v, ld, bonus=u,
+                                             chunk=RWKV_CHUNK))
+    rwkv_plan = kr.last_plan
+    rwkv_plain_ms = time_ms(lambda: kr.rwkv6_fused_plain(
+        q, k, v, ld, bonus=u, chunk=RWKV_CHUNK), iters=3)
     b, h, t, dk, dv = RWKV_PATH
     rwkv_bound_ms, rwkv_by = rwkv6_bound(b * h, t, dk, dv, RWKV_CHUNK, True,
-                                         False)
+                                         False, 2, h)
     log(f"rwkv6 at the path's shape (B·H {b * h}, T {t}, K {dk}, V {dv}, "
-        f"chunk {RWKV_CHUNK}, exclusive): kernel {rwkv_ms:.4f} ms, plain "
-        f"{rwkv_plain_ms:.4f} ms, bound {rwkv_bound_ms:.4f} ms ({rwkv_by}); "
-        f"no single PyTorch call computes it (library none); {smi}")
-    del ins
+        f"chunk {RWKV_CHUNK}, bonus, bf16 split_heads views): kernel "
+        f"{rwkv_ms:.4f} ms (plan {rwkv_plan}), plain {rwkv_plain_ms:.4f} ms, "
+        f"bound {rwkv_bound_ms:.4f} ms ({rwkv_by}); no single PyTorch call "
+        f"computes it (library none); {smi}")
+    del q, k, v, ld, u
+    vb_ms = {}
+    for batch in RWKV_SWEEP_BATCHES:
+        q, k, v, ld, u = rwkv6_case_inputs(dev, (batch, *RWKV_PATH[1:]), True,
+                                           "model", 0, "bfloat16", True)
+        for vb in RWKV_SWEEP_VBS:
+            ms = time_ms(lambda: kr.rwkv6_fused(q, k, v, ld, bonus=u,
+                                                chunk=RWKV_CHUNK, vb=vb))
+            vb_ms[f"B·H {batch * h} VB {vb}"] = ms
+            log(f"rwkv6 VB sweep, bf16 views, B·H {batch * h}: VB {vb} "
+                f"{ms:.4f} ms (CUDA events; plan {kr.last_plan})")
+        del q, k, v, ld, u
+    log_ptxas("rwkv6", report["rwkv6"])
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -924,7 +990,9 @@ def main() -> None:
         "launches": rwkv_launches, "max_abs_err": rwkv_err,
         "ms": rwkv_ms, "kernel_ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
         "bound_ms": rwkv_bound_ms, "bound_by": rwkv_by, "library_ms": None,
-        "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk {RWKV_CHUNK}",
+        "vb": rwkv_plan["vb"], "vb_ms": vb_ms,
+        "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk {RWKV_CHUNK}, "
+                 f"bonus, bf16 split_heads views",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,22 +1,40 @@
 """RWKV6 / Mamba2 chunked recurrence: the Hopper kernel's wrapper and its
 plain version.
 
-``rwkv6_chunked`` launches ``csrc/rwkv6.cu``, the counterpart of the Pallas
-TPU kernel ``repro/kernels/rwkv6.py::_rwkv_kernel`` (``rwkv6_chunked_fwd``).
-Both take the decay-scaled float32 inputs that ``ops.rwkv6_inputs``
-precomputes: q_in, q_intra, k_intra, k_out (BH, T, K), v (BH, T, V) and the
-per-chunk total decay (BH, T/C, K), and return o (BH, T, V) of
+``rwkv6_fused`` launches ``csrc/rwkv6.cu``, which replaces the Pallas TPU
+kernel ``repro/kernels/rwkv6.py::_rwkv_kernel`` together with the decay
+precompute and the bonus diagonal that ``repro/kernels/ops.py:97-123`` does
+around it in XLA.  It reads the model's q, k (B, H, T, K), v (B, H, T, V)
+and log decay (B, H, T, K) once, in their dtype (bf16 or float32) and
+through their strides, and returns (out (B, H, T, V) in q's dtype, a view
+of a (B, T, H, V) tensor; final S (B, H, K, V) float32) of
 
-    o_chunk = q_in · S + mask(q_intra · k_intraᵀ) · v
-    S      ← diag(decay_chunk) · S + k_outᵀ · v
+    o_chunk = q_in · S + mask(q_intra · k_intraᵀ) · v  [+ (Σ_k q·u·k) · v]
+    S      ← diag(exp Lc) · S + k_outᵀ · v
 
-with the strict lower-triangular mask when ``exclusive`` (RWKV6, whose bonus
-diagonal the caller adds) and the inclusive one otherwise.  Unlike the TPU
-kernel, both also take an initial state (zeros when None) and return the
-final S (BH, K, V), which the one-pass prefill hands to decode.
-``rwkv6_chunked`` takes CUDA tensors only and raises on what the kernel does
-not take; ``rwkv6_chunked_plain`` computes the same function with batched
-products over the chunk loop, for the CPU path and the on-card comparisons.
+with the strict lower-triangular mask and the bonus diagonal when a bonus u
+(H, K) is given (RWKV6) and the inclusive mask otherwise (Mamba2); q_in,
+q_intra, k_intra, k_out and exp(Lc) are the scaled tiles that
+``rwkv6_inputs`` computes, here formed per chunk inside the kernel, each
+exponential as the reference writes it (never e^(a-b) as e^a·e^-b: at
+chunk 64 e^L leaves float32's range, which the centring avoids).  Unlike
+the TPU kernel it also takes an initial state and returns the final one,
+which the one-pass prefill hands to decode.
+
+Its bound at the serving path's shape (B·H 160, T 2048, K = V = 64, chunk
+16, bf16) is its 212 MB of bytes, 0.0634 ms at 3.35 TB/s; its float32 work
+takes 0.0392 ms, the products at a third of the TF32 rate since they run as
+3xTF32 (0.0923 ms if all of it ran at 67 TFLOP/s).  One CTA owns (b·h, VB
+columns of V); the next chunk's raw tiles come by cp.async into a 2-deep
+ring; the three products run on the tensor cores in 3xTF32.  The library
+makes the launch plan (VB 32 unless the caller names one, the threads, the
+ring or direct loads) and reports it back; the kernel's note gives the
+design.
+
+``rwkv6_fused_plain`` computes the same function as ``rwkv6_inputs`` →
+``rwkv6_chunked_plain`` → the bonus diagonal, for the CPU path and the
+on-card comparisons.  ``rwkv6_chunked_plain`` on its own is the
+counterpart of ``_rwkv_kernel``, on the precomputed float32 inputs.
 """
 
 from __future__ import annotations
@@ -31,8 +49,11 @@ from . import build
 LOG_DECAY_MIN = -4.0  # per-step clamp; e^-4 ≈ 0.018, far below trained decays
 KV_DIMS = (8, 16, 32, 64, 128)
 MAX_CHUNK = 64
+VB_CHOICES = (8, 16, 32, 64)     # V columns per CTA a caller may name
+NO_SMEM = -2                     # the library's code: the CTA does not fit
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
+last_plan: Optional[dict] = None   # the last launch's VB, threads, loads, smem
 
 
 def check_chunk(t: int, chunk: int) -> None:
@@ -43,13 +64,49 @@ def check_chunk(t: int, chunk: int) -> None:
                          f"got {chunk}")
 
 
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def rwkv6_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_decay: torch.Tensor, *, chunk: int, exclusive: bool
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The TPU kernel's inputs, as the reference precomputes them
+    elementwise (``repro/kernels/ops.py:97-115``): log decay clamped to
+    [LOG_DECAY_MIN, 0], its in-chunk cumsum L, the chunk total Lc, the
+    chunk-relative ``center``; then contiguous float32 q_in, q_intra,
+    k_intra, k_out (B·H, T, K), v (B·H, T, V) and exp(Lc) (B·H, T/C, K)."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    nc = t // chunk
+    ld = log_decay.float().clamp(LOG_DECAY_MIN, 0.0).reshape(b, h, nc, chunk,
+                                                             dk)
+    L = ld.cumsum(dim=3)
+    Lc = L[:, :, :, -1:, :]
+    L_read = L - ld if exclusive else L
+    center = 0.5 * (L_read.amax(dim=3, keepdim=True)
+                    + L.amin(dim=3, keepdim=True))
+    qf = q.float().reshape(b, h, nc, chunk, dk)
+    kf = k.float().reshape(b, h, nc, chunk, dk)
+
+    def flat(x, d):
+        return x.reshape(b * h, -1, d).contiguous()
+    return (flat(qf * torch.exp(L_read), dk),
+            flat(qf * torch.exp(L_read - center), dk),
+            flat(kf * torch.exp(center - L), dk),
+            flat(kf * torch.exp(Lc - L), dk),
+            flat(v.float(), dv),
+            flat(torch.exp(Lc), dk))
+
+
 def rwkv6_chunked_plain(q_in: torch.Tensor, q_intra: torch.Tensor,
                         k_intra: torch.Tensor, k_out: torch.Tensor,
                         v: torch.Tensor, decay: torch.Tensor, *, chunk: int,
                         exclusive: bool = True,
                         initial_state: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Float32 (o (BH, T, V), final S (BH, K, V)) on the inputs' device."""
+    """``_rwkv_kernel``'s function on its precomputed inputs: float32
+    (o (BH, T, V), final S (BH, K, V)) on the inputs' device."""
     bh, t, dk = q_in.shape
     dv = v.shape[-1]
     nc = t // chunk
@@ -69,82 +126,129 @@ def rwkv6_chunked_plain(q_in: torch.Tensor, q_intra: torch.Tensor,
     return torch.stack(outs, dim=1).reshape(bh, t, dv), S
 
 
-def _check(ins, initial_state, chunk: int) -> None:
-    names = ("q_in", "q_intra", "k_intra", "k_out", "v", "decay")
-    dev = ins[0].device
-    for name, x in zip(names + ("initial_state",), (*ins, initial_state)):
-        if x is None:
-            continue
-        if not x.is_cuda or x.device != dev:
-            raise ValueError(f"rwkv6_chunked: {name} must be on q_in's CUDA "
-                             f"device, got {x.device}")
-        if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-            raise ValueError(f"rwkv6_chunked: {name} must be a contiguous "
-                             f"3-D float32 tensor, got {x.dtype} of shape "
-                             f"{tuple(x.shape)}")
-    bh, t, dk = ins[0].shape
-    dv = ins[4].shape[-1]
-    want = {"q_intra": (bh, t, dk), "k_intra": (bh, t, dk),
-            "k_out": (bh, t, dk), "v": (bh, t, dv)}
-    for name, x in zip(names[1:5], ins[1:5]):
+def rwkv6_fused_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_decay: torch.Tensor, *,
+                      bonus: Optional[torch.Tensor] = None, chunk: int,
+                      initial_state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's function in plain PyTorch, as the reference's
+    ``rwkv6_mix(implementation="pallas")`` computes it: (out (B, H, T, V) in
+    q's dtype, final S (B, H, K, V) float32)."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    exclusive = bonus is not None
+    ins = rwkv6_inputs(q, k, v, log_decay, chunk=chunk, exclusive=exclusive)
+    s0 = (None if initial_state is None else
+          initial_state.float().reshape(b * h, dk, dv))
+    o, S = rwkv6_chunked_plain(*ins, chunk=chunk, exclusive=exclusive,
+                               initial_state=s0)
+    out = o.reshape(b, h, t, dv)
+    if bonus is not None:
+        diag = torch.einsum("bhtk,hk,bhtk->bht", q.float(), bonus.float(),
+                            k.float())
+        out = out + diag[..., None] * v.float()
+    return out.to(q.dtype), S.reshape(b, h, dk, dv)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, log_decay, bonus, chunk, initial_state, vb) -> None:
+    named = (("q", q), ("k", k), ("v", v), ("log_decay", log_decay),
+             ("bonus", bonus), ("initial_state", initial_state))
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rwkv6_fused: q must be bf16 or float32, got "
+                         f"{q.dtype}")
+    for name, x in named[1:4]:
+        if x.dtype != q.dtype:
+            raise ValueError(f"rwkv6_fused: {name} is {x.dtype}, q is "
+                             f"{q.dtype}; the kernel takes one dtype")
+    if q.dim() != 4:
+        raise ValueError(f"rwkv6_fused: q must be (B, H, T, K), got shape "
+                         f"{tuple(q.shape)}")
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    want = {"k": (b, h, t, dk), "v": (b, h, t, dv),
+            "log_decay": (b, h, t, dk)}
+    for name, x in named[1:4]:
         if tuple(x.shape) != want[name]:
-            raise ValueError(f"rwkv6_chunked: {name} has shape "
+            raise ValueError(f"rwkv6_fused: {name} has shape "
                              f"{tuple(x.shape)}, expected {want[name]}")
     if dk not in KV_DIMS or dv not in KV_DIMS:
-        raise ValueError(f"rwkv6_chunked: K={dk} and V={dv} must each be in "
+        raise ValueError(f"rwkv6_fused: K={dk} and V={dv} must each be in "
                          f"{KV_DIMS}")
     check_chunk(t, chunk)
-    if tuple(ins[5].shape) != (bh, t // chunk, dk):
-        raise ValueError(f"rwkv6_chunked: decay has shape "
-                         f"{tuple(ins[5].shape)}, expected "
-                         f"{(bh, t // chunk, dk)}")
-    if (initial_state is not None
-            and tuple(initial_state.shape) != (bh, dk, dv)):
-        raise ValueError(f"rwkv6_chunked: initial_state has shape "
+    if vb is not None and (vb not in VB_CHOICES or dv % vb):
+        raise ValueError(f"rwkv6_fused: vb={vb} must be one of {VB_CHOICES} "
+                         f"and divide V={dv}")
+    for name, x in named[:4]:
+        if x.stride(-1) != 1:
+            raise ValueError(f"rwkv6_fused: {name} must have inner stride 1,"
+                             f" got strides {x.stride()}")
+    if bonus is not None and tuple(bonus.shape) != (h, dk):
+        raise ValueError(f"rwkv6_fused: bonus has shape {tuple(bonus.shape)},"
+                         f" expected {(h, dk)}")
+    if initial_state is not None and initial_state.numel() != b * h * dk * dv:
+        raise ValueError(f"rwkv6_fused: initial_state has shape "
                          f"{tuple(initial_state.shape)}, expected "
-                         f"{(bh, dk, dv)}")
+                         f"{(b, h, dk, dv)} or {(b * h, dk, dv)}")
+    for name, x in named:      # last, so the CPU tests reach every check
+        if x is not None and (not x.is_cuda or x.device != q.device):
+            raise ValueError(f"rwkv6_fused: {name} must be on q's CUDA "
+                             f"device, got {x.device}")
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("rwkv6")
-    fn = lib.rwkv6_chunked_launch
+    fn = lib.rwkv6_fused_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [ctypes.c_longlong, i, i, i, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p, i, p, p]
         fn.restype = ctypes.c_int
-        lib.rwkv6_smem_bytes.argtypes = [i, i, i]
-        lib.rwkv6_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(dk: int, dv: int, chunk: int) -> int:
-    """Dynamic shared memory of one CTA."""
-    return _lib().rwkv6_smem_bytes(dk, dv, chunk)
-
-
-def rwkv6_chunked(q_in: torch.Tensor, q_intra: torch.Tensor,
-                  k_intra: torch.Tensor, k_out: torch.Tensor, v: torch.Tensor,
-                  decay: torch.Tensor, *, chunk: int, exclusive: bool = True,
-                  initial_state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on contiguous float32 CUDA tensors; returns
-    (o (BH, T, V), final S (BH, K, V)), on the current stream."""
-    global launches
-    ins = (q_in, q_intra, k_intra, k_out, v, decay)
-    _check(ins, initial_state, chunk)
-    bh, t, dk = q_in.shape
+def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_decay: torch.Tensor, *,
+                bonus: Optional[torch.Tensor] = None, chunk: int,
+                initial_state: Optional[torch.Tensor] = None,
+                vb: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on CUDA tensors, read in place through their
+    strides (inner stride 1); returns (out (B, H, T, V) in q's dtype, final
+    S (B, H, K, V) float32), on the current stream.  The library makes the
+    launch plan (``last_plan``); ``vb`` overrides its column block (for
+    measurement)."""
+    global launches, last_plan
+    _check(q, k, v, log_decay, bonus, chunk, initial_state, vb)
+    b, h, t, dk = q.shape
     dv = v.shape[-1]
-    out = torch.empty((bh, t, dv), dtype=torch.float32, device=q_in.device)
-    s_out = torch.empty((bh, dk, dv), dtype=torch.float32, device=q_in.device)
-    s0 = None if initial_state is None else initial_state.data_ptr()
-    fn = _lib().rwkv6_chunked_launch
-    with torch.cuda.device(q_in.device):
-        stream = torch.cuda.current_stream(q_in.device).cuda_stream
-        err = fn(*(x.data_ptr() for x in ins), s0, out.data_ptr(),
-                 s_out.data_ptr(), bh, t, dk, dv, chunk, int(exclusive),
-                 stream)
+    ins = (q, k, v, log_decay)
+    out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
+    s_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=q.device)
+    u = None if bonus is None else bonus.float().contiguous()   # (H, K)
+    s0 = (None if initial_state is None else
+          initial_state.float().reshape(b * h, dk, dv).contiguous())
+    strides = (ctypes.c_longlong * 12)(*(s for x in ins
+                                         for s in x.stride()[:3]))
+    plan = (ctypes.c_int * 4)()
+    fn = _lib().rwkv6_fused_launch
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in ins),
+                 None if u is None else u.data_ptr(),
+                 None if s0 is None else s0.data_ptr(), out.data_ptr(),
+                 s_out.data_ptr(), int(q.dtype == torch.bfloat16), b, h, t,
+                 dk, dv, chunk, strides, vb or 0, stream, plan)
+    if err == NO_SMEM:
+        raise ValueError(f"rwkv6_fused: vb={plan[0]} needs {plan[3]} bytes "
+                         f"of shared memory at K={dk}, chunk {chunk}, more "
+                         f"than a CTA can have")
     if err != 0:
-        raise RuntimeError(f"rwkv6_chunked: kernel launch failed with "
+        raise RuntimeError(f"rwkv6_fused: kernel launch failed with "
                            f"cudaError_t {err}")
     launches += 1
-    return out, s_out
+    last_plan = {"vb": plan[0], "threads": plan[1],
+                 "loads": "ring" if plan[2] else "direct", "smem": plan[3]}
+    return out.transpose(1, 2), s_out

@@ -7,9 +7,10 @@ The time-mix is a chunked linear recurrence with a per-channel decay,
 
 clamped at LOG_DECAY_MIN and centred per chunk as in the reference
 (``repro/models/ssm.py``).  The full-sequence pass goes through
-``kernels.ops.rwkv6_mix_state``: the Hopper chunked-recurrence kernel on the
-card, its plain version on the CPU (where the reference scans the jnp chunked
-form, ``ssm.py:204,271``).  Decode steps one token in plain PyTorch, as the
+``kernels.ops.rwkv6_mix_state``: on the card the fused Hopper kernel, which
+reads the ``split_heads`` views of q, k, v and the log decay in place and
+does the decay precompute and the bonus itself, its plain version on the CPU
+(where the reference scans the jnp chunked form, ``ssm.py:204,271``).  Decode steps one token in plain PyTorch, as the
 reference does (it has no decode kernel).  Mamba2 comes with the hybrid
 family.
 """

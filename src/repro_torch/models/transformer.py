@@ -12,7 +12,7 @@ ported; the others raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -169,19 +169,27 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
 _KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u")
 
 
-def _flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
-    out = {}
+def _flatten(tree: Params, prefix: str = ""
+             ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """(leaves by path, paths of the empty subtrees).  A ``nonparam_ln``
+    norm is an empty subtree ({}), which has no leaf to carry it."""
+    out, empty = {}, []
     for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}/"))
+        if isinstance(v, dict) and v:
+            sub, sub_empty = _flatten(v, f"{prefix}{k}/")
+            out.update(sub)
+            empty += sub_empty
+        elif isinstance(v, dict):
+            empty.append(prefix + k)
         else:
             out[prefix + k] = v
-    return out
+    return out, empty
 
 
-def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+def _unflatten(flat: Dict[str, torch.Tensor],
+               empty: Sequence[str] = ()) -> Params:
     tree: Params = {}
-    for path, v in flat.items():
+    for path, v in (*flat.items(), *((p, {}) for p in empty)):
         *dirs, leaf = path.split("/")
         node = tree
         for d in dirs:
@@ -204,9 +212,10 @@ class LM(nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
+        flat, self._empty = _flatten(params)
         self.weights = nn.ParameterDict({
             path: nn.Parameter(t, requires_grad=False)
-            for path, t in _flatten(params).items()})
+            for path, t in flat.items()})
         self._compute: Optional[Params] = None
 
     @classmethod
@@ -215,7 +224,7 @@ class LM(nn.Module):
 
     @property
     def params(self) -> Params:
-        return _unflatten(dict(self.weights.items()))
+        return _unflatten(dict(self.weights.items()), self._empty)
 
     def compute_params(self) -> Params:
         if self._compute is None:
@@ -223,7 +232,7 @@ class LM(nn.Module):
             self._compute = _unflatten({
                 path: (w.detach() if path.rsplit("/", 1)[-1] in _KEEP_DTYPE
                        else w.detach().to(dt))
-                for path, w in self.weights.items()})
+                for path, w in self.weights.items()}, self._empty)
         return self._compute
 
     def _apply(self, fn, *args, **kwargs):

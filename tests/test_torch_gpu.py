@@ -15,13 +15,16 @@ head_dim 64 / 128, mma.sync or FMAs for the rest), at the wgmma kernel's
 tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
 1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact against its plain version and
 numpy.  The simulator on ``cuda`` gives schedules identical to ``cpu``,
-with one kernel launch per rate-resolution solve.  RWKV6 chunked recurrence:
-output and final state within 1e-4 of its plain version (float32 FMA in
-another summation order) on every K / V in {8, ..., 128}, chunks from 1 to
-64 (powers of two and the 12, 7, 13 and 3 that ``_fit_chunk`` or a caller
-may give) and mask kind; reduced rwkv6-3b prefill on ``cuda`` of 40, 12 and
-7 tokens (chunks 8, 12 and 7) launches it once per layer and matches
-``device="cpu"``.
+with one kernel launch per rate-resolution solve.  RWKV6 chunked recurrence
+(the fused kernel, from raw q / k / v / log decay): output within 1e-4
+(float32) or one bf16 ulp (bf16) of its plain version, final state within
+1e-4, on every K / V in {8, ..., 128}, chunks from 1 to 64 (powers of two
+and the 12, 7, 13 and 3 that ``_fit_chunk`` or a caller may give), both
+masks, at chip_smoke.py's shapes, through every VB and both load paths
+(cp.async ring, direct), on the model's ``split_heads`` views without a
+copy; a CUDA prefill never calls the float32 precompute; reduced rwkv6-3b
+prefill on ``cuda`` of 40, 12 and 7 tokens (chunks 8, 12 and 7) launches
+it once per layer and matches ``device="cpu"``.
 """
 
 import numpy as np
@@ -340,6 +343,30 @@ RWKV_CASES = (   # (t, K, V, chunk)
     + [(12, 16, 16, 12), (7, 16, 16, 7), (39, 64, 64, 13), (60, 32, 32, 3)])
 
 
+def _check_rwkv(q, k, v, ld, u, chunk, s0=None, vb=None):
+    """The fused kernel against its plain version on the same inputs: out
+    within 1e-4 (float32) or one bf16 ulp (bf16), S within 1e-4.  Returns
+    the launch plan."""
+    before = kr.launches
+    out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=chunk,
+                            initial_state=s0, vb=vb)
+    torch.cuda.synchronize()
+    assert kr.launches == before + 1
+    plan = kr.last_plan
+    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=chunk,
+                                      initial_state=s0)
+    assert out.shape == ref.shape and out.dtype == q.dtype
+    assert S.shape == ref_S.shape and S.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(S).all()
+    if q.dtype == torch.bfloat16:
+        diff = (out.float() - ref.float()).abs()
+        assert (diff <= bf16_bound(ref.float())).all(), diff.max().item()
+    else:
+        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+    return plan
+
+
 @pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
 @pytest.mark.parametrize("exclusive", [True, False])
 @pytest.mark.parametrize("t,dk,dv,chunk", RWKV_CASES,
@@ -347,20 +374,164 @@ RWKV_CASES = (   # (t, K, V, chunk)
                               for t, a, b, c in RWKV_CASES])
 def test_rwkv6_kernel_matches_plain(cuda, t, dk, dv, chunk, exclusive,
                                     with_state):
-    q, k, v, ld, _ = _rwkv_inputs(cuda, 2, 3, t, dk, dv, seed=t + dk + dv)
-    ins = ops.rwkv6_inputs(q, k, v, ld, chunk=chunk, exclusive=exclusive)
+    """float32, from raw q / k / v / log decay; exclusive cases carry a
+    bonus (the fused kernel's mask follows it)."""
+    q, k, v, ld, u = _rwkv_inputs(cuda, 2, 3, t, dk, dv, seed=t + dk + dv,
+                                  bonus=exclusive)
     s0 = (torch.randn(6, dk, dv, device=cuda) if with_state else None)
-    before = kr.launches
-    out, S = kr.rwkv6_chunked(*ins, chunk=chunk, exclusive=exclusive,
-                              initial_state=s0)
+    _check_rwkv(q, k, v, ld, u, chunk, s0)
+
+
+# chip_smoke.py's RWKV_CASES: name, (B, H, T, K, V), chunk, exclusive,
+# initial state, decay
+SMOKE_RWKV = [
+    ("path", (4, 40, 2048, 64, 64), 16, True, False, "model"),
+    ("path-s0", (4, 40, 2048, 64, 64), 16, True, True, "model"),
+    ("reduced", (2, 4, 64, 16, 16), 16, True, False, "model"),
+    ("k8-inclusive", (2, 4, 64, 8, 8), 16, False, False, "mild"),
+    ("k32-c8", (2, 4, 64, 32, 32), 8, True, True, "model"),
+    ("k128-c64", (2, 4, 256, 128, 128), 64, False, True, "mild"),
+    ("mamba2-k64-v128", (2, 4, 256, 64, 128), 16, False, False, "model"),
+    ("k128-v8-c2", (1, 4, 64, 128, 8), 2, True, False, "model"),
+    ("k8-v128-c32", (1, 4, 64, 8, 128), 32, False, False, "mild"),
+    ("k64-c64-excl", (2, 4, 128, 64, 64), 64, True, False, "mild"),
+    ("t12-c12", (2, 4, 12, 64, 64), 12, True, True, "model"),
+    ("t7-c7", (2, 4, 7, 16, 16), 7, True, True, "model"),
+    ("t17-c1", (2, 4, 17, 16, 16), 1, True, True, "model"),
+]
+
+
+def _smoke_inputs(dev, shape, excl, decay, dtype, seed):
+    b, h, t, dk, dv = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k = (torch.randn(b, h, t, dk, generator=g) for _ in range(2))
+    v = torch.randn(b, h, t, dv, generator=g)
+    if decay == "model":
+        ld = -torch.exp(torch.randn(b, h, t, dk, generator=g) - 0.5)
+    else:
+        ld = torch.log(0.3 + 0.7 * torch.rand(b, h, t, dk, generator=g))
+    u = torch.randn(h, dk, generator=g) * 0.1 if excl else None
+    return ([x.to(dev, dtype) for x in (q, k, v, ld)]
+            + [None if u is None else u.to(dev)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SMOKE_RWKV, ids=[c[0] for c in SMOKE_RWKV])
+def test_rwkv6_fused_matches_plain_at_smoke_shapes(cuda, case, dtype):
+    name, shape, chunk, excl, with_s0, decay = case
+    q, k, v, ld, u = _smoke_inputs(cuda, shape, excl, decay, dtype, seed=7)
+    s0 = (torch.randn(shape[0] * shape[1], shape[3], shape[4], device=cuda)
+          if with_s0 else None)
+    _check_rwkv(q, k, v, ld, u, chunk, s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+def test_rwkv6_reads_split_heads_views_without_copies(cuda, with_state,
+                                                      dtype):
+    """The model's ``split_heads`` views of (B, T, H·D) tensors go to the
+    kernel as they are: besides out and S, the call allocates no more than
+    the bonus and state copies (a copy of q alone would be 5 MB here)."""
+    b, t, h, d = 2, 512, 40, 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    flat = [torch.randn(b, t, h * d, generator=g).to(cuda, dtype)
+            for _ in range(4)]
+    flat[3] = -torch.exp(flat[3].float() - 0.5).to(dtype)
+    q, k, v, ld = (x.view(b, t, h, d).transpose(1, 2) for x in flat)
+    assert not q.is_contiguous()
+    u = torch.randn(h, d, device=cuda) * 0.1
+    s0 = torch.randn(b * h, d, d, device=cuda) if with_state else None
     torch.cuda.synchronize()
-    assert kr.launches == before + 1
-    ref, ref_S = kr.rwkv6_chunked_plain(*ins, chunk=chunk,
-                                        exclusive=exclusive, initial_state=s0)
-    assert out.shape == ref.shape and S.shape == ref_S.shape
-    assert torch.isfinite(out).all() and torch.isfinite(S).all()
-    torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
-    torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=16,
+                            initial_state=s0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert kr.last_plan["loads"] == "ring"
+    assert extra <= out.numel() * out.element_size() + S.numel() * 4 + 4096
+    # out is a view of a (B, T, H, V) tensor: the model's reshape is free
+    y = out.transpose(1, 2)
+    assert y.is_contiguous() and y.reshape(b, t, h * d).data_ptr() \
+        == y.data_ptr()
+    _check_rwkv(q, k, v, ld, u, 16, s0)
+
+
+@pytest.mark.parametrize("loads", ["ring", "direct"])
+@pytest.mark.parametrize("vb", kr.VB_CHOICES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_every_vb_and_load_path(cuda, vb, loads, dtype):
+    """Every column block the plan can choose, through the cp.async ring
+    and through direct loads (rows off 16 bytes: a view one element in)."""
+    q, k, v, ld, u = _smoke_inputs(cuda, (2, 3, 96, 65, 65), True, "model",
+                                   dtype, seed=vb)
+    q, k, v, ld = (x[..., 1:] for x in (q, k, v, ld))     # K = V = 64
+    u = u[:, 1:]
+    if loads == "ring":
+        q, k, v, ld = (x.contiguous() for x in (q, k, v, ld))
+    plan = _check_rwkv(q, k, v, ld, u, 16, vb=vb)
+    assert plan["vb"] == vb and plan["loads"] == loads
+
+
+def test_rwkv6_direct_loads_when_the_ring_does_not_fit(cuda):
+    q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 128, 128, 128), False,
+                                   "mild", torch.float32, seed=1)
+    assert _check_rwkv(q, k, v, ld, u, 64)["loads"] == "direct"
+
+
+def test_rwkv6_plan_picks_vb_threads_and_loads(cuda):
+    """The library's plan: VB 32, 128 threads and the ring on the serving
+    path's layout; VB V when V is narrower; VB 64 with 256 threads when
+    asked; K 128 at chunk 64 in float32 reads directly (its ring would not
+    fit) and cannot take VB 64."""
+    q, k, v, ld, u = _smoke_inputs(cuda, (2, 3, 32, 64, 64), True, "model",
+                                   torch.bfloat16, seed=4)
+    plan = _check_rwkv(q, k, v, ld, u, 16)
+    assert (plan["vb"], plan["threads"], plan["loads"]) == (32, 128, "ring")
+    assert _check_rwkv(q, k, v, ld, u, 16, vb=32) == plan
+    assert _check_rwkv(q, k, v, ld, u, 16, vb=64)["threads"] == 256
+    for d in (8, 16):
+        q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 32, d, d), True, "model",
+                                       torch.float32, seed=d)
+        assert _check_rwkv(q, k, v, ld, u, 16)["vb"] == d
+    q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 128, 128, 128), False,
+                                   "mild", torch.float32, seed=5)
+    assert _check_rwkv(q, k, v, ld, u, 64)["vb"] == 32
+    before = kr.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kr.rwkv6_fused(q, k, v, ld, chunk=64, vb=64)
+    assert kr.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+@pytest.mark.parametrize("dk", kr.KV_DIMS)
+@pytest.mark.parametrize("dv", kr.KV_DIMS)
+def test_rwkv6_every_default_plan_fits_and_runs(cuda, dv, dk, chunk, dtype):
+    """Every K, V, chunk and dtype the wrapper takes gets a plan that fits
+    in shared memory (VB narrowed where needed) and agrees with the plain
+    version."""
+    q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 2 * chunk, dk, dv), True,
+                                   "model", dtype, seed=dk + dv + chunk)
+    plan = _check_rwkv(q, k, v, ld, u, chunk)
+    assert plan["smem"] <= 232448 and plan["vb"] <= min(32, dv)
+
+
+def test_rwkv6_ring_ignores_the_stride_of_a_size_one_dim(cuda):
+    """A batch of one whose batch stride is not a multiple of 16 bytes still
+    has every row aligned: the plan takes the ring and the kernel runs."""
+    b, h, t, d = 1, 4, 64, 64
+    q, k, v, ld, u = _smoke_inputs(cuda, (b, h, t, d, d), True, "model",
+                                   torch.bfloat16, seed=6)
+
+    def odd_batch_stride(x):
+        buf = torch.empty(h * t * d + 16, dtype=x.dtype, device=cuda)
+        y = buf.as_strided((b, h, t, d), (h * t * d + 3, t * d, d, 1))
+        y.copy_(x)
+        return y
+    q, k, v, ld = (odd_batch_stride(x) for x in (q, k, v, ld))
+    assert (q.stride(0) * q.element_size()) % 16
+    assert _check_rwkv(q, k, v, ld, u, 16)["loads"] == "ring"
 
 
 def test_rwkv6_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
@@ -374,27 +545,49 @@ def test_rwkv6_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
 
 
 def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v, ld, _ = _rwkv_inputs(cuda, 1, 2, 32, 16, 16)
-    ins = list(ops.rwkv6_inputs(q, k, v, ld, chunk=16, exclusive=True))
+    q, k, v, ld, u = _rwkv_inputs(cuda, 1, 2, 32, 16, 16)
     before = kr.launches
-    with pytest.raises(ValueError, match="contiguous"):
-        kr.rwkv6_chunked(ins[0].transpose(1, 2).contiguous().transpose(1, 2),
-                         *ins[1:], chunk=16)
-    with pytest.raises(ValueError, match="float32"):
-        kr.rwkv6_chunked(*(x.double() for x in ins), chunk=16)
+    with pytest.raises(ValueError, match="inner stride"):
+        kr.rwkv6_fused(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                       ld, chunk=16)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        kr.rwkv6_fused(*(x.double() for x in (q, k, v, ld)), chunk=16)
+    with pytest.raises(ValueError, match="one dtype"):
+        kr.rwkv6_fused(q, k.to(torch.bfloat16), v, ld, chunk=16)
     with pytest.raises(ValueError, match="shape"):
-        kr.rwkv6_chunked(ins[0], ins[1][:, :16].contiguous(), *ins[2:],
-                         chunk=16)
+        kr.rwkv6_fused(q, k[:, :, :16], v, ld, chunk=16)
     with pytest.raises(ValueError, match="K=24"):
-        wide = [torch.zeros(2, 32, 24, device=cuda)] * 4
-        kr.rwkv6_chunked(*wide, ins[4], torch.zeros(2, 2, 24, device=cuda),
-                         chunk=16)
+        wide = torch.zeros(1, 2, 32, 24, device=cuda)
+        kr.rwkv6_fused(wide, wide, v, wide, chunk=16)
     with pytest.raises(ValueError, match="chunk"):
-        kr.rwkv6_chunked(*ins, chunk=128)
+        kr.rwkv6_fused(q, k, v, ld, chunk=128)
     with pytest.raises(ValueError, match="initial_state"):
-        kr.rwkv6_chunked(*ins, chunk=16,
-                         initial_state=torch.zeros(2, 16, 8, device=cuda))
+        kr.rwkv6_fused(q, k, v, ld, chunk=16,
+                       initial_state=torch.zeros(2, 16, 8, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        kr.rwkv6_fused(q, k, v, ld.cpu(), chunk=16)
+    with pytest.raises(ValueError, match="vb"):
+        kr.rwkv6_fused(q, k, v, ld, chunk=16, vb=12)
     assert kr.launches == before
+
+
+def test_rwkv6_cuda_prefill_never_precomputes_inputs(cuda, monkeypatch):
+    """On the card the kernel reads the model's tensors: the float32
+    precompute of the plain version is never called."""
+    def refuse(*a, **kw):
+        raise AssertionError("rwkv6_inputs called on the CUDA path")
+    monkeypatch.setattr(kr, "rwkv6_inputs", refuse)
+    cfg = configs.reduced(configs.get_config("rwkv6-3b"), num_layers=2)
+    lm = LM.init(cfg, seed=1, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda)
+    kr.launches = 0
+    with torch.inference_mode():
+        logits, _ = prefill(lm.compute_params(), cfg, toks, max_len=56)
+        full = forward(lm.compute_params(), cfg, toks)[0]
+    torch.cuda.synchronize()
+    assert kr.launches == 2 * cfg.num_layers
+    assert torch.isfinite(logits.float()).all()
+    assert torch.isfinite(full.float()).all()
 
 
 @pytest.mark.parametrize("s", [40, 12, 7],

@@ -184,3 +184,67 @@ def test_ssm_port_init_has_reference_layout():
     tm = port["layers"]["tmix"]
     assert (tm["decay_base"] == -0.5).all() and (tm["mix_x"] == 0.5).all()
     assert (port["layers"]["cmix"]["mix"] == 0.5).all()
+
+
+# ---------------------------------------------------------------------------
+# empty parameter subtrees: nonparam_ln (olmo-1b) has {} for every norm
+# ---------------------------------------------------------------------------
+
+def _olmo():
+    """Reduced float32 olmo-1b: the reference's config, its params, and the
+    port's copy of the config built field by field (the port's registry does
+    not hold olmo yet)."""
+    jc = jcfg.reduced(jcfg.get_config("olmo-1b"), dtype="float32")
+    tc = tcfg.ModelConfig(**{f.name: getattr(jc, f.name)
+                             for f in dataclasses.fields(tcfg.ModelConfig)})
+    assert tc.norm == "nonparam_ln"
+    return jc, tc, _jax_params(jc)
+
+
+def test_lm_keeps_empty_subtrees():
+    """``LM.params`` and ``compute_params()`` give ``ln1`` / ``ln2`` /
+    ``ln_f`` back as {}, as the reference's tree has them."""
+    _, tc, npp = _olmo()
+    assert npp["ln_f"] == {} and npp["layers"]["ln1"] == {}
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    for tree in (lm.params, lm.compute_params()):
+        assert tree["ln_f"] == {}
+        assert tree["layers"]["ln1"] == tree["layers"]["ln2"] == {}
+    assert (jax.tree_util.tree_map(np.shape, bridge.params_to_numpy(
+        lm.params)) == jax.tree_util.tree_map(np.shape, npp))
+    # and through .to(), which remakes the compute copy
+    assert lm.to("cpu").compute_params()["ln_f"] == {}
+
+
+def test_lm_forward_matches_reference_on_nonparam_ln():
+    jc, tc, npp = _olmo()
+    toks = _tokens(jc)
+    ref, _ = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
+                        jnp.asarray(toks, jnp.int32))
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    out = lm(torch.as_tensor(toks))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_lm_generate_gives_reference_greedy_tokens_on_nonparam_ln():
+    from repro.serve import decode as JD
+    from repro_torch.launch.serve import generate
+    jc, tc, npp = _olmo()
+    toks = _tokens(jc, s=10, seed=3)
+    gen = 5
+    jp = jax.tree_util.tree_map(jnp.asarray, npp)
+    logits, st = JD.prefill(jp, jc, jnp.asarray(toks, jnp.int32),
+                            toks.shape[1] + gen)
+    want = []
+    for i in range(gen):
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        want.append(np.asarray(tok))
+        if i < gen - 1:
+            logits, st = JD.decode_step(jp, jc, tok, st)
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    res = generate(lm, torch.as_tensor(toks), gen)
+    assert np.array_equal(res.tokens.numpy(), np.concatenate(want, axis=1))
+    np.testing.assert_allclose(res.last_logits.numpy(),
+                               np.asarray(logits, np.float32), atol=1e-4,
+                               rtol=1e-4)

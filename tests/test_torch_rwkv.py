@@ -1,11 +1,17 @@
 """Port vs reference: the RWKV6 chunked recurrence and the RWKV6 block.
 
 Seeded numpy inputs go to both packages.
-* ``rwkv6_chunked_plain`` (the Hopper kernel's plain version) against the
-  reference's Pallas ``rwkv6_chunked_fwd`` (interpret mode on the CPU) on the
-  same precomputed inputs, at the shapes of ``tests/test_kernels.py`` plus
-  chunk 64, both mask kinds: 1e-5 (the same float32 products in another
+* ``rwkv6_chunked_plain`` (the counterpart of the Pallas ``_rwkv_kernel``)
+  against the reference's ``rwkv6_chunked_fwd`` (interpret mode on the CPU)
+  on the same precomputed inputs, at the shapes of ``tests/test_kernels.py``
+  plus chunk 64, both mask kinds: 1e-5 (the same float32 products in another
   summation order).
+* ``rwkv6_fused_plain`` (the fused Hopper kernel's plain version) against
+  ``rwkv6_mix(implementation="pallas")`` and the reference's chunked scan
+  (with ``initial_state``), both masks, chunks 1 / 7 / 16 / 64, contiguous
+  and ``split_heads`` views: float32 1e-5, bf16 one bf16 ulp of the output;
+  the wrapper's refusals, its launch plan, and that the CPU never reaches
+  the kernel's wrapper.
 * ``ops.rwkv6_mix`` on CPU tensors against ``rwkv6_mix(implementation=
   "pallas")`` and the sequential ``rwkv6_ref``: 5e-4, the reference's own
   kernel tolerance (``tests/test_kernels.py:114``).
@@ -76,7 +82,7 @@ def _j(x):
 @pytest.mark.parametrize("t,kdim,vdim,chunk", SHAPES, ids=IDS)
 def test_plain_matches_pallas_kernel(t, kdim, vdim, chunk, exclusive):
     q, k, v, ld, _ = _seq_inputs(t + kdim, t, kdim, vdim)
-    ins = ops.rwkv6_inputs(_t(q), _t(k), _t(v), _t(ld), chunk=chunk,
+    ins = kr.rwkv6_inputs(_t(q), _t(k), _t(v), _t(ld), chunk=chunk,
                            exclusive=exclusive)
     ref = rwkv6_chunked_fwd(*(jnp.asarray(x.numpy()) for x in ins),
                             chunk=chunk, exclusive=exclusive)
@@ -301,13 +307,161 @@ def test_time_mix_bf16_reads_decay_base_in_float32():
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The wrapper takes CUDA tensors only; the CPU goes to the plain
     version through ``ops``."""
-    q, k, v, ld, _ = _seq_inputs(0, 16, 8, 8)
-    ins = ops.rwkv6_inputs(_t(q), _t(k), _t(v), _t(ld), chunk=16,
-                           exclusive=True)
+    q, k, v, ld, u = _seq_inputs(0, 16, 8, 8)
     before = kr.launches
     with pytest.raises(ValueError, match="CUDA"):
-        kr.rwkv6_chunked(*ins, chunk=16)
+        kr.rwkv6_fused(_t(q), _t(k), _t(v), _t(ld), bonus=_t(u), chunk=16)
     assert kr.launches == before
+
+
+def _refusal_cases():
+    """(name, arguments of rwkv6_fused, message): each refused before the
+    device is looked at, so the CPU can check them."""
+    q, k, v, ld, u = (_t(x) for x in _seq_inputs(1, 32, 16, 16, b=1, h=2))
+    wide = torch.zeros(1, 2, 32, 24)
+    return [
+        ("mixed-dtypes", (q, k.double(), v, ld), {}, "one dtype"),
+        ("float64", (q.double(), k.double(), v.double(), ld.double()), {},
+         "bf16 or float32"),
+        ("mixed-bf16", (q.to(torch.bfloat16), k, v, ld), {}, "one dtype"),
+        ("inner-stride", (q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                          v, ld), {}, "inner stride"),
+        ("k24", (wide, wide, v, wide), {}, "K=24"),
+        ("v24", (q, k, torch.zeros(1, 2, 32, 24), ld), {}, "V=24"),
+        ("shape", (q, k[:, :, :16], v, ld), {}, "shape"),
+        ("chunk-128", (q, k, v, ld), {"chunk": 128}, "chunk"),
+        ("chunk-not-dividing", (q, k, v, ld), {"chunk": 5}, "chunk"),
+        ("bonus-shape", (q, k, v, ld), {"bonus": u[:1]}, "bonus"),
+        ("state-shape", (q, k, v, ld),
+         {"initial_state": torch.zeros(2, 16, 8)}, "initial_state"),
+        ("vb-12", (q, k, v, ld), {"vb": 12}, "vb"),
+        ("vb-128", (q, k, v, ld), {"vb": 128}, "vb"),
+        ("vb-wider-than-v", (q, k, torch.zeros(1, 2, 32, 8), ld),
+         {"vb": 16}, "vb"),
+        ("cpu", (q, k, v, ld), {"bonus": u}, "CUDA"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_refusal_cases())), ids=[
+    c[0] for c in _refusal_cases()])
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(case):
+    name, args, kw, msg = _refusal_cases()[case]
+    kw = {"chunk": 16, **kw}
+    before = kr.launches
+    with pytest.raises(ValueError, match=msg):
+        kr.rwkv6_fused(*args, **kw)
+    assert kr.launches == before
+
+
+def test_cpu_dispatch_never_calls_the_kernel_wrapper(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel's wrapper was called on the CPU")
+    monkeypatch.setattr(ops, "rwkv6_fused", refuse)
+    monkeypatch.setattr(kr, "rwkv6_fused", refuse)
+    q, k, v, ld, u = (_t(x) for x in _seq_inputs(2, 32, 16, 16))
+    before = kr.launches
+    out, S = ops.rwkv6_mix_state(q, k, v, ld, bonus=u, chunk=16)
+    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=16)
+    assert torch.equal(out, ref) and torch.equal(S, ref_S)
+    assert kr.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the fused function's plain version against the reference
+# ---------------------------------------------------------------------------
+
+FUSED_T = {1: 8, 7: 21, 16: 48, 64: 128}     # T for each chunk
+
+
+def _bf16_ulp(x):
+    mag = np.maximum(np.abs(np.asarray(x, np.float32)), 1e-30)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def _fused_inputs(seed, t, dtype, layout, decay, b=2, h=3, kdim=16, vdim=8):
+    """numpy float32 q, k, v, log decay (bf16 values for bf16) and the
+    port's tensors in ``dtype``, either contiguous (B, H, T, D) or as the
+    model's ``split_heads`` views of contiguous (B, T, H·D) tensors.  The
+    log decay is tests/test_kernels.py's ("mild": log U(0.3, 1)) or the
+    model's kind ("model": -exp(N(-0.5, 1)), the clamp at -4 active)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(b, h, t, d)).astype(np.float32)
+            for d in (kdim, kdim, vdim)]
+    if decay == "model":
+        ld = -np.exp(rng.normal(size=(b, h, t, kdim)) - 0.5)
+    else:
+        ld = np.log(rng.uniform(0.3, 1.0, (b, h, t, kdim)))
+    arrs.append(ld.astype(np.float32))
+    if dtype == "bfloat16":
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                for a in arrs]
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    ts_ = []
+    for a in arrs:
+        if layout == "split_heads":
+            d = a.shape[-1]
+            flat = torch.from_numpy(np.ascontiguousarray(
+                a.transpose(0, 2, 1, 3).reshape(b, t, h * d))).to(tdt)
+            x = flat.reshape(b, t, h, d).transpose(1, 2)
+            assert not x.is_contiguous()
+        else:
+            x = torch.from_numpy(a).to(tdt)
+        ts_.append(x)
+    return arrs, ts_
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "split_heads"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("with_bonus", [False, True],
+                         ids=["inclusive", "bonus"])
+@pytest.mark.parametrize("chunk,decay", [
+    (1, "mild"), (7, "mild"), (16, "mild"), (64, "mild"),
+    (1, "model"), (7, "model"), (16, "model")])
+def test_fused_plain_matches_reference(chunk, decay, with_bonus, with_state,
+                                       dtype, layout):
+    """``rwkv6_fused_plain`` against the reference: without a state,
+    ``rwkv6_mix(implementation="pallas")`` (interpret mode) on the same
+    dtype; with one, the reference's chunked scan with ``initial_state`` in
+    float32 on the same values.  float32 1e-5 (1e-4 at chunk 64, see
+    below); bf16 one bf16 ulp of the output (both round float32 sums
+    once).  Final S against the reference's
+    chunked scan at 1e-5.  The model's decay runs at the chunks the model
+    path takes (``_fit_chunk`` gives at most 16)."""
+    t = FUSED_T[chunk]
+    arrs, (q, k, v, ld) = _fused_inputs(chunk + 10 * with_bonus, t, dtype,
+                                        layout, decay)
+    rng = np.random.default_rng(chunk)
+    u = (rng.normal(size=(3, 16)) * 0.2).astype(np.float32) \
+        if with_bonus else None
+    s0 = rng.normal(size=(2, 3, 16, 8)).astype(np.float32) \
+        if with_state else None
+    out, S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=_t(u), chunk=chunk,
+                                  initial_state=_t(s0))
+    assert out.dtype == q.dtype and tuple(out.shape) == (2, 3, t, 8)
+    assert S.dtype == torch.float32 and tuple(S.shape) == (2, 3, 16, 8)
+    jf = [jnp.asarray(a) for a in arrs]
+    scan, scan_S = js.chunked_linear_attention(*jf, bonus=_j(u), chunk=chunk,
+                                               initial_state=_j(s0))
+    _close(S, scan_S, 1e-5)
+    if with_state:
+        ref = np.asarray(scan, np.float32)
+    else:
+        jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        ref = np.asarray(jax_rwkv6_mix(*(a.astype(jd) for a in jf),
+                                       bonus=_j(u), chunk=chunk,
+                                       implementation="pallas"), np.float32)
+    got = _np(out)
+    if dtype == "float32":
+        # at chunk 64 the in-chunk cumsum reaches -77: JAX's CPU cumsum is a
+        # tree scan whose L differs from a sequential one by up to 7.6e-6,
+        # which e^L turns into up to 2.1e-5 at the output; the same tiles
+        # agree at 1e-5 (test_plain_matches_pallas_kernel)
+        tol = 1e-4 if chunk == 64 else 1e-5
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=tol)
+    else:
+        ulp = np.maximum(_bf16_ulp(ref), _bf16_ulp(got))
+        assert (np.abs(got - ref) <= ulp).all(), np.abs(got - ref).max()
 
 
 @pytest.mark.parametrize("t,chunk", [(12, 8), (12, 5), (256, 128), (12, 0),
