@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero before the result line:
                output, float32 1e-4); the segment
                max at the lane engine's dispatch shapes, empty segments and
                values, ties and negatives, int64 extremes and one
-               1,000,000-value segment, bit-exact against its plain version
+               1,000,000-value segment, on CUDA tensors and through the
+               engines' numpy route, bit-exact against its plain version
                and numpy; the fused RWKV6 recurrence from raw q / k / v /
                log decay (a bonus on the exclusive cases) at the serving
                path's shape (B·H 160, T 2048, K = V = 64, chunk 16, with and
@@ -45,23 +46,33 @@ Phases, in order; any failure exits non-zero before the result line:
                teacher-forced forward, 0 times in decode; flash attention
                and the segment max 0 times.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
-               ``cuda``, its rate resolution in the segment-max kernel: the
-               golden trace (200 jobs, CLUSTER512, v2 engine) for ecmp / sr /
-               best must reproduce the pinned average JCTs and the ``cpu``
-               run's JCTs, with one launch per solve (39 / 36 / 0); then a
-               72-lane CLUSTER2048 grid (best / sr / ecmp x seeds 0-7 x mean
-               interarrival 15 / 30 / 60 s, 400 jobs a lane, max_gpus 64)
-               through ``run_lanes``, every report identical to the ``cpu``
-               run, launches equal to solves (795).  Prints wall seconds on
-               both devices, the values per call, the split of the cuda run
-               (kernel time by CUDA events, copies and device idle share
-               under torch.profiler, the rest on the host).
+               ``cuda``, its rate resolution in the segment-max kernel
+               through the engines' route (``phase_max_host``: one host copy
+               into page-locked staging that the kernel reads in place, one
+               wait): the golden trace (200 jobs, CLUSTER512, v2 engine) for
+               ecmp / sr / best must reproduce the pinned average JCTs and
+               the ``cpu`` run's JCTs, with one launch per solve (39 / 36 /
+               0); then a 72-lane CLUSTER2048 grid (best / sr / ecmp x seeds
+               0-7 x mean interarrival 15 / 30 / 60 s, 400 jobs a lane,
+               max_gpus 64) through ``run_lanes``, every report identical to
+               the ``cpu`` run, launches equal to solves (795).  Prints wall
+               seconds and the host time spent in the solves, in turns, on
+               cuda, cpu and two yardsticks (PR 16's route, host numpy),
+               the values per call, the split of the cuda run (the calls on
+               the device's clock by CUDA events, kernel and copies and
+               device idle share under torch.profiler, the rest on the
+               host).
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
                events); the attention variant the path took and the ptxas
                report (registers, spills, wgmma serialisation) of each
-               attention variant; the segment max at the grid's p50 / p90 / max calls,
-               with its numpy-to-numpy round trip and host numpy beside it;
+               attention variant; the segment max at the grid's p50 / p90 /
+               max calls: its device time (profiler), the wrapper's issue
+               rate back to back, and the round trip numpy -> numpy of the
+               engines' route (transfer design (B), zero-copy) against
+               design (A), staged through a device scratch, and PR 16's
+               route (pageable uploads, synchronising download), both kept
+               here as yardsticks only, in turns, with host numpy beside;
                the recurrence at its serving shape in bf16 from split_heads
                views, at the plan the library makes (no single PyTorch call
                computes it, so it has no library time), then at VB 16, 32
@@ -101,6 +112,8 @@ RWKV_PATH, RWKV_CHUNK = (BATCH, 40, PROMPT, 64, 64), 16
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12
+# the H100 SXM's PCIe Gen5 x16 host link, one way (NVIDIA's data sheet)
+PEAK_LINK_BYTES = 64e9
 # the recurrence's column blocks timed against each other (each a
 # compile-time instance on the path) and the batches they are timed at
 RWKV_SWEEP_VBS, RWKV_SWEEP_BATCHES = (16, 32, 64), (BATCH, 1)
@@ -341,8 +354,10 @@ def phase_max_cases():
 
 
 def check_phase_max(dev) -> float:
-    """The segment-max kernel against its plain version and numpy; any
-    difference fails.  Returns the largest absolute difference (0)."""
+    """The segment-max kernel on both routes (CUDA tensors, and the
+    engines' numpy route through page-locked staging) against its plain
+    version and numpy; any difference fails.  Returns the largest absolute
+    difference (0)."""
     import numpy as np
     import torch
     from repro_torch.core.fairshare import phase_worst_numpy
@@ -350,14 +365,16 @@ def check_phase_max(dev) -> float:
     for name, (vals, ptr) in phase_max_cases().items():
         tv, tp = torch.from_numpy(vals).to(dev), torch.from_numpy(ptr).to(dev)
         out = pm.phase_max(tv, tp).cpu().numpy()
+        host = pm.phase_max_host(vals, ptr, dev)
         plain = pm.phase_max_plain(tv, tp).cpu().numpy()
         want = phase_worst_numpy(vals, ptr)
-        bad = int((out != want).sum() + (plain != want).sum())
+        bad = int((out != want).sum() + (host != want).sum()
+                  + (plain != want).sum())
         log(f"phase_max {name:22s} nvals {len(vals):8d} nseg {len(ptr) - 1:4d}"
-            f" mismatches vs plain and numpy: {bad}")
-        if bad or out.dtype != np.int64:
-            fail(f"phase_max {name}: kernel {out[:8]} plain {plain[:8]} "
-                 f"numpy {want[:8]}")
+            f" mismatches of both routes vs plain and numpy: {bad}")
+        if bad or out.dtype != np.int64 or host.dtype != np.int64:
+            fail(f"phase_max {name}: kernel {out[:8]} route {host[:8]} plain "
+                 f"{plain[:8]} numpy {want[:8]}")
     return 0.0
 
 
@@ -613,8 +630,8 @@ def simulate_golden() -> int:
 
 def simulate_grid():
     """The 72-lane CLUSTER2048 grid on cuda against cpu.  Returns the main
-    run's launches and, for the timing phase, the device-resident CSR
-    inputs of the calls at the p50 / p90 / max number of values."""
+    run's launches and, for the timing phase, the numpy CSR inputs of the
+    calls at the p50 / p90 / max number of values."""
     import numpy as np
     import torch
     from repro_torch.core import CLUSTER2048, fairshare, run_lanes
@@ -641,21 +658,34 @@ def simulate_grid():
         fail(f"grid: {launched} launches, {solves} solves, expected "
              f"{GRID_SOLVES}")
 
-    # wall seconds in turns, warm: cuda, numpy, cpu, cpu, numpy, cuda.
-    # "numpy" is a yardstick the port does not offer: the same engine with
-    # each solve done by host numpy (np.maximum.reduceat), no torch at all
-    walls = {"cuda": [], "numpy": [], "cpu": []}
+    # wall seconds in turns, warm: cuda, pr16, numpy, cpu, cpu, numpy, pr16,
+    # cuda, with the host time of every solve as the engine calls it.
+    # "pr16" (PR 16's route: pageable uploads, a synchronising download)
+    # and "numpy" (each solve by host numpy, np.maximum.reduceat, no torch)
+    # are yardsticks the port does not offer
+    walls = {"cuda": [], "pr16": [], "numpy": [], "cpu": []}
+    solve_s = {turn: [] for turn in walls}
     engine_solve = cb.phase_worst_loads
-    for turn in ("cuda", "numpy", "cpu", "cpu", "numpy", "cuda"):
-        if turn == "numpy":
-            cb.phase_worst_loads = \
-                lambda v, p, device=None: fairshare.phase_worst_numpy(v, p)
+    yardsticks = {"pr16": pr16_route(torch.device("cuda")),
+                  "numpy": lambda v, p, device=None:
+                  fairshare.phase_worst_numpy(v, p)}
+    for turn in ("cuda", "pr16", "numpy", "cpu", "cpu", "numpy", "pr16",
+                 "cuda"):
+        solve, spent = yardsticks.get(turn, engine_solve), [0.0]
+
+        def timed_solve(v, p, device=None, solve=solve, spent=spent):
+            t0 = time.perf_counter()
+            out = solve(v, p, device=device)
+            spent[0] += time.perf_counter() - t0
+            return out
+        cb.phase_worst_loads = timed_solve
         lanes = grid_lanes()
         t0 = time.perf_counter()
         run_lanes(CLUSTER2048, lanes,
-                  device="cpu" if turn == "numpy" else turn)
+                  device="cpu" if turn in ("numpy", "cpu") else "cuda")
         torch.cuda.synchronize()
         walls[turn].append(time.perf_counter() - t0)
+        solve_s[turn].append(spent[0])
         cb.phase_worst_loads = engine_solve
     mean = {k: sum(v) / len(v) for k, v in walls.items()}
     wall_cuda = mean["cuda"]
@@ -663,29 +693,35 @@ def simulate_grid():
         f"{k} {v[0]:.3f} / {v[1]:.3f} s (mean {mean[k]:.3f})"
         for k, v in walls.items())
         + f"; {solves / wall_cuda:.1f} solves/s on cuda")
+    log(f"grid time in the {solves} solves (host clock around each, as the "
+        f"lane engine calls it), same turns: " + "; ".join(
+            f"{k} {v[0] * 1e3:.1f} / {v[1] * 1e3:.1f} ms "
+            f"({sum(v) / len(v) / solves * 1e6:.1f} us a solve)"
+            for k, v in solve_s.items()))
 
-    # instrumented run: CUDA events around every launch, and the inputs
+    # instrumented run: CUDA events around every call of the engines' route
+    # (kernel.phase_max_host, as fairshare calls it), and its inputs
     calls, events = [], []
-    launch = fairshare.phase_max
+    route = fairshare.phase_max_host
 
-    def timed_launch(tv, tp):
+    def timed_route(vals, ptr, device):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        out = launch(tv, tp)
+        out = route(vals, ptr, device)
         e1.record()
         events.append((e0, e1))
-        calls.append((tv, tp))
+        calls.append((vals.copy(), ptr.copy()))
         return out
-    fairshare.phase_max = timed_launch
+    fairshare.phase_max_host = timed_route
     lanes = grid_lanes()
     t0 = time.perf_counter()
     run_lanes(CLUSTER2048, lanes)
     torch.cuda.synchronize()
     wall_timed = time.perf_counter() - t0
-    fairshare.phase_max = launch
+    fairshare.phase_max_host = route
     event_ms = sum(a.elapsed_time(b) for a, b in events)
-    nvals = np.asarray([tv.numel() for tv, _ in calls])
-    nseg = np.asarray([tp.numel() - 1 for _, tp in calls])
+    nvals = np.asarray([len(vals) for vals, _ in calls])
+    nseg = np.asarray([len(ptr) - 1 for _, ptr in calls])
     p50, p90, pmax = np.percentile(nvals, [50, 90, 100])
     log(f"grid values per call: p50 {p50:.0f}, p90 {p90:.0f}, max {pmax:.0f};"
         f" segments per call: p50 {np.percentile(nseg, 50):.0f}, max "
@@ -697,12 +733,13 @@ def simulate_grid():
         "grid", lambda: run_lanes(CLUSTER2048, lanes))
     copy_ms = sum(ms for ms, _, key in rows if "memcpy" in key.lower())
     kern_ms = sum(ms for ms, _, key in rows if "segment_max" in key)
-    log(f"grid split on cuda: wall {wall_cuda * 1e3:.1f} ms; kernel "
-        f"{event_ms:.3f} ms by CUDA events around each launch (run of "
+    log(f"grid split on cuda: wall {wall_cuda * 1e3:.1f} ms; calls "
+        f"{event_ms:.3f} ms on the device's clock (CUDA events around each "
+        f"call of the route, staging to wait; run of "
         f"{wall_timed * 1e3:.1f} ms), {kern_ms:.3f} ms of kernel and "
         f"{copy_ms:.3f} ms of copies on the device under torch.profiler "
-        f"(run of {wall_prof:.1f} ms); host rest "
-        f"{wall_cuda * 1e3 - event_ms - copy_ms:.1f} ms")
+        f"(run of {wall_prof:.1f} ms); host outside the calls "
+        f"{wall_cuda * 1e3 - event_ms:.1f} ms")
     order = np.argsort(nvals, kind="stable")
     picks = {label: calls[order[int(round(q * (len(order) - 1)))]]
              for label, q in (("p50", 0.5), ("p90", 0.9), ("max", 1.0))}
@@ -728,59 +765,218 @@ def kernel_device_ms(fn, name: str, n: int = 50) -> float:
     return total / count / 1e3 if count else float("nan")
 
 
+class StagedRoute:
+    """Transfer design (A), kept as a yardstick the port does not offer:
+    ``[ptr | vals]`` packed into a page-locked buffer, one asynchronous
+    copy into a device scratch tensor, the launch there, an asynchronous
+    copy of the result into a page-locked output, one event wait.  Sized
+    once for the largest call it is given."""
+
+    def __init__(self, dev, nmax: int, segmax: int):
+        import torch
+        i64 = torch.int64
+        self.dev = dev
+        self.host = torch.empty(nmax, dtype=i64, pin_memory=True)
+        self.out = torch.empty(segmax, dtype=i64, pin_memory=True)
+        self.scratch = torch.empty(nmax, dtype=i64, device=dev)
+        self.dout = torch.empty(segmax, dtype=i64, device=dev)
+        self.host_np, self.out_np = self.host.numpy(), self.out.numpy()
+        self.event = torch.cuda.Event()
+
+    def __call__(self, vals, ptr):
+        import numpy as np
+        import torch
+        from repro_torch.kernels import phase_max as pm
+        pm.check_csr(ptr, len(vals))
+        nptr, n, nseg = len(ptr), len(ptr) + len(vals), len(ptr) - 1
+        np.concatenate((ptr, vals), out=self.host_np[:n])
+        self.scratch[:n].copy_(self.host[:n], non_blocking=True)
+        stream = torch.cuda.current_stream(self.dev)
+        base = self.scratch.data_ptr()
+        err = pm._c("phase_max_launch")(
+            base + 8 * nptr, base, self.dout.data_ptr(), nseg, len(vals),
+            stream.cuda_stream, self.dev.index)
+        if err:
+            fail(f"phase_max staged design: launch failed ({err})")
+        self.out[:nseg].copy_(self.dout[:nseg], non_blocking=True)
+        self.event.record(stream)
+        self.event.synchronize()
+        return self.out_np[:nseg].copy()
+
+
+def pr16_route(dev):
+    """PR 16's ``phase_worst_loads`` on ``cuda``, a yardstick only: the
+    same host checks, two pageable uploads, the launch, a synchronising
+    pageable download."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import phase_max as pm
+
+    def route(vals, ptr, device=None):
+        vals, ptr = np.asarray(vals), np.asarray(ptr)
+        for a in (vals, ptr):
+            if a.ndim != 1 or not np.issubdtype(a.dtype, np.integer):
+                raise TypeError("pr16_route: 1-D integer arrays only")
+        vals = np.ascontiguousarray(vals, dtype=np.int64)
+        ptr = np.ascontiguousarray(ptr, dtype=np.int64)
+        pm.check_csr(ptr, len(vals))
+        return pm.phase_max(torch.from_numpy(vals).to(dev),
+                            torch.from_numpy(ptr).to(dev)).cpu().numpy()
+    return route
+
+
+def device_ops(fn, n: int = 50):
+    """Device time of each operation (kernels and copies) that ``fn``
+    issues, from torch.profiler over ``n`` calls: {name: (occurrences per
+    call, us per occurrence)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / n, e.self_device_time_total / e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
 def time_phase_max(picks, smi: str):
-    """Kernel, round trip, plain version, library call and host numpy at
-    the grid's p50 / p90 / max calls; returns the p50 row."""
+    """At the grid's p50 / p90 / max calls: the kernel's device time on the
+    engines' route and on device-resident inputs, the wrapper's issue rate,
+    the engines' round trip numpy -> numpy against PR 16's route and
+    against transfer design (A), in turns, each design's device operations,
+    the route's host parts (p50), the plain version, a library call and
+    host numpy.  Returns the p50 row."""
     import numpy as np
     import torch
     from repro_torch.core.fairshare import phase_worst_loads, phase_worst_numpy
     from repro_torch.kernels import phase_max as pm
 
-    def host_ms(fn, iters=100):
-        fn()
+    def host_ms(fn, iters=400):
+        for _ in range(20):
+            fn()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) / iters * 1e3
 
-    one_v = torch.ones(1, dtype=torch.int64, device="cuda")
-    one_p = torch.tensor([0, 1], dtype=torch.int64, device="cuda")
+    def ops_text(ops):
+        return ", ".join(f"{key[:40]} {us:.2f} us" + (
+            f" x{count:g}" if count != 1 else "")
+            for key, (count, us) in sorted(ops.items()))
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one_v = torch.ones(1, dtype=torch.int64, device=dev)
+    one_p = torch.tensor([0, 1], dtype=torch.int64, device=dev)
     floor_ms = time_ms(lambda: pm.phase_max(one_v, one_p), iters=200)
-    log(f"phase_max launch floor (1 value, 1 segment, back-to-back "
-        f"launches, CUDA events): {floor_ms:.4f} ms")
+    floor_dev = kernel_device_ms(lambda: pm.phase_max(one_v, one_p),
+                                 "segment_max")
+    v1, p1 = np.ones(1, np.int64), np.asarray([0, 1], np.int64)
+    floor_route = host_ms(lambda: phase_worst_loads(v1, p1))
+    floor_route_dev = kernel_device_ms(lambda: phase_worst_loads(v1, p1),
+                                       "segment_max")
+    log(f"phase_max floor (1 value, 1 segment): on device tensors issue "
+        f"{floor_ms:.4f} ms back to back (CUDA events), kernel "
+        f"{floor_dev:.4f} ms on the device; engines' "
+        f"route {floor_route:.4f} ms numpy -> numpy, kernel "
+        f"{floor_route_dev:.4f} ms on the device (profiler)")
+    staged = StagedRoute(dev, max(len(v) + len(p) for v, p in picks.values()),
+                         max(len(p) for _, p in picks.values()))
+    routes = {"pr16": pr16_route(dev), "staged": staged,
+              "zero-copy": lambda v, p: phase_worst_loads(v, p)}
     rows = {}
-    for label, (tv, tp) in picks.items():
-        nvals, nseg = tv.numel(), tp.numel() - 1
-        vals, ptr = tv.cpu().numpy(), tp.cpu().numpy()
-        seg = torch.repeat_interleave(torch.arange(nseg, device=tv.device),
+    for label, (vals, ptr) in picks.items():
+        nvals, nseg = len(vals), len(ptr) - 1
+        want = phase_worst_numpy(vals, ptr)
+        for name, fn in routes.items():
+            if not np.array_equal(fn(vals, ptr), want):
+                fail(f"phase_max {label}: the {name} route disagrees with "
+                     f"numpy")
+        tv, tp = torch.from_numpy(vals).to(dev), torch.from_numpy(ptr).to(dev)
+        seg = torch.repeat_interleave(torch.arange(nseg, device=dev),
                                       tp[1:] - tp[:-1])
-        zeros = torch.zeros(nseg, dtype=torch.int64, device=tv.device)
+        zeros = torch.zeros(nseg, dtype=torch.int64, device=dev)
         lib = zeros.scatter_reduce(0, seg, tv, "amax", include_self=False)
         if not torch.equal(lib, pm.phase_max(tv, tp)):
             fail(f"phase_max {label}: the library call computes another "
                  f"function")
+        # the routes numpy -> numpy, in turns on this card
+        turns = {name: [] for name in routes}
+        for name in ("pr16", "staged", "zero-copy", "zero-copy", "staged",
+                     "pr16"):
+            turns[name].append(host_ms(lambda: routes[name](vals, ptr)))
+        rt = {name: sum(t) / len(t) for name, t in turns.items()}
+        ops = {name: device_ops(lambda: routes[name](vals, ptr))
+               for name in ("staged", "zero-copy")}
+        nbytes = 8 * nvals + 16 * nseg
         row = {
-            "kernel_ms": time_ms(lambda: pm.phase_max(tv, tp), iters=200),
-            "device_ms": kernel_device_ms(lambda: pm.phase_max(tv, tp),
+            "kernel_ms": kernel_device_ms(lambda: phase_worst_loads(vals, ptr),
                                           "segment_max"),
-            "roundtrip_ms": host_ms(lambda: phase_worst_loads(vals, ptr)),
+            "resident_kernel_ms": kernel_device_ms(
+                lambda: pm.phase_max(tv, tp), "segment_max"),
+            "issue_ms": time_ms(lambda: pm.phase_max(tv, tp), iters=200),
+            "roundtrip_ms": rt["zero-copy"], "staged_ms": rt["staged"],
+            "pr16_roundtrip_ms": rt["pr16"],
             "plain_ms": time_ms(lambda: pm.phase_max_plain(tv, tp), iters=50),
             "library_ms": time_ms(lambda: zeros.scatter_reduce(
                 0, seg, tv, "amax", include_self=False), iters=200),
-            "numpy_ms": host_ms(lambda: phase_worst_numpy(vals, ptr), 200),
-            "bound_ms": (8 * nvals + 16 * nseg) / PEAK_BYTES * 1e3,
+            "numpy_ms": host_ms(lambda: phase_worst_numpy(vals, ptr)),
+            "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "link_bound_ms": nbytes / PEAK_LINK_BYTES * 1e3,
         }
         rows[label] = row
-        log(f"phase_max {label} call (nvals {nvals}, nseg {nseg}): kernel "
-            f"{row['kernel_ms']:.4f} ms (CUDA events, back-to-back), device "
-            f"{row['device_ms']:.4f} ms (profiler), round trip numpy->numpy "
-            f"{row['roundtrip_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library scatter_reduce {row['library_ms']:.4f} ms, host numpy "
-            f"reduceat {row['numpy_ms'] * 1e3:.1f} us, bound "
-            f"{row['bound_ms'] * 1e3:.4f} us (bytes); {smi}")
-    log("phase_max: launch latency, not the bound, sets the floor of one "
-        f"call here (bound at the max call {rows['max']['bound_ms'] * 1e3:.4f}"
-        f" us, launch floor {floor_ms * 1e3:.1f} us)")
+        log(f"phase_max {label} call (nvals {nvals}, nseg {nseg}): round "
+            f"trip numpy -> numpy, in turns (pr16, staged, zero-copy, "
+            f"zero-copy, staged, pr16): " + "; ".join(
+                f"{name} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                for name, ts in turns.items()))
+        log(f"phase_max {label} call: device operations per call: staged "
+            f"(A): {ops_text(ops['staged'])}; zero-copy (B, the engines' "
+            f"route): {ops_text(ops['zero-copy'])}")
+        log(f"phase_max {label} call: engines' route (zero-copy) "
+            f"{row['roundtrip_ms']:.4f} ms, design (A) staged "
+            f"{row['staged_ms']:.4f} ms, PR 16's route "
+            f"{row['pr16_roundtrip_ms']:.4f} ms; kernel on the device "
+            f"{row['kernel_ms']:.4f} ms on the route (reading page-locked "
+            f"host memory), {row['resident_kernel_ms']:.4f} ms on device "
+            f"tensors (profiler); issue on device tensors "
+            f"{row['issue_ms']:.4f} ms (CUDA events, back to back); plain "
+            f"{row['plain_ms']:.4f} ms, library scatter_reduce "
+            f"{row['library_ms']:.4f} ms, host numpy reduceat "
+            f"{row['numpy_ms'] * 1e3:.1f} us; bound "
+            f"{row['bound_ms'] * 1e3:.4f} us (bytes at 3.35 TB/s), "
+            f"{row['link_bound_ms'] * 1e3:.4f} us over the host link "
+            f"(64 GB/s); {smi}")
+        if label == "p50":   # where the route's host time goes
+            st = pm._staging[dev.index]
+            solve = pm._c("phase_max_solve")
+
+            def launch_wait():
+                stream = torch.cuda.current_stream(dev.index).cuda_stream
+                solve(st.packed_at + 8 * len(ptr), st.packed_at, st.out_at,
+                      nseg, nvals, stream, dev.index, st.event.cuda_event)
+            parts = {
+                "phase_worst_loads": lambda: phase_worst_loads(vals, ptr),
+                "phase_max_host": lambda: pm.phase_max_host(vals, ptr, dev),
+                "pack": lambda: st.pack(vals, ptr),
+                "current_stream": lambda: torch.cuda.current_stream(
+                    dev.index).cuda_stream,
+                "launch_and_wait": launch_wait,
+                "result": lambda: st.result(nseg),
+            }
+            log("phase_max p50 call, the route's parts (host clock): " +
+                "; ".join(f"{k} {host_ms(f) * 1e3:.2f} us"
+                          for k, f in parts.items()))
+    slower = [label for label, row in rows.items()
+              if row["roundtrip_ms"] >= row["pr16_roundtrip_ms"]]
+    log("phase_max: launch latency and the host link, not the bound, set "
+        f"a call's device time here (bound at the max call "
+        f"{rows['max']['bound_ms'] * 1e3:.4f} us, kernel floor "
+        f"{floor_dev * 1e3:.1f} us on the device); the engines' route is "
+        f"below PR 16's at every pick: {not slower}")
     return rows["p50"]
 
 
@@ -980,6 +1176,12 @@ def main() -> None:
         "replaces": "src/repro/kernels/phase_max.py:47",
         "launches": pm_launches, "max_abs_err": pm_err,
         "ms": pm_row["kernel_ms"], "kernel_ms": pm_row["kernel_ms"],
+        "issue_ms": pm_row["issue_ms"], "design": "zero-copy",
+        "resident_kernel_ms": pm_row["resident_kernel_ms"],
+        "roundtrip_ms": pm_row["roundtrip_ms"],
+        "staged_roundtrip_ms": pm_row["staged_ms"],
+        "pr16_roundtrip_ms": pm_row["pr16_roundtrip_ms"],
+        "numpy_ms": pm_row["numpy_ms"],
         "plain_ms": pm_row["plain_ms"], "bound_ms": pm_row["bound_ms"],
         "bound_by": "bytes", "library_ms": pm_row["library_ms"],
         "shape": "the grid's p50 call",

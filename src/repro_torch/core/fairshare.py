@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.phase_max import check_csr, phase_max, phase_max_plain
+from ..kernels.phase_max import check_csr, phase_max_host, phase_max_plain
 
 
 def maxmin_fair_numpy(flow_links: Sequence[Sequence[Hashable]],
@@ -273,23 +273,25 @@ def phase_worst_loads(vals: np.ndarray, ptr: np.ndarray,
     the v2/lane engines' rate resolution: ``out[i] = max(vals[ptr[i]:
     ptr[i+1]])``, 0 for an empty segment, as int64 numpy.
 
-    On ``cuda`` (the default; raises without a card) every call uploads the
-    two arrays, launches the segment-max kernel and copies the result back;
-    on ``cpu`` it runs the kernel's plain version.  ``ptr`` is checked on
-    the host before upload (starts at 0, ends at ``len(vals)``, monotone).
+    On ``cuda`` (the default; raises without a card) every call runs the
+    segment-max kernel through :func:`repro_torch.kernels.phase_max.
+    phase_max_host`: one host copy into a page-locked staging buffer that
+    the kernel reads in place, one launch, one wait; on ``cpu`` it runs the
+    kernel's plain version.  ``ptr`` is checked on the host first (starts
+    at 0, ends at ``len(vals)``, monotone).
     """
     dev = resolve_device("cuda" if device is None else device)
     vals, ptr = np.asarray(vals), np.asarray(ptr)
     for name, a in (("vals", vals), ("ptr", ptr)):
-        if a.ndim != 1 or not np.issubdtype(a.dtype, np.integer):
+        if a.ndim != 1 or a.dtype.kind not in "iu":   # integer dtypes
             raise TypeError(f"phase_worst_loads: {name} must be a 1-D integer "
                             f"array, got {a.dtype} of shape {a.shape}")
     vals = np.ascontiguousarray(vals, dtype=np.int64)
     ptr = np.ascontiguousarray(ptr, dtype=np.int64)
     check_csr(ptr, len(vals))
-    tv, tp = torch.from_numpy(vals), torch.from_numpy(ptr)
     if dev.type == "cuda":
-        return phase_max(tv.to(dev), tp.to(dev)).cpu().numpy()
+        return phase_max_host(vals, ptr, dev)
     if dev.type != "cpu":
         raise ValueError(f"phase_worst_loads: no path for device {dev}")
-    return phase_max_plain(tv, tp).numpy()
+    return phase_max_plain(torch.from_numpy(vals),
+                           torch.from_numpy(ptr)).numpy()

@@ -7,6 +7,11 @@ and ``repro_torch.kernels.phase_max``).
   ``phase_worst_pallas`` (interpret mode on the CPU) on the cases of
   ``tests/test_kernels.py``, plus negative values.  Values beyond int32 are
   held against numpy only: the Pallas wrapper narrows to int32.
+* The engines' route on ``cuda`` stages ``[ptr | vals]`` in one reused
+  host buffer (``phase_max.Staging``; page-locked on the card): packing and
+  reading back are exact, through growth, after a larger call (no stale
+  entries) and beyond int32; the kernel's plain version run on the staged
+  views agrees with the reference.
 * Water-filling.  ``maxmin_fair_torch(device="cpu")`` agrees with the
   reference's ``maxmin_fair_jax`` within 1e-6 and with ``maxmin_fair_numpy``
   within 1e-6 (1e-9 where the shares are exact in float32), with and
@@ -149,6 +154,119 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pm.phase_max(torch.zeros(3, dtype=torch.int64),
                      torch.tensor([0, 3]))
+    assert pm.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the engines' staging buffer ([ptr | vals], reused and grown)
+# ---------------------------------------------------------------------------
+
+def _staged_solve(st, vals, ptr):
+    """The engines' route on the CPU's terms: pack, run the plain version
+    on the staged views into the reused output, read the result back."""
+    vals, ptr = np.asarray(vals, np.int64), np.asarray(ptr, np.int64)
+    st.pack(vals, ptr)
+    sp, sv = st.packed[:len(ptr)], st.packed[len(ptr):len(ptr) + len(vals)]
+    np.testing.assert_array_equal(sv, vals)
+    np.testing.assert_array_equal(sp, ptr)
+    nseg = len(ptr) - 1
+    st.out[:nseg] = _plain(sv, sp).numpy()
+    got = st.result(nseg)
+    np.testing.assert_array_equal(got, RF.phase_worst_numpy(vals, ptr))
+    return got
+
+
+def test_staging_packs_ptr_then_vals_in_one_reused_buffer():
+    st = pm.Staging()
+    vals, ptr = [3, 1, 4, 7, 7, -2, 9], [0, 2, 2, 3, 5, 5, 7]
+    assert _staged_solve(st, vals, ptr).tolist() == [3, 0, 4, 7, 0, 9]
+    np.testing.assert_array_equal(st.packed[:len(ptr) + len(vals)],
+                                  ptr + vals)
+    packed, out = st.packed, st.out
+    rng = np.random.default_rng(0)
+    for _ in range(5):   # calls that fit reuse both buffers
+        _staged_solve(st, *_csr(rng, 40, 20))
+        assert st.packed is packed and st.out is out
+    assert len(packed) == len(out) == pm.MIN_ENTRIES
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_staging_growth_keeps_results_exact(seed):
+    """Each call larger than the buffers grows them geometrically (at
+    least doubled), and every result stays bit-exact."""
+    st, rng = pm.Staging(), np.random.default_rng(seed)
+    sizes = []
+    for nseg in (10, 900, 3000, 7000, 20000):
+        vals, ptr = _csr(rng, nseg, 6)
+        before = len(st.packed)
+        _staged_solve(st, vals, ptr)
+        need = len(vals) + len(ptr)
+        assert len(st.packed) >= need and len(st.out) >= nseg
+        if need > before:
+            assert len(st.packed) >= max(2 * before, pm.MIN_ENTRIES)
+        sizes.append(len(st.packed))
+    assert sizes == sorted(sizes) and len(set(sizes)) <= 5
+
+
+def test_grown_is_geometric():
+    assert pm.grown(0, 1) == pm.MIN_ENTRIES
+    assert pm.grown(100, 50) == 100
+    assert pm.grown(pm.MIN_ENTRIES, pm.MIN_ENTRIES + 1) == 2 * pm.MIN_ENTRIES
+    assert pm.grown(8192, 50000) == 50000
+    cap, allocs = 0, 0
+    for need in range(1, 1_000_000, 997):
+        if pm.grown(cap, need) != cap:
+            cap, allocs = pm.grown(cap, need), allocs + 1
+    assert allocs <= 10
+
+
+def test_staging_smaller_call_after_larger_reads_no_stale_values():
+    """A large call leaves its values behind in the buffers; a smaller one
+    after it must see only its own."""
+    st = pm.Staging()
+    big_vals = np.full(20000, 10 ** 12, np.int64)
+    big_ptr = np.arange(0, 20001, 4, dtype=np.int64)
+    _staged_solve(st, big_vals, big_ptr)
+    # all-empty segments and short segments: stale 10**12 must not show
+    assert _staged_solve(st, [], [0, 0, 0, 0]).tolist() == [0, 0, 0]
+    assert _staged_solve(st, [-1, -2, -3], [0, 1, 3]).tolist() == [-1, -2]
+    assert _staged_solve(st, [5], [0, 0, 1, 1]).tolist() == [0, 5, 0]
+    # what the large call left behind is still there, never read
+    assert (st.packed[len(big_ptr):len(big_ptr) + len(big_vals)]
+            == 10 ** 12).all()
+    assert (st.out[3:len(big_ptr) - 1] == 10 ** 12).all()
+
+
+def test_staging_keeps_int64_beyond_int32():
+    st = pm.Staging()
+    vals = [I64.min, I64.max, -(2 ** 40), 2 ** 40 + 3, 2 ** 31,
+            -(2 ** 31) - 1, 2 ** 62]
+    ptr = [0, 2, 4, 4, 6, 7]
+    got = _staged_solve(st, vals, ptr)
+    assert got.tolist() == [I64.max, 2 ** 40 + 3, 0, 2 ** 31, 2 ** 62]
+    assert st.packed.dtype == np.int64
+
+
+@pytest.mark.parametrize("nvals,nseg", [(3345, 62), (4758, 84),
+                                        (11829, 180), (23566, 444)])
+def test_phase_worst_loads_cpu_matches_reference_at_grid_sizes(nvals, nseg):
+    """``phase_worst_loads(device="cpu")`` stays bit-identical to the
+    reference's numpy and Pallas (interpret) solves at the lane engine's
+    call sizes (link loads are small positive counts, within int32)."""
+    rng = np.random.default_rng(nvals)
+    cuts = np.sort(rng.integers(0, nvals + 1, nseg - 1))
+    ptr = np.concatenate([[0], cuts, [nvals]]).astype(np.int64)
+    vals = rng.integers(1, 40, nvals).astype(np.int64)
+    _all_agree(vals, ptr)
+
+
+def test_host_route_refuses_without_a_card(monkeypatch):
+    """On a machine without a card ``phase_worst_loads`` asks for ``cuda``
+    by default and raises; it never falls back to the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = pm.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TF.phase_worst_loads(np.arange(3), np.asarray([0, 3]))
     assert pm.launches == before
 
 

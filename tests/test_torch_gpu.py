@@ -13,9 +13,13 @@ rounding differs), float32 1e-4 (same f32 arithmetic in another summation
 order, no TF32); on both kernels of the source (wgmma + TMA for bf16 at
 head_dim 64 / 128, mma.sync or FMAs for the rest), at the wgmma kernel's
 tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
-1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact against its plain version and
-numpy.  The simulator on ``cuda`` gives schedules identical to ``cpu``,
-with one kernel launch per rate-resolution solve.  RWKV6 chunked recurrence
+1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact
+against its plain version and numpy, on CUDA tensors and through the
+engines' numpy route (page-locked staging the kernel reads in place),
+through calls that grow and shrink its buffers, with no device allocation
+per call and one launch per solve.  The simulator on ``cuda`` gives
+schedules identical to ``cpu``, with one kernel launch per rate-resolution
+solve.  RWKV6 chunked recurrence
 (the fused kernel, from raw q / k / v / log decay): output within 1e-4
 (float32) or one bf16 ulp (bf16) of its plain version, final state within
 1e-4, on every K / V in {8, ..., 128}, chunks from 1 to 64 (powers of two
@@ -273,6 +277,62 @@ def test_phase_max_refuses_what_it_does_not_take(cuda):
         pm.phase_max(torch.arange(8, device=cuda)[::2], p)
     with pytest.raises(ValueError, match="CUDA"):
         pm.phase_max(v, p.cpu())
+
+
+@pytest.mark.parametrize("name", sorted(PM_CASES))
+def test_phase_max_host_route_matches_plain_and_numpy(cuda, name):
+    """The engines' route (page-locked [ptr | vals], the kernel reading it
+    in place): bit-exact, one launch per call with work, int64 numpy out."""
+    vals, ptr = (np.asarray(a, np.int64) for a in PM_CASES[name])
+    before = pm.launches
+    got = pm.phase_max_host(vals, ptr, cuda)
+    assert pm.launches == before + (1 if len(vals) and len(ptr) > 1 else 0)
+    assert isinstance(got, np.ndarray) and got.dtype == np.int64
+    want = core.phase_worst_numpy(vals, ptr)
+    np.testing.assert_array_equal(got, want)
+    plain = pm.phase_max_plain(torch.from_numpy(vals), torch.from_numpy(ptr))
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+def test_phase_max_host_route_grows_then_shrinks(cuda):
+    """Calls of growing, then shrinking, size through the same staging
+    buffers: every result bit-exact, none reads a larger call's leftovers;
+    the buffers are page-locked and the kernel reaches them."""
+    sizes = [(10, 3), (3345, 62), (22652, 398), (250_000, 4000),
+             (43593, 753), (4758, 84), (7, 6), (1, 1), (0, 5)]
+    for seed, (nvals, nseg) in enumerate(sizes + sizes[::-1]):
+        vals, ptr = _csr(seed, nvals, nseg, lo=-(2 ** 40), hi=2 ** 40)
+        np.testing.assert_array_equal(pm.phase_max_host(vals, ptr, cuda),
+                                      core.phase_worst_numpy(vals, ptr))
+    st = pm._staging[torch.cuda.current_device()]
+    assert len(st.packed) >= 254_001 and len(st.out) >= 4000
+    assert st.packed_at and st.out_at
+    assert torch.from_numpy(st.packed).is_pinned()
+
+
+def test_phase_max_host_route_allocates_nothing_per_call(cuda):
+    """After warm-up, 100 calls leave the device's allocated memory where
+    it was: no per-call tensor on the card."""
+    vals, ptr = _csr(5, 23566, 444)
+    pm.phase_max_host(vals, ptr, cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for i in range(100):
+        v, p = _csr(i, 1000 + 200 * i, 20 + i)
+        pm.phase_max_host(v, p, cuda)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_phase_worst_loads_launches_once_per_solve(cuda):
+    rng = np.random.default_rng(0)
+    pm.launches = 0
+    for i in range(25):
+        vals, ptr = _csr(i, int(rng.integers(1, 30000)),
+                         int(rng.integers(1, 500)))
+        np.testing.assert_array_equal(core.phase_worst_loads(vals, ptr),
+                                      core.phase_worst_numpy(vals, ptr))
+        assert pm.launches == i + 1
 
 
 @pytest.mark.parametrize("engine", ["v2", "batched"])
