@@ -39,6 +39,31 @@ Phases, in order; any failure exits non-zero before the result line:
                decode logits.  torch.profiler then traces one prefill and 8
                decode steps: wall time, kernel time, device idle share and
                the kernels that take the most device time.
+  4c. train — (a) the autograd Functions around the kernels on the card:
+               attention (bf16 and float32, head_dim 64 and 32, GQA 32 / 4,
+               S 256 and 2048, causal, one windowed case) and the
+               recurrence (B·H 8, T 256, K = V = 64, both masks, with and
+               without S0): their grads against autograd through the plain
+               formulation alone (``blocked_attention``, the chunk scan),
+               float32 1e-4, bf16 one bf16 ulp (8e-3 where |g| < 2).
+               (b) full-width tinyllama-1.1b training: float32 masters, bf16
+               compute, seeded random weights, ``SyntheticSource`` batches
+               of 4 x 2048, AdamW float32 state, remat none: every master
+               leaf gets a finite grad on the first step's params and
+               batch; one step under torch.profiler split by kind
+               (attention kernel, the attention backward: the
+               ``blocked_attention`` recompute and its grads, GEMMs,
+               optimizer, other) with the device idle share; then
+               ``repro_torch.launch.train.main`` on a 64-GPU vclos grant on
+               CLUSTER512, 2 warm-up and 3 timed steps: ms per step,
+               tokens/s, peak memory, loss and grad norm per step, the
+               step's bound; the attention kernel must launch 22 times a
+               step and every loss must be finite.  (c) checkpoint and
+               resume on the card: reduced tinyllama-1.1b and rwkv6-3b in
+               float32, ckpt_every 2: 4 steps at once against 2 steps and
+               a resumed run to 4; losses of steps 3-4 compared (and
+               whether bit-exact); rwkv6 launches the recurrence once per
+               layer per step.
   4b. serve-ssm — the same for full-width, full-depth rwkv6-3b (32 layers,
                d_model 2560, seeded random weights, bf16): 4 x 2048 prompt,
                32 greedy decode steps.  The recurrence kernel must be
@@ -124,6 +149,11 @@ RWKV_SWEEP_VBS, RWKV_SWEEP_BATCHES = (16, 32, 64), (BATCH, 1)
 BF16_TOL, F32_TOL = 8e-3, 1e-4
 # Decode vs teacher-forced forward, bf16 (tests/test_serve.py:60-62).
 SERVE_ATOL, SERVE_RTOL = 0.15, 0.05
+# Training (phase 4c): full-width tinyllama-1.1b at B x S, warm-up and timed
+# steps through repro_torch.launch.train.main on a 64-GPU vclos grant on
+# CLUSTER512; then checkpoint / resume of reduced configs, ckpt_every 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED = 4, 2048, 2, 3
+TRAIN_GPUS, RESUME_STEPS, RESUME_SPLIT = 64, 4, 2
 # profiled device time by kind of kernel (name fragments); the rest is
 # PyTorch's elementwise, copy and reduction kernels
 KERNEL_KINDS = {"recurrence": ("rwkv6_chunked",), "attention": ("attn_fwd",),
@@ -579,6 +609,352 @@ def serve_phase(dev, arch: str, kernel: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4c. training
+# ---------------------------------------------------------------------------
+
+def grads_of(fn, ins, weights):
+    """(outputs, grads of sum(output x weight) w.r.t. each input) of ``fn``
+    on fresh leaf copies of ``ins`` (None stays None)."""
+    leaves = [None if x is None else x.detach().clone().requires_grad_()
+              for x in ins]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    return [o.detach() for o in outs], [None if x is None else x.grad
+                                        for x in leaves]
+
+
+def grad_error(got, want, bf16: bool):
+    """(max abs error, within tolerance) of one grad against its
+    reference: bf16 one ulp of the reference (BF16_TOL where |g| < 2),
+    float32 F32_TOL."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    within = (bool((diff <= bf16_bound(want.float())).all()) if bf16 else
+              torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL))
+    return diff.max().item(), within and bool(torch.isfinite(got).all())
+
+
+def check_function_grads(dev) -> dict:
+    """Phase 4c (a): each autograd Function's grads on the card against
+    autograd through its plain formulation alone.  Returns the max abs
+    grad error of each."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6 as kr
+    from repro_torch.models.attention import blocked_attention
+    from repro_torch.models.ssm import chunked_linear_attention_scan
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = {"flash_attention": 0.0, "rwkv6_chunked": 0.0}
+    cases = [(dt, hd, s, None) for dt in (torch.bfloat16, torch.float32)
+             for hd in (64, 32) for s in (256, 2048)]
+    cases.append((torch.bfloat16, 64, 2048, 256))
+    for dtype, hd, s, window in cases:
+        q, k, v = (torch.randn((1, s, h, hd), generator=gen, device=dev)
+                   .to(dtype) for h in (32, 4, 4))
+        w = torch.randn(q.shape, generator=gen, device=dev)
+        before = fa.launches
+        _, got = grads_of(lambda *x: ops.attention(*x, window=window),
+                          (q, k, v), (w,))
+        launched = fa.launches - before
+        _, want = grads_of(lambda *x: blocked_attention(*x, window=window),
+                           (q, k, v), (w,))
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        errs = [grad_error(g, r, bf16) for g, r in zip(got, want)]
+        err = max(e for e, _ in errs)
+        ok = all(o for _, o in errs) and launched == 1
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        log(f"grad flash_attention {str(dtype):14s} hd {hd:3d} GQA 32/4 S "
+            f"{s:5d} {'window ' + str(window) if window else 'causal    '}"
+            f" {fa.last_variant or '-':9s} dq/dk/dv max_abs_err "
+            + "/".join(f"{e:.3e}" for e, _ in errs)
+            + f" (tol {'one bf16 ulp, 8e-3 where |g| < 2' if bf16 else F32_TOL}"
+            f"); kernel launches {launched} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash attention's Function grads disagree with autograd "
+                 f"through blocked_attention (dtype {dtype}, hd {hd}, S {s})")
+    for excl in (True, False):
+        for with_s0 in (False, True):
+            q, k, v, ld, u = rwkv6_case_inputs(dev, (2, 4, 256, 64, 64),
+                                               excl, "model", 11)
+            s0 = (torch.randn((2, 4, 64, 64), generator=gen, device=dev)
+                  if with_s0 else None)
+            ws = (torch.randn((2, 4, 256, 64), generator=gen, device=dev),
+                  torch.randn((2, 4, 64, 64), generator=gen, device=dev))
+            before = kr.launches
+            _, got = grads_of(lambda *x: ops.rwkv6_mix_state(
+                *x[:4], bonus=x[4], chunk=16, initial_state=x[5]),
+                (q, k, v, ld, u, s0), ws)
+            launched = kr.launches - before
+            _, want = grads_of(lambda *x: chunked_linear_attention_scan(
+                *x[:4], bonus=x[4], chunk=16, initial_state=x[5]),
+                (q, k, v, ld, u, s0), ws)
+            torch.cuda.synchronize()
+            errs = [grad_error(g, r, False) for g, r in zip(got, want)
+                    if r is not None]
+            err = max(e for e, _ in errs)
+            ok = all(o for _, o in errs) and launched == 1
+            worst["rwkv6_chunked"] = max(worst["rwkv6_chunked"], err)
+            log(f"grad rwkv6 B·H 8 T 256 K 64 V 64 "
+                f"{'bonus    ' if excl else 'inclusive'} s0 "
+                f"{'yes' if with_s0 else 'no '} max_abs_err over "
+                f"{len(errs)} grads {err:.3e} (tol {F32_TOL:g}); kernel "
+                f"launches {launched} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail("the recurrence's Function grads disagree with "
+                     "autograd through the chunk scan")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_bound(cfg, batch: int, seq: int):
+    """Least time of one training step on the card: the bf16 products (6 x
+    the layer matrices and the head x tokens; the attention's live causal
+    pairs 4 times its forward: the kernel's forward, the recompute, and the
+    backward's four products, twice a forward) over 989 TFLOP/s, plus the
+    optimizer's float32 bytes (p, g, m, v read, p, m, v written once) over
+    3.35 TB/s.  Returns (ms, products ms, optimizer ms, FLOP, bytes)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    mats = cfg.num_layers * (2 * d * cfg.num_heads * hd
+                             + 2 * d * cfg.num_kv_heads * hd
+                             + 3 * d * cfg.d_ff)
+    head = d * cfg.vocab_size
+    attn_fwd = (cfg.num_layers * 4 * hd * cfg.num_heads * batch
+                * live_pairs(seq, seq, True, None))
+    flops = 6 * (mats + head) * batch * seq + 4 * attn_fwd
+    nbytes = 7 * 4 * cfg.param_count()
+    ops_ms, opt_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ops_ms + opt_ms, ops_ms, opt_ms, flops, nbytes
+
+
+def kernels_under(evt):
+    """(name, device us) of every kernel launched under a profiler event
+    and its CPU children."""
+    for kern in evt.kernels:
+        yield kern.name, kern.duration
+    for child in evt.cpu_children:
+        yield from kernels_under(child)
+
+
+def profile_train_step(step_fn, state, batch, top: int = 8) -> dict:
+    """One training step under torch.profiler, its device time split by
+    kind: the attention kernel; the attention backward, i.e. the
+    ``blocked_attention`` recompute and its grads; the optimizer (each
+    found under a ``record_function`` range that wraps it here, for this
+    run only); the other GEMMs; the rest.  Logs the device idle share and
+    the kernels that take most device time.  Returns the split in ms, with
+    the wall and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as ts_mod
+    ranges = {"attention backward (recompute)": "attention backward",
+              "optimizer": "adamw_update"}
+    backward, update = ops._FlashAttention.backward, ts_mod.adamw_update
+
+    def wrap(fn, name):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+    ops._FlashAttention.backward = staticmethod(
+        wrap(backward, ranges["attention backward (recompute)"]))
+    ts_mod.adamw_update = wrap(update, ranges["optimizer"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = step_fn(*state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops._FlashAttention.backward = staticmethod(backward)
+    ts_mod.adamw_update = update
+
+    def kind_of(name):
+        return next((k for k, marks in KERNEL_KINDS.items()
+                     if any(m in name for m in marks)), "other")
+    total, rows = {}, []
+    for e in prof.key_averages():
+        # the ranges' own device-side annotations span kernels; not kernels
+        if e.device_type == DeviceType.CUDA and e.key not in ranges.values():
+            ms = e.self_device_time_total / 1e3
+            rows.append((ms, e.count, e.key))
+            total[kind_of(e.key)] = total.get(kind_of(e.key), 0.0) + ms
+    busy = sum(total.values())
+    split = {"attention kernel": total.get("attention", 0.0)}
+    inside = {}
+    for key, name in ranges.items():
+        ms = 0.0
+        for e in prof.events():
+            if e.name == name:
+                for kname, us in kernels_under(e):
+                    ms += us / 1e3
+                    inside[kind_of(kname)] = inside.get(kind_of(kname),
+                                                        0.0) + us / 1e3
+        split[key] = ms
+    split["gemm (outside the ranges)"] = total.get("gemm", 0.0) - \
+        inside.get("gemm", 0.0)
+    split["other"] = busy - sum(split.values())
+    idle = 1 - busy / wall_ms
+    log(f"profile train step: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms,"
+        f" device idle share {idle:.3f}")
+    log("profile train step: device ms by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+        + f" (GEMMs inside the ranges {inside.get('gemm', 0.0):.3f})")
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"profile train step:   {ms:9.3f} ms {count:6d}x {key[:90]}")
+    if not all(split[k] for k in ranges):
+        log("profile train step: a range found no kernels (the profiler did "
+            "not link them); its time stays in gemm / other")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle": idle, **split}
+
+
+def train_phase(dev, smi: str) -> dict:
+    """Phase 4c (b): full-width tinyllama-1.1b training."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.train.tree import flatten
+
+    mods = kernel_counters()
+    cfg = get_config("tinyllama-1.1b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    log(f"train {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.num_heads} / {cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B params; "
+        f"float32 masters, {cfg.dtype} compute, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, AdamW float32 state, remat none")
+
+    # the first step's params and batch: every master leaf gets a grad
+    params = init_lm(cfg, 0, device=dev)
+    batch = SyntheticSource(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                       TRAIN_BATCH)).batch(0)
+    toks, labels = (torch.as_tensor(batch[n]).to(dev, torch.long)
+                    for n in ("tokens", "labels"))
+    loss, grads = loss_and_grads(cfg, params, toks, labels)
+    leaf_norms = {path: torch.linalg.vector_norm(g.float()).item()
+                  for path, g in flatten(grads)}
+    bad = [p for p, n in leaf_norms.items() if not np.isfinite(n)]
+    log(f"train first step: loss {loss.item():.4f}; {len(leaf_norms)} of "
+        f"{len(flatten(params))} master leaves have a grad, non-finite: "
+        f"{bad or 'none'}; grad norms: " + ", ".join(
+            f"{p} {n:.3e}" for p, n in leaf_norms.items()))
+    if (len(leaf_norms) != len(flatten(params)) or bad
+            or not np.isfinite(loss.item())):
+        fail(f"train first step: grads missing or not finite ({bad})")
+    del grads, loss
+
+    # one step under the profiler, after one warm-up step
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=steps, total_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg)
+    state = step_fn(params, adamw_init(params, opt_cfg), None, batch)[:3]
+    prof = profile_train_step(step_fn, state, batch)
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+
+    # the launcher: grant, rank order, init, train_step, run_training
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    report = launch_train.main([
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+        str(steps), "--gpus", str(TRAIN_GPUS), "--strategy", "vclos"])
+    counts = {name: mod.launches for name, mod in mods.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    timed = report.step_times[TRAIN_WARMUP:]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    bound_ms, ops_ms, opt_ms, flops, nbytes = train_bound(cfg, TRAIN_BATCH,
+                                                          TRAIN_SEQ)
+    log(f"train {cfg.name} via launch.train.main ({TRAIN_GPUS}-GPU vclos "
+        f"grant on CLUSTER512): step ms " + ", ".join(
+            f"{t * 1e3:.2f}" for t in report.step_times)
+        + f" ({TRAIN_WARMUP} warm-up); timed mean {step_ms:.2f} ms/step, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} "
+        f"GiB; {smi}")
+    log(f"train losses {['%.4f' % x for x in report.losses]}; grad norms "
+        f"{['%.4f' % x for x in report.grad_norms]}")
+    log(f"train step bound {bound_ms:.3f} ms: products {ops_ms:.3f} ms "
+        f"({flops:.4g} FLOP at 989 TFLOP/s: 6 x matrices x {tokens} tokens "
+        f"+ 4 x the causal attention forward) + optimizer {opt_ms:.3f} ms "
+        f"({nbytes:.4g} B of float32 p, g, m, v read and p, m, v written at "
+        f"3.35 TB/s); measured / bound {step_ms / bound_ms:.2f}x")
+    per_step = counts["flash_attention"] / steps
+    log(f"train kernel launches over {steps} steps: {counts} "
+        f"({per_step:g} attention launches a step)")
+    if counts["flash_attention"] != cfg.num_layers * steps:
+        fail(f"training launched flash attention {counts['flash_attention']}"
+             f" times in {steps} steps, expected {cfg.num_layers} a step")
+    if counts["rwkv6_chunked"] or counts["phase_max"]:
+        fail(f"training launched other kernels: {counts}")
+    if report.steps_run != steps or not all(map(np.isfinite,
+                                                report.losses)):
+        fail(f"training losses not finite or steps missing: {report}")
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "bound_ms": bound_ms, "peak_gb": peak_gb,
+            "launches_per_step": per_step, "profile": prof}
+
+
+def resume_phase(dev) -> None:
+    """Phase 4c (c): checkpoint and resume on the card."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import rwkv6 as kr
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+    for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        cfg = reduced(get_config(arch), dtype="float32")
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=1,
+                              total_steps=RESUME_STEPS)
+        data = DataConfig(cfg.vocab_size, 64, 4)
+        step = make_train_step(cfg, opt)
+
+        def run(total, cdir):
+            return run_training(
+                cfg, step, init_lm(cfg, 0, device=dev), opt, data,
+                LoopConfig(total_steps=total, ckpt_every=RESUME_SPLIT,
+                           ckpt_dir=cdir, log_every=0), log=lambda m: None)
+        with tempfile.TemporaryDirectory() as a, \
+                tempfile.TemporaryDirectory() as b:
+            kr.launches = 0
+            full = run(RESUME_STEPS, a)
+            rec = kr.launches
+            first = run(RESUME_SPLIT, b)
+            resumed = run(RESUME_STEPS, b)
+        tail, want = resumed.losses, full.losses[RESUME_SPLIT:]
+        diff = max(abs(x - y) for x, y in zip(tail, want))
+        log(f"resume {cfg.name} reduced float32 on the card: uninterrupted "
+            f"losses {['%.7f' % x for x in full.losses]}; {RESUME_SPLIT} "
+            f"steps, then resumed from step {resumed.resumed_from}: "
+            f"{['%.7f' % x for x in first.losses + tail]}; steps 3-4 max "
+            f"abs diff {diff:.3e} ({'bit-exact' if tail == want else 'not bit-exact'})"
+            + (f"; recurrence launches {rec} in {RESUME_STEPS} steps"
+               if cfg.family == "ssm" else ""))
+        if resumed.resumed_from != RESUME_SPLIT or len(tail) != len(want) \
+                or diff > 1e-4:
+            fail(f"resume of {cfg.name} disagrees with the uninterrupted run")
+        if cfg.family == "ssm" and rec != cfg.num_layers * RESUME_STEPS:
+            fail(f"rwkv6 training launched the recurrence {rec} times in "
+                 f"{RESUME_STEPS} steps, expected one per layer per step")
+    torch.cuda.empty_cache()
+
+
 def grid_lanes():
     """The 72 lanes of the fabric-heavy grid, with fresh jobs (run_lanes
     mutates them)."""
@@ -748,21 +1124,26 @@ def simulate_grid():
 
 def kernel_device_ms(fn, name: str, n: int = 50) -> float:
     """Mean device time of the kernel ``name`` over ``n`` calls of ``fn``,
-    from torch.profiler (launch overhead excluded)."""
+    from torch.profiler (launch overhead excluded).  A trace that holds no
+    kernel of that name (seen once for the route's launches from the
+    plain-C library) is taken again, up to three times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    total = sum(e.self_device_time_total for e in rows)
-    count = sum(e.count for e in rows)
-    return total / count / 1e3 if count else float("nan")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in rows)
+        if count:
+            return sum(e.self_device_time_total for e in rows) / count / 1e3
+        log(f"profile of {name}: trace {attempt + 1} holds no such kernel")
+    fail(f"torch.profiler recorded no {name} kernel in three traces")
 
 
 class StagedRoute:
@@ -1089,6 +1470,11 @@ def main() -> None:
         fail(f"tinyllama prefill ran the {path_variant} attention variant, "
              f"not wgmma_tma")
 
+    # 4c. training: the Functions' grads, full-width tinyllama, resume -------
+    grad_errs = check_function_grads(dev)
+    train = train_phase(dev, smi)
+    resume_phase(dev)
+
     # 4b. the recurrence's path: full-width rwkv6-3b serving ----------------
     rwkv_launches = serve_phase(dev, "rwkv6-3b", "rwkv6_chunked")
 
@@ -1170,6 +1556,8 @@ def main() -> None:
         "launches": launches, "max_abs_err": path_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "train_launches_per_step": train["launches_per_step"],
+        "train_grad_max_abs_err": grad_errs["flash_attention"],
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
@@ -1193,6 +1581,7 @@ def main() -> None:
         "ms": rwkv_ms, "kernel_ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
         "bound_ms": rwkv_bound_ms, "bound_by": rwkv_by, "library_ms": None,
         "vb": rwkv_plan["vb"], "vb_ms": vb_ms,
+        "train_grad_max_abs_err": grad_errs["rwkv6_chunked"],
         "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk {RWKV_CHUNK}, "
                  f"bonus, bf16 split_heads views",
     }]}), flush=True)

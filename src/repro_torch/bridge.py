@@ -8,6 +8,14 @@ w_down}}``; ssm ``layers/{ln1,ln2,tmix/{w_r,w_k,w_v,w_g,w_o,w_decay_a,
 w_decay_b,decay_base,bonus_u,mix_x,ln_x},cmix/{w_k,w_v,mix}}``; stacked ``L``
 axis, ``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
 packages compute the same function on the same numbers.
+
+Optimizer state crosses the same way: the reference's ``AdamWState(step,
+m, v)`` as numpy (``jax.tree_util.tree_map(np.asarray, state)``; an int8
+leaf is a (q, scale) tuple, a bf16 leaf an ``ml_dtypes`` array) becomes the
+port's ``train.optimizer.AdamWState`` and back, so both packages take one
+update from the same state.  The error-feedback state is a float32 tree
+like the params and crosses with ``params_from_numpy`` /
+``params_to_numpy``.
 """
 
 from __future__ import annotations
@@ -18,28 +26,53 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .train.optimizer import AdamWState
+
+
+def _from_numpy(x, dev, dtype=None):
+    if isinstance(x, dict):
+        return {k: _from_numpy(v, dev, dtype) for k, v in x.items()}
+    if isinstance(x, tuple):                  # int8 state leaf: (q, scale)
+        return tuple(_from_numpy(p, dev, dtype) for p in x)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":            # ml_dtypes, exact in float32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=dev, dtype=dtype or t.dtype)
+
+
+def _to_numpy(x):
+    if isinstance(x, dict):
+        return {k: _to_numpy(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_to_numpy(p) for p in x)
+    t = x.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_numpy(tree: Dict[str, Any], *, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``
     (cast to ``dtype`` when given)."""
-    dev = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        t = torch.from_numpy(np.array(x, copy=True))
-        return t.to(device=dev, dtype=dtype or t.dtype)
-    return conv(tree)
+    return _from_numpy(tree, resolve_device(device), dtype)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dict of tensors -> nested dict of numpy arrays (bf16 leaves
     come back as float32, which holds them exactly)."""
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        t = x.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return conv(params)
+    return _to_numpy(params)
+
+
+def opt_state_from_numpy(state, *, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` as numpy -> the port's on ``device``,
+    every leaf in its dtype (float32, bf16, or int8 q with float32
+    scale)."""
+    dev = resolve_device(device)
+    return AdamWState(*(_from_numpy(x, dev) for x in state))
+
+
+def opt_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's ``AdamWState`` -> numpy leaves in the same tree (bf16
+    leaves come back as float32, which holds them exactly)."""
+    return AdamWState(*(_to_numpy(x) for x in state))

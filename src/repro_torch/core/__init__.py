@@ -24,6 +24,7 @@ Layers:
                ``run_lanes``)
   scheduler  — online scheduler facade
   metrics    — JRT / JWT / JCT / Stability (+ CDF helpers)
+  rankmap    — vClos placement -> leaf-contiguous rank and device order
 
 Entry points that take ``device`` (``simulate``, ``ClusterSimulator``,
 ``run_lanes``, ``phase_worst_loads``, ``maxmin_fair_torch``) run on
@@ -63,3 +64,4 @@ from .config import ENGINES, STORES, SimConfig
 from .simulator import STRATEGIES, ClusterSimulator, simulate
 from .batched import run_lanes
 from .scheduler import (Grant, IsolatedScheduler, QUEUE_POLICIES, order_queue)
+from .rankmap import leaf_contiguous_order, mesh_device_order

@@ -18,12 +18,27 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel's output is filled through ctypes and has no ``grad_fn``:
+    where autograd would record a graph through an input, a direct call
+    would silently cut it, so it raises.  The kernels' autograd Functions
+    (``kernels.ops``) call the wrappers with grad mode off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad but the kernel's output would "
+            f"carry none; call it through kernels.ops, whose autograd "
+            f"Function recomputes the backward")
 
 
 def _nvcc() -> str:

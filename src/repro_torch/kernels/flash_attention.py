@@ -44,12 +44,14 @@ def check_window(window: Optional[int]) -> None:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """Dense masked softmax in float32; output in q's dtype."""
+    """Dense masked softmax in float32 (float64 for float64 inputs, which
+    only the CPU takes); output in q's dtype."""
     check_window(window)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    qf = q.float().reshape(b, sq, hkv, hq // hkv, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * (1.0 / math.sqrt(hd))
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(wide).reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(wide)) * (1.0 / math.sqrt(hd))
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -60,7 +62,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1).clamp_min(1e-20)                        # (b, h, g, q)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(wide))
     o = o / l.permute(0, 3, 1, 2)[..., None]
     return o.reshape(b, sq, hq, hd).to(q.dtype)
 
@@ -163,6 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors; returns (B, Sq, Hq, hd)."""
     global launches, last_variant
+    build.refuse_grad("flash_attention", q, k, v)
     variant = _check(q, k, v, window)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]

@@ -75,19 +75,21 @@ def rwkv6_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elementwise (``repro/kernels/ops.py:97-115``): log decay clamped to
     [LOG_DECAY_MIN, 0], its in-chunk cumsum L, the chunk total Lc, the
     chunk-relative ``center``; then contiguous float32 q_in, q_intra,
-    k_intra, k_out (B·H, T, K), v (B·H, T, V) and exp(Lc) (B·H, T/C, K)."""
+    k_intra, k_out (B·H, T, K), v (B·H, T, V) and exp(Lc) (B·H, T/C, K)
+    (float64 for float64 inputs, which only the CPU takes)."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     nc = t // chunk
-    ld = log_decay.float().clamp(LOG_DECAY_MIN, 0.0).reshape(b, h, nc, chunk,
+    wide = torch.promote_types(q.dtype, torch.float32)
+    ld = log_decay.to(wide).clamp(LOG_DECAY_MIN, 0.0).reshape(b, h, nc, chunk,
                                                              dk)
     L = ld.cumsum(dim=3)
     Lc = L[:, :, :, -1:, :]
     L_read = L - ld if exclusive else L
     center = 0.5 * (L_read.amax(dim=3, keepdim=True)
                     + L.amin(dim=3, keepdim=True))
-    qf = q.float().reshape(b, h, nc, chunk, dk)
-    kf = k.float().reshape(b, h, nc, chunk, dk)
+    qf = q.to(wide).reshape(b, h, nc, chunk, dk)
+    kf = k.to(wide).reshape(b, h, nc, chunk, dk)
 
     def flat(x, d):
         return x.reshape(b * h, -1, d).contiguous()
@@ -95,7 +97,7 @@ def rwkv6_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             flat(qf * torch.exp(L_read - center), dk),
             flat(kf * torch.exp(center - L), dk),
             flat(kf * torch.exp(Lc - L), dk),
-            flat(v.float(), dv),
+            flat(v.to(wide), dv),
             flat(torch.exp(Lc), dk))
 
 
@@ -110,18 +112,19 @@ def rwkv6_chunked_plain(q_in: torch.Tensor, q_intra: torch.Tensor,
     bh, t, dk = q_in.shape
     dv = v.shape[-1]
     nc = t // chunk
-    S = (initial_state.float() if initial_state is not None else
-         torch.zeros((bh, dk, dv), dtype=torch.float32, device=q_in.device))
+    wide = torch.promote_types(q_in.dtype, torch.float32)
+    S = (initial_state.to(wide) if initial_state is not None else
+         torch.zeros((bh, dk, dv), dtype=wide, device=q_in.device))
     r = torch.arange(chunk, device=q_in.device)
     mask = r[:, None] > r[None, :] if exclusive else r[:, None] >= r[None, :]
-    qi, qa, ka, ko = (x.float().reshape(bh, nc, chunk, dk)
+    qi, qa, ka, ko = (x.to(wide).reshape(bh, nc, chunk, dk)
                       for x in (q_in, q_intra, k_intra, k_out))
-    vc = v.float().reshape(bh, nc, chunk, dv)
+    vc = v.to(wide).reshape(bh, nc, chunk, dv)
     outs = []
     for c in range(nc):
         scores = torch.where(mask, qa[:, c] @ ka[:, c].transpose(1, 2), 0.0)
         outs.append(qi[:, c] @ S + scores @ vc[:, c])
-        S = (decay[:, c, :, None].float() * S
+        S = (decay[:, c, :, None].to(wide) * S
              + ko[:, c].transpose(1, 2) @ vc[:, c])
     return torch.stack(outs, dim=1).reshape(bh, t, dv), S
 
@@ -133,20 +136,21 @@ def rwkv6_fused_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused kernel's function in plain PyTorch, as the reference's
     ``rwkv6_mix(implementation="pallas")`` computes it: (out (B, H, T, V) in
-    q's dtype, final S (B, H, K, V) float32)."""
+    q's dtype, final S (B, H, K, V) float32, float64 for float64 inputs)."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
+    wide = torch.promote_types(q.dtype, torch.float32)
     exclusive = bonus is not None
     ins = rwkv6_inputs(q, k, v, log_decay, chunk=chunk, exclusive=exclusive)
     s0 = (None if initial_state is None else
-          initial_state.float().reshape(b * h, dk, dv))
+          initial_state.to(wide).reshape(b * h, dk, dv))
     o, S = rwkv6_chunked_plain(*ins, chunk=chunk, exclusive=exclusive,
                                initial_state=s0)
     out = o.reshape(b, h, t, dv)
     if bonus is not None:
-        diag = torch.einsum("bhtk,hk,bhtk->bht", q.float(), bonus.float(),
-                            k.float())
-        out = out + diag[..., None] * v.float()
+        diag = torch.einsum("bhtk,hk,bhtk->bht", q.to(wide), bonus.to(wide),
+                            k.to(wide))
+        out = out + diag[..., None] * v.to(wide)
     return out.to(q.dtype), S.reshape(b, h, dk, dv)
 
 
@@ -221,6 +225,8 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch plan (``last_plan``); ``vb`` overrides its column block (for
     measurement)."""
     global launches, last_plan
+    build.refuse_grad("rwkv6_fused", q, k, v, log_decay, bonus,
+                      initial_state)
     _check(q, k, v, log_decay, bonus, chunk, initial_state, vb)
     b, h, t, dk = q.shape
     dv = v.shape[-1]

@@ -1,10 +1,13 @@
-"""GQA attention: projections, the full-sequence block, and KV-cache decode.
+"""GQA attention: projections, the full-sequence block, blocked attention
+and KV-cache decode.
 
 The full-sequence attention goes through ``kernels.ops.attention``: the
 Hopper flash-attention kernel on the card, its plain version on the CPU
-(where the reference calls ``blocked_attention``, ``attention.py:228``).
-Decode attends one token against the cache in plain PyTorch, as the
-reference does (it has no decode kernel).
+(where the reference calls ``blocked_attention``, ``attention.py:228``),
+both inside an autograd ``Function`` whose backward recomputes through
+``blocked_attention`` here, as the reference's ``custom_vjp`` does
+(``repro/kernels/ops.py:41-72``).  Decode attends one token against the
+cache in plain PyTorch, as the reference does (it has no decode kernel).
 
 GQA grouping is kv-major throughout: q head h reads kv head h // g.
 """
@@ -67,6 +70,86 @@ def qkv_project(params: Params, x: torch.Tensor, num_heads: int,
 def out_project(params: Params, o: torch.Tensor) -> torch.Tensor:
     b, s, h, d = o.shape
     return o.reshape(b, s, h * d) @ params["wo"].to(o.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blocked attention core (the backward's recompute)
+# ---------------------------------------------------------------------------
+
+def _tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, sm_scale: float, carry):
+    """One (q-block x k-block) online-softmax update.
+
+    q: (B,G,Hkv,bq,hd)  k/v: (B,Hkv,bk,hd)  mask: (bq, bk)
+    carry: (acc (B,G,Hkv,bq,hd), m (B,G,Hkv,bq), l (B,G,Hkv,bq)), float32
+    (float64 for float64 inputs).  Products accumulate in the carry's
+    dtype; P is rounded to v's dtype before the PV product
+    (``attention.py:94``)."""
+    acc, m, l = carry
+    s = torch.einsum("bghqd,bhkd->bghqk", q.to(acc.dtype),
+                     k.to(acc.dtype)) * sm_scale
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bghqk,bhkd->bghqd", p.to(v.dtype).to(acc.dtype),
+                      v.to(acc.dtype))
+    return acc * alpha[..., None] + pv, m_new, l_new
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """q (B,Sq,Hq,hd), k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd) in q's dtype: the
+    reference's online-softmax blocked attention (``attention.py:79-169``),
+    differentiable; float32 sums (float64 for float64 inputs).
+
+    Each query block's key range [lo, hi) is static: keys past the block's
+    last query (causal) and before its window are never visited, so masked
+    tiles cost nothing.  Keys are padded to the block grid; the mask keeps
+    the padding inert."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    sm_scale = 1.0 / math.sqrt(hd)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    block_q, block_k = min(block_q, sq), min(block_k, skv)
+    # (B, G, Hkv, S, hd): q head h reads kv head h // g (kv-major)
+    qg = q.reshape(b, sq, hkv, g, hd).permute(0, 3, 2, 1, 4)
+    pad = (-skv) % block_k
+    kt = torch.nn.functional.pad(k.transpose(1, 2), (0, 0, 0, pad))
+    vt = torch.nn.functional.pad(v.transpose(1, 2), (0, 0, 0, pad))
+    outs = []
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        bq = q1 - q0
+        hi = min(skv, q1) if causal else skv
+        lo = max(0, q0 - window + 1) if window is not None else 0
+        lo = (lo // block_k) * block_k
+        if hi <= lo:
+            outs.append(q.new_zeros((b, g, hkv, bq, hd)))
+            continue
+        carry = (torch.zeros((b, g, hkv, bq, hd), dtype=wide,
+                             device=q.device),
+                 torch.full((b, g, hkv, bq), NEG_INF, dtype=wide,
+                            device=q.device),
+                 torch.zeros((b, g, hkv, bq), dtype=wide, device=q.device))
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        for k0 in range(lo, hi, block_k):
+            kpos = torch.arange(k0, k0 + block_k, device=q.device)[None, :]
+            mask = kpos < hi                  # the ragged last block
+            if causal:
+                mask = mask & (qpos >= kpos)
+            if window is not None:
+                mask = mask & (qpos - kpos < window)
+            carry = _tile(qg[:, :, :, q0:q1], kt[:, :, k0:k0 + block_k],
+                          vt[:, :, k0:k0 + block_k], mask, sm_scale, carry)
+        acc, _, l = carry
+        outs.append((acc / l.clamp_min(1e-20)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=3)
+    # (b, g, hkv, sq, hd) -> (b, sq, hkv, g, hd) -> heads kv-major
+    return out.permute(0, 3, 2, 1, 4).reshape(b, sq, hq, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,12 @@ clamped at LOG_DECAY_MIN and centred per chunk as in the reference
 ``kernels.ops.rwkv6_mix_state``: on the card the fused Hopper kernel, which
 reads the ``split_heads`` views of q, k, v and the log decay in place and
 does the decay precompute and the bonus itself, its plain version on the CPU
-(where the reference scans the jnp chunked form, ``ssm.py:204,271``).  Decode steps one token in plain PyTorch, as the
-reference does (it has no decode kernel).  Mamba2 comes with the hybrid
-family.
+(where the reference scans the jnp chunked form, ``ssm.py:204,271``),
+inside an autograd ``Function`` whose backward recomputes through
+``chunked_linear_attention_scan``, the reference's differentiable chunk
+scan written as a loop over chunks.  Decode steps one token in plain
+PyTorch, as the reference does (it has no decode kernel).  Mamba2 comes
+with the hybrid family.
 """
 
 from __future__ import annotations
@@ -44,6 +47,60 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     enters through u ⊙ k_t."""
     return ops.rwkv6_mix_state(q, k, v, log_decay, bonus=bonus, chunk=chunk,
                                initial_state=initial_state)
+
+
+def chunked_linear_attention_scan(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, log_decay: torch.Tensor,
+                                  bonus: Optional[torch.Tensor] = None,
+                                  chunk: int = 16,
+                                  initial_state: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``chunked_linear_attention`` (``ssm.py:36-100``) as a
+    differentiable loop over chunks: the clamp at LOG_DECAY_MIN, the
+    in-chunk cumsum L, the chunk total Lc, the centring, the four
+    exponentials, the strict (bonus) or inclusive mask and, with a bonus,
+    the diagonal Σ_k q·u·k times v.  Same shapes and returns as
+    :func:`chunked_linear_attention` (float64 inputs keep float64); the
+    recurrence's backward recomputes through it."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} must be a multiple of chunk={chunk}")
+    nc = t // chunk
+    wide = torch.promote_types(q.dtype, torch.float32)
+    ld = log_decay.to(wide).clamp(LOG_DECAY_MIN, 0.0).reshape(b, h, nc, chunk,
+                                                             dk)
+    qf = q.to(wide).reshape(b, h, nc, chunk, dk)
+    kf = k.to(wide).reshape(b, h, nc, chunk, dk)
+    vf = v.to(wide).reshape(b, h, nc, chunk, dv)
+    L = ld.cumsum(dim=3)                              # (b,h,nc,C,K), <= 0
+    Lc = L[:, :, :, -1:, :]                           # chunk total
+    r = torch.arange(chunk, device=q.device)
+    if bonus is None:      # inclusive: o_t reads S_t
+        L_read, mask = L, r[:, None] >= r[None, :]
+    else:                  # RWKV: o_t reads S_{t-1}, plus u ⊙ k_t
+        L_read, mask = L - ld, r[:, None] > r[None, :]
+    center = 0.5 * (L_read.amax(dim=3, keepdim=True)
+                    + L.amin(dim=3, keepdim=True))
+    q_in = qf * torch.exp(L_read)
+    k_intra = kf * torch.exp(center - L)
+    q_intra = qf * torch.exp(L_read - center)
+    k_out = kf * torch.exp(Lc - L)
+    decay = torch.exp(Lc).transpose(-1, -2)           # (b,h,nc,K,1)
+    S = (initial_state.to(wide) if initial_state is not None else
+         torch.zeros((b, h, dk, dv), dtype=wide, device=q.device))
+    outs = []
+    for c in range(nc):
+        scores = torch.where(mask, q_intra[:, :, c]
+                             @ k_intra[:, :, c].transpose(-1, -2), 0.0)
+        outs.append(q_in[:, :, c] @ S + scores @ vf[:, :, c])
+        S = decay[:, :, c] * S + k_out[:, :, c].transpose(-1, -2) @ vf[:, :, c]
+    out = torch.stack(outs, dim=2).reshape(b, h, t, dv)
+    if bonus is not None:
+        diag = torch.einsum("bhtk,hk,bhtk->bht", q.to(wide), bonus.to(wide),
+                            k.to(wide))
+        out = out + diag[..., None] * v.to(wide)
+    return out.to(q.dtype), S
 
 
 def linear_attention_step(q, k, v, log_decay, S,

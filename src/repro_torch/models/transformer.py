@@ -7,7 +7,8 @@ reference's own params to these functions.  The reference's ``lax.scan``
 over ``L`` is a Python loop over the stacked axis here.
 
 The dense family (slice 1 of the port) and the ssm family (slice 3) are
-ported; the others raise ``NotImplementedError``.
+ported, for serving and, since slice 4, for training (``lm_loss`` on the
+float32 master tree); the others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,6 +76,18 @@ def layer(params: Params, i: int) -> Params:
             for k, v in params.items()}
 
 
+def unstack(params: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree as views, each leaf cut by one
+    ``unbind``: its backward stacks the layers' grads once, where ``n``
+    separate ``layer`` views would each add a full-size zero-padded grad."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in params.items():
+        parts = unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for tree, part in zip(out, parts):
+            tree[k] = part
+    return out
+
+
 def _lm_head(params: Params, cfg) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -125,19 +138,20 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     """tokens (B, S), positions 0..S-1 -> final-norm hidden states (B, S, D)
     in the compute dtype.  ``sink`` collects each layer's decode state in
     order: dense, its post-RoPE (k, v); ssm, the recurrence's final S and
-    the last position of the normed time-mix and channel-mix inputs."""
+    the last position of the normed time-mix and channel-mix inputs.  Each
+    layer's block runs under ``ctx.maybe_remat``."""
     check_ported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(compute_dtype(cfg))
     positions = torch.arange(s, device=tokens.device)[None]
     x = ctx.shard(x, "dp", "sp", None)
-    chunk = _fit_chunk(s, ctx.ssm_chunk)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        if cfg.family == "ssm":
-            x = _rwkv6_block(lp, x, cfg, ctx, chunk, sink)
-        else:
-            x = _dense_block(lp, x, cfg, ctx, positions, kv_sink=sink)
+    if cfg.family == "ssm":
+        block, extra = _rwkv6_block, _fit_chunk(s, ctx.ssm_chunk)
+    else:
+        block, extra = _dense_block, positions
+    block = ctx.maybe_remat(block)
+    for lp in unstack(params["layers"], cfg.num_layers):
+        x = block(lp, x, cfg, ctx, extra, sink)
     return norm_apply(cfg.norm, params["ln_f"], x)
 
 
@@ -157,6 +171,24 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
     x = hidden_states(params, cfg, tokens, ctx=ctx)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return logits_from_hidden(params, cfg, x, ctx), aux
+
+
+def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
+            *, ctx: ModelContext = NULL_CTX, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy in float32 plus ``aux_weight`` x the
+    aux loss (``transformer.py:340-349``): (loss, {"nll", "aux"}).
+
+    Training passes the float32 master tree with ``requires_grad``, never
+    ``LM.compute_params()`` (detached): the blocks cast each weight to the
+    compute dtype inside the graph, so grads reach the masters in float32,
+    as the reference's do."""
+    logits, aux = forward(params, cfg, tokens, ctx=ctx)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,15 @@ plain version; it is held against the reference's Pallas kernel
 shapes and masks of ``tests/test_kernels.py``, with its tolerances: float32
 2e-5, bf16 2e-2.  ``decode_attention`` is held against the reference's at
 float32 2e-5.
+
+Training: the port's ``blocked_attention`` (the backward's recompute)
+against the reference's, forward 2e-5 (bf16 2e-2) and grads 1e-4; the
+autograd Function around the kernel passes ``gradcheck`` in float64 and its
+grads match ``jax.grad`` through the reference's ``custom_vjp`` at 1e-4;
+the kernel's wrapper refuses inputs that require grad.
 """
 
+import jax
 import numpy as np
 import pytest
 
@@ -208,3 +215,103 @@ def test_check_layout_ignores_the_stride_of_a_size_one_dim():
     shapes, strides, bases = _layout(hd=32)
     strides[1] = (strides[1][0], strides[1][1], 0, 1)   # k broadcast
     assert fa.check_layout(shapes, strides, 2, bases) == "mma_sync"
+
+
+# ---------------------------------------------------------------------------
+# training: blocked_attention and the autograd Function around the kernel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the small-tensor training tests: the suite
+    runs six workers on eight cores, and torch's default thread pool per
+    worker oversubscribes the cores; its spinning threads made a 60-step
+    test take 210 s there against 5 s alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+BLOCKED_CASES = [  # s, hq, hkv, hd, causal, window, block
+    (64, 4, 2, 16, True, None, 32),
+    (160, 2, 2, 32, True, 48, 32),
+    (96, 4, 1, 16, False, None, 64),
+    (130, 4, 4, 16, True, None, 64),      # ragged last key block
+    (100, 4, 2, 16, False, 30, 32),
+]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("s,hq,hkv,hd,causal,window,block", BLOCKED_CASES)
+def test_blocked_attention_matches_reference(s, hq, hkv, hd, causal, window,
+                                             block):
+    """The backward's recompute, forward and grads, against the reference's
+    ``blocked_attention`` in float32: forward 2e-5, grads 1e-4.  (XLA's CPU
+    dot here refuses the reference's bf16 x bf16 -> float32 products.)"""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(s + hd, 2, s, hq, hkv, hd,
+                                           "float32")
+    kw = dict(causal=causal, window=window, block_q=block, block_k=block)
+    ref = ja.blocked_attention(jq, jk, jv, **kw)
+    out = ta.blocked_attention(tq, tk, tv, **kw)
+    assert out.dtype == tq.dtype
+    _close(out, ref, 2e-5)
+    w = np.random.default_rng(s).normal(size=out.shape).astype(np.float32)
+    jg = jax.grad(lambda *x: (ja.blocked_attention(*x, **kw) * w).sum(),
+                  argnums=(0, 1, 2))(jq, jk, jv)
+    ins = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    (ta.blocked_attention(*ins, **kw) * torch.from_numpy(w)).sum().backward()
+    for x, g in zip(ins, jg):
+        _close(x.grad, g, 1e-4)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 4)])
+def test_flash_attention_function_gradcheck(causal, window):
+    """float64 on the CPU: the forward is the kernel's plain version, the
+    backward autograd through ``blocked_attention``; gradcheck holds the
+    one against the derivative of the other."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 9, h, 4)))
+               .requires_grad_() for h in (4, 2, 2))
+    assert torch.autograd.gradcheck(
+        lambda *x: ops.attention(*x, causal=causal, window=window),
+        (q, k, v))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 20)])
+def test_flash_attention_grads_match_pallas_vjp(causal, window):
+    """As ``tests/test_kernels.py:55-70``: the grads of the sum through the
+    port's Function against ``jax.grad`` through the reference's
+    ``custom_vjp`` (the Pallas forward in interpret mode, the recompute
+    through ``blocked_attention``), 1e-4."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(1, 1, 64, 4, 2, 16, "float32")
+    jg = jax.grad(lambda *x: jax_attention(
+        *x, causal=causal, window=window, implementation="pallas",
+        block_q=32, block_k=32).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    ins = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = ops.attention(*ins, causal=causal, window=window)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    for x, g in zip(ins, jg):
+        assert x.grad.shape == x.shape
+        _close(x.grad, g, 1e-4)
+
+
+def test_kernel_wrapper_refuses_inputs_that_require_grad():
+    """A direct call under grad would return an output without a grad_fn
+    and cut the graph silently: it raises, naming the Function's route."""
+    t = torch.zeros(1, 8, 2, 16)
+    before = fa.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(t.clone().requires_grad_(), t, t)
+    with pytest.raises(RuntimeError, match="kernels.ops"):
+        fa.flash_attention(t, t, t.clone().requires_grad_())
+    # with grad off (serving runs under inference_mode) the guard stands
+    # aside, and this CPU tensor is refused as before
+    with torch.inference_mode(), pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(t.clone().requires_grad_(), t, t)
+    assert fa.launches == before

@@ -671,3 +671,122 @@ def test_rwkv6_prefill_launches_once_per_layer_and_matches_cpu(cuda, s):
     for name in ("rwkv_S", "tmix_last", "cmix_last"):
         torch.testing.assert_close(state[name].cpu(), ref_state[name],
                                    atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# training: the autograd Functions around the kernels, on the card
+# ---------------------------------------------------------------------------
+
+def _grads(fn, ins, weights):
+    ins = [None if x is None else x.detach().clone().requires_grad_()
+           for x in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    loss.backward()
+    return [o.detach() for o in outs], [None if x is None else x.grad
+                                        for x in ins]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hd,window", [(256, 64, None), (256, 32, None),
+                                         (300, 64, 48), (1000, 128, None)])
+def test_attention_function_grads_on_the_card(cuda, s, hd, window, dtype):
+    """The Function launches the kernel once forward and recomputes the
+    backward through ``blocked_attention``: its grads equal autograd
+    through ``blocked_attention`` alone (float32 1e-4; bf16 one bf16 ulp of
+    the reference grad, 8e-3 where |g| < 2)."""
+    from repro_torch.models.attention import blocked_attention
+    q, k, v = _qkv(cuda, 2, s, 8, 2, hd, dtype, seed=s + hd)
+    w = torch.randn(q.shape, device=cuda)
+    before = fa.launches
+    (out,), got = _grads(lambda *x: ops.attention(*x, window=window),
+                         (q, k, v), (w,))
+    assert fa.launches == before + 1
+    _, want = _grads(lambda *x: blocked_attention(*x, window=window),
+                     (q, k, v), (w,))
+    assert fa.launches == before + 1      # the recompute launches nothing
+    for g, r in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        if dtype == torch.bfloat16:
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= bf16_bound(r.float())).all()), err.max()
+        else:
+            torch.testing.assert_close(g, r, atol=F32_TOL, rtol=F32_TOL)
+    ref = fa.flash_attention_plain(q, k, v, True, window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("exclusive", [True, False],
+                         ids=["bonus", "inclusive"])
+def test_rwkv6_function_grads_on_the_card(cuda, exclusive, with_state):
+    """Forward through the fused kernel, backward through the chunk scan:
+    output 1e-4 of the plain version, grads 1e-4 of autograd through the
+    scan alone, at B·H 8, T 256, K = V = 64."""
+    from repro_torch.models.ssm import chunked_linear_attention_scan
+    q, k, v, ld, u = _rwkv_inputs(cuda, 2, 4, 256, 64, 64)
+    u = u if exclusive else None
+    s0 = (torch.randn(2, 4, 64, 64, device=cuda) if with_state else None)
+    ws = (torch.randn(2, 4, 256, 64, device=cuda),
+          torch.randn(2, 4, 64, 64, device=cuda))
+    before = kr.launches
+    (out, S), got = _grads(lambda *x: ops.rwkv6_mix_state(
+        *x[:4], bonus=x[4], chunk=16, initial_state=x[5]),
+        (q, k, v, ld, u, s0), ws)
+    assert kr.launches == before + 1
+    (rout, rS), want = _grads(lambda *x: chunked_linear_attention_scan(
+        *x[:4], bonus=x[4], chunk=16, initial_state=x[5]),
+        (q, k, v, ld, u, s0), ws)
+    torch.testing.assert_close(out, rout, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(S, rS, atol=F32_TOL, rtol=F32_TOL)
+    for g, r in zip(got, want):
+        if r is not None:
+            torch.testing.assert_close(g, r, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 4, 2, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    rq, rk, rv, ld, u = _rwkv_inputs(cuda, 1, 2, 32, 16, 16)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kr.rwkv6_fused(rq, rk, rv, ld.requires_grad_(), bonus=u, chunk=16)
+
+
+@pytest.mark.parametrize("arch,remat", [("tinyllama-1.1b", "none"),
+                                        ("tinyllama-1.1b", "full"),
+                                        ("rwkv6-3b", "dots")])
+def test_loss_and_grads_on_cuda_match_cpu(cuda, arch, remat):
+    """Reduced float32 through ``loss_and_grads`` on the card (the kernel
+    forward) and on the CPU (the plain versions): loss 1e-5, grads 1e-4;
+    the kernel runs once per layer, twice under remat."""
+    from repro_torch.models.context import ModelContext
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.train.tree import flatten
+    cfg = configs.reduced(configs.get_config(arch), dtype="float32",
+                          num_layers=2)
+    cpu_params = init_lm(cfg, 0, device="cpu")
+    gpu_params = _to(cpu_params, cuda)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 65)))
+    ctx = ModelContext(remat=remat)
+    mod = kr if cfg.family == "ssm" else fa
+    mod.launches = 0
+    loss, grads = loss_and_grads(cfg, gpu_params, toks[:, :-1].to(cuda),
+                                 toks[:, 1:].to(cuda), ctx=ctx)
+    torch.cuda.synchronize()
+    assert mod.launches == cfg.num_layers * (1 if remat == "none" else 2)
+    ref_loss, ref = loss_and_grads(cfg, cpu_params, toks[:, :-1],
+                                   toks[:, 1:], ctx=ctx)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5
+    for (path, g), (_, r) in zip(flatten(grads), flatten(ref)):
+        torch.testing.assert_close(g.cpu(), r, atol=F32_TOL, rtol=F32_TOL,
+                                   msg=path)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.detach().to(dev)
+            for k, v in tree.items()}

@@ -28,6 +28,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
 from repro_torch.kernels import rwkv6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as ltrain  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
 
@@ -71,7 +72,11 @@ def test_every_module_imports_without_a_card():
                  "repro_torch.kernels.phase_max", "repro_torch.kernels.rwkv6",
                  "repro_torch.models.ssm", "repro_torch.core.fairshare",
                  "repro_torch.core.simulator", "repro_torch.core.batched",
-                 "repro_torch.core.strategies.builtin"):
+                 "repro_torch.core.strategies.builtin",
+                 "repro_torch.core.rankmap", "repro_torch.data.pipeline",
+                 "repro_torch.train.optimizer", "repro_torch.train.loop",
+                 "repro_torch.train.checkpoint", "repro_torch.launch.train",
+                 "repro_torch.launch.mesh"):
         assert need in names
     for name in names:
         importlib.import_module(name)
@@ -92,8 +97,15 @@ def no_card(monkeypatch):
     lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
     lambda cfg: bridge.params_from_numpy({"w": np.zeros(2, np.float32)}),
     lambda cfg: serve.main(["--reduced"]),
+    lambda cfg: ltrain.main(["--reduced", "--steps", "1"]),
+    lambda cfg: bridge.opt_state_from_numpy((np.zeros((), np.int32), {},
+                                             {})),
+    lambda cfg: core.mesh_device_order(
+        core.IsolatedScheduler(core.CLUSTER512).submit(0, 8).placement,
+        core.CLUSTER512),
 ], ids=["init_lm", "LM.init", "make_prompts", "init_decode_state",
-        "params_from_numpy", "serve.main"])
+        "params_from_numpy", "serve.main", "train.main",
+        "opt_state_from_numpy", "mesh_device_order"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -105,7 +117,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
     lambda cfg: transformer.LM.init(cfg),
     lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
     lambda cfg: serve.main(["--arch", "rwkv6-3b", "--reduced"]),
-], ids=["init_lm", "LM.init", "init_decode_state", "serve.main"])
+    lambda cfg: ltrain.main(["--arch", "rwkv6-3b", "--reduced"]),
+], ids=["init_lm", "LM.init", "init_decode_state", "serve.main",
+        "train.main"])
 def test_ssm_entry_points_default_to_cuda_and_raise(no_card, entry):
     cfg = configs.reduced(configs.get_config("rwkv6-3b"))
     before = rwkv6.launches

@@ -50,8 +50,15 @@ def _tokens(cfg, b=2, s=24, seed=1):
     lambda m: m.get_config("rwkv6-3b"),
     lambda m: m.reduced(m.get_config("rwkv6-3b")),
     lambda m: m.reduced(m.get_config("rwkv6-3b"), dtype="float32"),
+    lambda m: m.get_config("olmo-1b"),
+    lambda m: m.reduced(m.get_config("olmo-1b"), dtype="float32"),
+    lambda m: m.get_config("qwen1.5-32b"),
+    lambda m: m.reduced(m.get_config("qwen1.5-32b"), dtype="float32"),
+    lambda m: m.get_config("nemotron-4-340b"),
+    lambda m: m.reduced(m.get_config("nemotron-4-340b"), dtype="float32"),
 ], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
-        "rwkv6-reduced-f32"])
+        "rwkv6-reduced-f32", "olmo-full", "olmo-reduced-f32", "qwen-full",
+        "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -192,13 +199,31 @@ def test_ssm_port_init_has_reference_layout():
 
 def _olmo():
     """Reduced float32 olmo-1b: the reference's config, its params, and the
-    port's copy of the config built field by field (the port's registry does
-    not hold olmo yet)."""
-    jc = jcfg.reduced(jcfg.get_config("olmo-1b"), dtype="float32")
-    tc = tcfg.ModelConfig(**{f.name: getattr(jc, f.name)
-                             for f in dataclasses.fields(tcfg.ModelConfig)})
+    port's registered copy of the config."""
+    jc, tc = _cfgs("float32", "olmo-1b")
     assert tc.norm == "nonparam_ln"
     return jc, tc, _jax_params(jc)
+
+
+def test_port_registers_the_dense_family():
+    assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b", "nemotron-4-340b",
+            "rwkv6-3b"} == set(tcfg.list_configs())
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",
+                                  "nemotron-4-340b"])
+def test_dense_configs_forward_matches_reference(arch):
+    """The rest of the dense family, reduced, float32, through ``LM``:
+    1e-4, as tinyllama's."""
+    jc, tc = _cfgs("float32", arch)
+    npp = _jax_params(jc)
+    toks = _tokens(jc)
+    ref, _ = JT.forward(jax.tree_util.tree_map(jnp.asarray, npp), jc,
+                        jnp.asarray(toks, jnp.int32))
+    lm = TT.LM(tc, bridge.params_from_numpy(npp, device="cpu"))
+    np.testing.assert_allclose(lm(torch.as_tensor(toks)).numpy(),
+                               np.asarray(ref, np.float32), atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_lm_keeps_empty_subtrees():

@@ -20,6 +20,12 @@ Seeded numpy inputs go to both packages.
   ``linear_attention_reference``, ``rwkv6_time_mix`` and
   ``rwkv6_channel_mix`` (each with and without decode state): float32 1e-5;
   bf16 0.15 / 0.05 where the reference rounds activations to bf16.
+* Training: ``chunked_linear_attention_scan`` (the backward's recompute)
+  against the reference's ``chunked_linear_attention``, output and final
+  state 1e-5, grads 1e-4; the autograd Function around the kernel passes
+  ``gradcheck`` in float64 (both outputs, every input) and its grads match
+  ``jax.grad`` through the reference's chunk scan at 1e-4; the kernel's
+  wrapper refuses inputs that require grad.
 """
 
 import functools
@@ -484,3 +490,143 @@ def test_check_chunk_takes_every_chunk_the_model_path_fits():
 def test_fit_chunk_matches_reference():
     for t in (1, 7, 12, 16, 96, 2048, 2080):
         assert TT._fit_chunk(t, 16) == JT._fit_chunk(t, 16), t
+
+
+# ---------------------------------------------------------------------------
+# training: the chunk scan and the autograd Function around the kernel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the small-tensor training tests: the suite
+    runs six workers on eight cores, and torch's default thread pool per
+    worker oversubscribes the cores; its spinning threads made a 60-step
+    test take 210 s there against 5 s alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _scan_case(with_bonus, with_state, t=48, kdim=8, vdim=16):
+    q, k, v, ld, u = _seq_inputs(11, t, kdim, vdim, bonus=with_bonus)
+    s0 = (np.random.default_rng(12).normal(size=(2, 3, kdim, vdim))
+          .astype(np.float32) if with_state else None)
+    return q, k, v, ld, u, s0
+
+
+def _loss_weights(out_shape, s_shape):
+    rng = np.random.default_rng(13)
+    return (rng.normal(size=out_shape).astype(np.float32),
+            rng.normal(size=s_shape).astype(np.float32))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("chunk", [8, 16])
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("with_bonus", [False, True],
+                         ids=["inclusive", "bonus"])
+def test_scan_matches_reference_chunked_linear_attention(with_bonus,
+                                                         with_state, chunk):
+    q, k, v, ld, u, s0 = _scan_case(with_bonus, with_state)
+    args = [q, k, v, ld, u, s0]
+    ref, ref_S = js.chunked_linear_attention(
+        *map(_j, args[:4]), bonus=_j(u), chunk=chunk, initial_state=_j(s0))
+    ins = [None if x is None else _t(x).clone().requires_grad_()
+           for x in args]
+    out, S = ts.chunked_linear_attention_scan(
+        *ins[:4], bonus=ins[4], chunk=chunk, initial_state=ins[5])
+    assert out.dtype == S.dtype == torch.float32
+    _close(out.detach(), ref, 1e-5)
+    _close(S.detach(), ref_S, 1e-5)
+    wo, ws = _loss_weights(out.shape, S.shape)
+    names = [i for i, x in enumerate(args) if x is not None]
+
+    def jloss(*xs):
+        full = list(args)
+        for i, x in zip(names, xs):
+            full[i] = x
+        o, st = js.chunked_linear_attention(
+            *full[:4], bonus=full[4], chunk=chunk, initial_state=full[5])
+        return (o * wo).sum() + (st * ws).sum()
+    jg = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(_j(args[i]) for i in names))
+    ((out * _t(wo)).sum() + (S * _t(ws)).sum()).backward()
+    for i, g in zip(names, jg):
+        _close(ins[i].grad, g, 1e-4)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("with_bonus", [False, True],
+                         ids=["inclusive", "bonus"])
+def test_rwkv6_function_gradcheck(with_bonus, with_state):
+    """float64 on the CPU: the forward is the fused kernel's plain version,
+    the backward autograd through the chunk scan; both outputs carry a
+    gradient, to every input."""
+    rng = np.random.default_rng(14)
+    b, h, t, kd, vd = 1, 2, 8, 3, 2
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, t, d)))
+               for d in (kd, kd, vd))
+    ld = torch.from_numpy(np.log(rng.uniform(0.3, 1.0, (b, h, t, kd))))
+    u = torch.from_numpy(rng.normal(size=(h, kd)) * 0.2) if with_bonus \
+        else None
+    s0 = torch.from_numpy(rng.normal(size=(b, h, kd, vd))) if with_state \
+        else None
+    ins = [x.requires_grad_() for x in (q, k, v, ld, u, s0) if x is not None]
+
+    def f(*xs):
+        it = iter(xs)
+        full = [next(it) if x is not None else None
+                for x in (q, k, v, ld, u, s0)]
+        return ops.rwkv6_mix_state(*full[:4], bonus=full[4], chunk=4,
+                                   initial_state=full[5])
+    out, S = f(*ins)
+    assert out.dtype == S.dtype == torch.float64
+    assert torch.autograd.gradcheck(f, ins)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("with_bonus", [False, True],
+                         ids=["inclusive", "bonus"])
+def test_rwkv6_function_grads_match_reference(with_bonus, with_state):
+    """The port's Function (forward ``rwkv6_fused_plain``, backward through
+    the scan) against ``jax.grad`` through the reference's chunk scan, at
+    the recurrence's 1e-4."""
+    q, k, v, ld, u, s0 = _scan_case(with_bonus, with_state, t=64, kdim=16,
+                                    vdim=16)
+    args = [q, k, v, ld, u, s0]
+    names = [i for i, x in enumerate(args) if x is not None]
+    wo, ws = _loss_weights((2, 3, 64, 16), (2, 3, 16, 16))
+
+    def jloss(*xs):
+        full = list(args)
+        for i, x in zip(names, xs):
+            full[i] = x
+        o, st = js.chunked_linear_attention(
+            *full[:4], bonus=full[4], chunk=16, initial_state=full[5])
+        return (o * wo).sum() + (st * ws).sum()
+    jg = jax.grad(jloss, argnums=tuple(range(len(names))))(
+        *(_j(args[i]) for i in names))
+    ins = [None if x is None else _t(x).clone().requires_grad_()
+           for x in args]
+    out, S = ops.rwkv6_mix_state(*ins[:4], bonus=ins[4], chunk=16,
+                                 initial_state=ins[5])
+    assert out.grad_fn is not None and S.grad_fn is not None
+    ((out * _t(wo)).sum() + (S * _t(ws)).sum()).backward()
+    for i, g in zip(names, jg):
+        _close(ins[i].grad, g, 1e-4)
+
+
+def test_kernel_wrapper_refuses_inputs_that_require_grad():
+    q, k, v, ld, u = (_t(x) for x in _seq_inputs(0, 16, 8, 8))
+    before = kr.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kr.rwkv6_fused(q, k, v, ld, bonus=u.clone().requires_grad_(),
+                       chunk=16)
+    with pytest.raises(RuntimeError, match="kernels.ops"):
+        kr.rwkv6_fused(q.clone().requires_grad_(), k, v, ld, chunk=16)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        kr.rwkv6_fused(q.clone().requires_grad_(), k, v, ld, chunk=16)
+    assert kr.launches == before

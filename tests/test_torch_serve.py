@@ -122,7 +122,29 @@ def test_serve_main_rejects_zero_gen():
 
 def test_unknown_arch_is_refused():
     with pytest.raises(KeyError, match="tinyllama"):
-        tserve.main(["--arch", "qwen1.5-32b", "--reduced", "--device", "cpu"])
+        tserve.main(["--arch", "mixtral-8x22b", "--reduced", "--device",
+                     "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",
+                                  "nemotron-4-340b"])
+def test_dense_configs_prefill_and_decode_match_reference(arch):
+    """The rest of the dense family (nonparam LayerNorm and tied embeddings,
+    QKV bias, squared-ReLU with LayerNorm and head_dim 192's reduced
+    stand-in), reduced, float32: prefill and 3 decode steps against the
+    reference's, 1e-4, with identical greedy tokens."""
+    jc, tc, jp, tp = _setup(arch)
+    toks = np.random.default_rng(8).integers(0, jc.vocab_size, (2, 10))
+    jl, jst = JD.prefill(jp, jc, jnp.asarray(toks, jnp.int32), 16)
+    tl, tst = TD.prefill(tp, tc, torch.as_tensor(toks), 16)
+    _close(tl, jl)
+    for _ in range(3):
+        jtok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+        ttok = tl.argmax(dim=-1)
+        assert np.array_equal(ttok.numpy(), np.asarray(jtok))
+        jl, jst = JD.decode_step(jp, jc, jtok, jst)
+        tl, tst = TD.decode_step(tp, tc, ttok, tst)
+        _close(tl, jl)
 
 
 def test_rolling_cache_state_shape():
