@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero before the result line:
                (one nvcc per source, all at once); prints build seconds and
                ptxas registers / shared memory.
   3. kernels — each kernel against its plain PyTorch version on the card:
-               flash attention at the serving path's shape and at MHA / MQA /
-               GQA-8 / ragged / non-causal / windowed / other head-dim cases,
+               flash attention at the serving path's shape, at
+               deepseek-moe-16b's (MHA 16 / 16, head_dim 128) and at MHA /
+               MQA / GQA-8 / ragged / non-causal / windowed / other head-dim
+               cases,
                at the wgmma kernel's tile edges (S 1, 127, 129, 300 with
                windows 48 and 200) and on views of a fused qkv projection,
                on both kernels of the source (bf16 within one bf16 ulp of the
@@ -70,6 +72,17 @@ Phases, in order; any failure exits non-zero before the result line:
                launched 32 times per prefill and 32 times by the
                teacher-forced forward, 0 times in decode; flash attention
                and the segment max 0 times.
+  4d. serve-moe — the same for full-width, full-depth deepseek-moe-16b (28
+               layers, the first dense, d_model 2048, 16 heads of 128, 64
+               routed experts top-6 + 2 shared of d_ff 1408; 16.4 B
+               parameters held in bf16 from seed 0, the router float32):
+               4 x 2048 prompt, 32 greedy decode steps.  Flash attention must
+               be launched 28 times per prefill, 0 times in decode, and the
+               other kernels never.  Logs the share of (token, choice) pairs
+               dropped at capacity 960 and the bounds by part; the
+               teacher-forced check runs on the same weights at capacity
+               factor 16, where nothing is dropped; the profile adds a "moe
+               dispatch" kind.  The model is freed before phase 5.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -89,7 +102,8 @@ Phases, in order; any failure exits non-zero before the result line:
                host).
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
-               events); the attention variant the path took and the ptxas
+               events), flash attention at deepseek-moe-16b's too; the
+               attention variant the path took and the ptxas
                report (registers, spills, wgmma serialisation) of each
                attention variant; the segment max at the grid's p50 / p90 /
                max calls: its device time (profiler), the wrapper's issue
@@ -147,8 +161,19 @@ RWKV_SWEEP_VBS, RWKV_SWEEP_BATCHES = (16, 32, 64), (BATCH, 1)
 # where |o| < 2; float32 — the same float32 arithmetic summed in another
 # order, with exp from the device library.
 BF16_TOL, F32_TOL = 8e-3, 1e-4
-# Decode vs teacher-forced forward, bf16 (tests/test_serve.py:60-62).
+# Decode vs teacher-forced forward, bf16 (tests/test_serve.py:60-62); the
+# moe family is held at a capacity factor that drops nothing, as the
+# reference's test does (tests/test_serve.py:19-23): a forward over B x S
+# tokens drops pairs that B-token decode steps keep.
 SERVE_ATOL, SERVE_RTOL = 0.15, 0.05
+TF_CAPACITY_FACTOR = 16.0
+# The moe family's gate runs in float32 compute on the served bf16 weights:
+# float32 sums in other orders over 28 layers, far below the ~0.6 a
+# differently routed token moves its logits.  In bf16 near-uniform random
+# routers leave the k-th and (k + 1)-th choice 1e-5 to 1e-3 apart in
+# probability, which the two computations' bf16 rounding crosses (recorded,
+# with the routes).
+MOE_TF_F32_TOL = 1e-2
 # Training (phase 4c): full-width tinyllama-1.1b at B x S, warm-up and timed
 # steps through repro_torch.launch.train.main on a 64-GPU vclos grant on
 # CLUSTER512; then checkpoint / resume of reduced configs, ckpt_every 2.
@@ -160,6 +185,12 @@ KERNEL_KINDS = {"recurrence": ("rwkv6_chunked",), "attention": ("attn_fwd",),
                 "segment max": ("segment_max",),
                 "gemm": ("nvjet", "gemm", "gemv", "cutlass", "sm90_xmma"),
                 "copies": ("Memcpy", "Memset")}
+# the moe family's profile adds the dispatch: top-k and its sort, the slot
+# cumsum, one_hot (a scatter), the index_add scatter and the gathers (the
+# embedding's row gather and the KV cache writes, both small, fall here too)
+MOE_KINDS = {**KERNEL_KINDS, "moe dispatch": (
+    "TopK", "topk", "Sort", "sort", "scan", "scatter", "gather", "index",
+    "compute_cuda_kernel")}
 
 
 def log(msg: str) -> None:
@@ -232,8 +263,9 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
     float32 work cannot use the bf16 peak).  A decode step: the bytes it
     must read, i.e. every matrix once (bf16) plus the valid part of the KV
     cache (its mean over the steps) or the float32 recurrent state (read and
-    written), over the memory rate.  Returns (prefill_ms,
-    decode_ms_per_step, the recurrence's share of prefill_ms).
+    written), over the memory rate.  The moe family: ``moe_prefill_parts``
+    and ``moe_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
+    recurrence's share of prefill_ms).
     """
     d, L = cfg.d_model, cfg.num_layers
     if cfg.family == "ssm":
@@ -253,6 +285,10 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
         decode = 2 * (L * (prod + d * d) + head) + state
         return (prefill / PEAK_BF16_FLOPS * 1e3 + rec_ms,
                 decode / PEAK_BYTES * 1e3, rec_ms)
+    if cfg.family == "moe":
+        return (sum(moe_prefill_parts(cfg, batch, prompt).values()),
+                moe_decode_bytes(cfg, batch, prompt, steps) / PEAK_BYTES
+                * 1e3, 0.0)
     hd = cfg.head_dim_
     per_layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
                  + 3 * d * cfg.d_ff)
@@ -265,6 +301,52 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
         * cfg.num_kv_heads * hd
     decode = 2 * (mats + head + kv)
     return prefill / PEAK_BF16_FLOPS * 1e3, decode / PEAK_BYTES * 1e3, 0.0
+
+
+def moe_prefill_parts(cfg, batch: int, prompt: int) -> dict:
+    """Least time of each part of a moe prefill on the card, ms: the bf16
+    products of the attention projections and the live causal pairs (every
+    layer), the leading dense layers' MLP, the E x cap expert slots the
+    dense dispatch fills (capacity as ``moe_apply_dense`` sets it, padding
+    included), the shared experts over every token and the lm_head at the
+    last position, at 989 TFLOP/s; the router's float32 product (no TF32)
+    at 67 TFLOP/s."""
+    from repro_torch.models.moe import _capacity
+    d, hd, t = cfg.d_model, cfg.head_dim_, batch * prompt
+    n_moe = cfg.num_layers - cfg.moe_first_dense
+    fe, e = cfg.moe_d_ff or cfg.d_ff, cfg.moe_num_experts
+    cap = _capacity(t, cfg.moe_top_k, e, cfg.moe_capacity_factor)
+    proj = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    flops = {
+        "attention projections": 2 * proj * t * cfg.num_layers,
+        "attention": cfg.num_layers * 4 * hd * cfg.num_heads * batch
+        * live_pairs(prompt, prompt, True, cfg.sliding_window),
+        "dense-layer MLP": 2 * 3 * d * cfg.d_ff * t * cfg.moe_first_dense,
+        f"experts ({e} x {cap} slots)": 2 * 3 * d * fe * e * cap * n_moe,
+        "shared experts": 2 * 3 * d * fe * cfg.moe_shared_experts * t
+        * n_moe,
+        "lm_head": 2 * d * cfg.vocab_size * batch,
+    }
+    ms = {k: v / PEAK_BF16_FLOPS * 1e3 for k, v in flops.items()}
+    ms["router (float32)"] = 2 * d * e * t * n_moe / PEAK_F32_FLOPS * 1e3
+    return ms
+
+
+def moe_decode_bytes(cfg, batch: int, prompt: int, steps: int) -> float:
+    """Bytes a moe decode step must read: every matrix in bf16, every
+    expert's too (the dense dispatch runs them all at capacity 8), the
+    float32 router, the lm_head, and the valid KV cache (its mean over the
+    steps)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    n_moe = cfg.num_layers - cfg.moe_first_dense
+    fe, e = cfg.moe_d_ff or cfg.d_ff, cfg.moe_num_experts
+    proj = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    mats = (cfg.num_layers * proj + cfg.moe_first_dense * 3 * d * cfg.d_ff
+            + n_moe * 3 * d * fe * (e + cfg.moe_shared_experts)
+            + d * cfg.vocab_size)
+    kv = (cfg.num_layers * 2 * batch * (prompt + steps / 2)
+          * cfg.num_kv_heads * hd)
+    return 2 * (mats + kv) + 4 * n_moe * d * e
 
 
 def bf16_bound(ref):
@@ -300,7 +382,7 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(label: str, fn, top: int = 6):
+def device_profile(label: str, fn, top: int = 6, kinds=KERNEL_KINDS):
     """Wall time, summed kernel time and the device's idle share of ``fn``
     under torch.profiler (which adds host time: the idle share it shows is
     an upper estimate), and the kernels that take most device time.
@@ -324,9 +406,9 @@ def device_profile(label: str, fn, top: int = 6):
         f"device idle share {idle:.3f}")
     for ms, count, key in rows[:top]:
         log(f"profile {label}:   {ms:9.3f} ms {count:6d}x {key[:90]}")
-    split = dict.fromkeys([*KERNEL_KINDS, "other"], 0.0)
+    split = dict.fromkeys([*kinds, "other"], 0.0)
     for ms, _, key in rows:
-        split[next((kind for kind, marks in KERNEL_KINDS.items()
+        split[next((kind for kind, marks in kinds.items()
                     if any(m in key for m in marks)), "other")] += ms
     log(f"profile {label}: device ms by kind: " + ", ".join(
         f"{kind} {ms:.3f}" for kind, ms in split.items() if ms))
@@ -338,7 +420,7 @@ def allclose_margin(out, ref, atol: float, rtol: float) -> float:
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
-def profile_serve(lm, prompts, tokens) -> None:
+def profile_serve(lm, prompts, tokens, kinds=KERNEL_KINDS) -> None:
     """Profile one prefill and 8 decode steps of the served model."""
     import torch
     from repro_torch.serve.decode import decode_step, prefill
@@ -347,13 +429,13 @@ def profile_serve(lm, prompts, tokens) -> None:
     with torch.inference_mode():
         box = {}
         device_profile("prefill", lambda: box.update(
-            st=prefill(params, cfg, prompts, max_len)[1]))
+            st=prefill(params, cfg, prompts, max_len)[1]), kinds=kinds)
 
         def decode8():
             st = box["st"]
             for i in range(8):
                 st = decode_step(params, cfg, tokens[:, i:i + 1], st)[1]
-        device_profile("decode x8", decode8)
+        device_profile("decode x8", decode8, kinds=kinds)
 
 
 def csr_case(seed: int, nvals: int, nseg: int, lo: int = 1, hi: int = 40):
@@ -521,11 +603,240 @@ def kernel_counters():
             "rwkv6_chunked": rwkv6}
 
 
-def serve_phase(dev, arch: str, kernel: str) -> int:
-    """Phases 4 and 4b: full-width ``arch`` (seeded random weights) through
-    ``generate``.  ``kernel`` must launch once per layer in a prefill, never
-    in decode and once per layer in the teacher-forced forward; every other
-    kernel never.  Returns ``kernel``'s launches in the main run."""
+def moe_drop_share(lm, prompts):
+    """One prefill with ``moe._route`` wrapped here (for this call only):
+    the share of (token, choice) pairs dropped at the capacity, per layer
+    and in all, and the fullest expert's load against the capacity.
+    Returns (the share in all, the experts chosen in the layer that
+    dropped most, its capacity)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve.decode import prefill
+    cfg, route, seen, worst = lm.cfg, moe._route, [], {}
+
+    def recording_route(router_w, x_flat, top_k, num_experts, capacity):
+        out = route(router_w, x_flat, top_k, num_experts, capacity)
+        load = torch.bincount(out[0].reshape(-1), minlength=num_experts)
+        dropped = (~out[3]).sum().item()
+        seen.append((dropped, out[3].numel(), load.max().item(), capacity))
+        if dropped >= max(x[0] for x in seen):
+            worst["idx"] = out[0]
+        return out
+    moe._route = recording_route
+    with torch.inference_mode():
+        prefill(lm.compute_params(), cfg, prompts, prompts.shape[1] + 1)
+    moe._route = route
+    shares = [dropped / pairs for dropped, pairs, _, _ in seen]
+    total = sum(x[0] for x in seen) / sum(x[1] for x in seen)
+    t = prompts.numel()
+    log(f"{cfg.name} prefill {tuple(prompts.shape)}: capacity {seen[0][3]} "
+        f"slots per expert ({t * cfg.moe_top_k / cfg.moe_num_experts:g} if "
+        f"the router were balanced); (token, choice) pairs dropped "
+        f"{total:.4f} over {len(seen)} MoE layers (per layer min "
+        f"{min(shares):.4f}, max {max(shares):.4f}); fullest expert "
+        f"{min(x[2] for x in seen)}-{max(x[2] for x in seen)} pairs")
+    return total, worst["idx"], seen[0][3]
+
+
+def time_moe_dispatch(expert_idx, capacity: int, cfg, dev) -> None:
+    """The port's dispatch against the reference's literal operations,
+    kept here as yardsticks only, on one prefill layer's routing (the
+    layer that dropped most), in turns: slots by ``moe._slots`` (a stable
+    sort) or by the one-hot cumsum down the T·k rows (``moe.py:66-72``);
+    the scatter into E·cap + 1 rows by ``index_put`` or by ``index_add``
+    (bf16 atomics, every dropped pair on the scratch row).  The slots must
+    be equal and the kept rows identical."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    flat_e = expert_idx.reshape(-1)
+
+    def cumsum_slots():
+        pos = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1
+        return pos.gather(1, flat_e[:, None])[:, 0]
+    slot = moe._slots(flat_e, e)
+    if not torch.equal(slot, cumsum_slots()):
+        fail("moe._slots disagrees with the one-hot cumsum")
+    dst = torch.where(slot < capacity, flat_e * capacity + slot, e * capacity)
+    x = torch.randn((flat_e.numel() // k, cfg.d_model), device=dev,
+                    dtype=torch.bfloat16)
+    rep = x.repeat_interleave(k, dim=0)
+    rows = e * capacity
+
+    def put():
+        return x.new_zeros((rows + 1, cfg.d_model)).index_put((dst,), rep)
+
+    def add():
+        return x.new_zeros((rows + 1, cfg.d_model)).index_add(0, dst, rep)
+    if not torch.equal(put()[:rows], add()[:rows]):
+        fail("the index_put scatter disagrees with index_add on kept rows")
+    fns = {"sort": lambda: moe._slots(flat_e, e), "cumsum": cumsum_slots,
+           "index_put": put, "index_add": add}
+    turns = {name: [] for name in fns}
+    for name in ("sort", "cumsum", "index_put", "index_add", "index_add",
+                 "index_put", "cumsum", "sort"):
+        turns[name].append(time_ms(fns[name], iters=10))
+    log(f"moe dispatch at one deepseek prefill layer (T·k {flat_e.numel()} "
+        f"pairs, {(slot >= capacity).sum().item()} dropped, capacity "
+        f"{capacity}), CUDA events, in turns: " + "; ".join(
+            f"{n} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+            for n, ts in turns.items())
+        + " (the port: sort and index_put)")
+
+
+def teacher_forcing(lm, prompts, res, counter, kernel: str,
+                    gate: bool = True) -> None:
+    """The last decode logits of ``res`` against a forward over prompt +
+    generated tokens, bf16, at atol SERVE_ATOL / rtol SERVE_RTOL; the
+    forward must launch ``kernel`` once per layer."""
+    import torch
+    cfg = lm.cfg
+    before = counter.launches
+    with torch.inference_mode():
+        full = lm(torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1]
+    torch.cuda.synchronize()
+    tf_launches = counter.launches - before
+    dec = res.last_logits[:, 0].float()
+    err = (full.float() - dec).abs().max().item()
+    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
+    margin = allclose_margin(full.float(), dec, SERVE_ATOL, SERVE_RTOL)
+    at = (f" at capacity factor {cfg.moe_capacity_factor} (recorded, not a "
+          f"gate)" if cfg.family == "moe" else "")
+    log(f"{cfg.name} teacher-forced forward vs last decode logits, bf16{at}:"
+        f" max_abs_err {err:.4f} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}; "
+        f"worst error / tolerance {margin:.3f}); argmax agreement "
+        f"{agree:.2f}; {kernel} launches {tf_launches}")
+    if tf_launches != cfg.num_layers:
+        fail(f"teacher-forced forward launched {kernel} {tf_launches} times")
+    if gate and not torch.allclose(full.float(), dec, atol=SERVE_ATOL,
+                                   rtol=SERVE_RTOL):
+        fail(f"{cfg.name} decode logits disagree with the teacher-forced "
+             f"forward")
+
+
+def moe_teacher_forcing(lm, prompts, counter) -> None:
+    """The moe family against teacher forcing at TF_CAPACITY_FACTOR, where
+    neither side drops a pair, on the served weights.  (a) bf16 through
+    ``generate``, recorded with the routes: for each row, the first MoE
+    layer whose top-k experts for the last token differ between its decode
+    step and the forward, and the k-th minus (k + 1)-th probability there.
+    (b) the gate: float32 compute from the same bf16-held weights (cast at
+    each product: ``generate``'s float32 compute copy, 65.5 GB, would not
+    fit beside them), prefill and greedy decode steps against the forward
+    over prompt + generated tokens, within MOE_TF_F32_TOL; the forward
+    must launch the attention kernel once per layer."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import (hidden_states,
+                                                logits_from_hidden)
+    from repro_torch.serve.decode import decode_step, prefill
+    cfg = lm.cfg
+    lm.cfg = dataclasses.replace(cfg, moe_capacity_factor=TF_CAPACITY_FACTOR)
+    calls, restore = route_recorder(prompts.shape[0])
+    res = generate(lm, prompts, DECODE_STEPS + 1)
+    n_moe = cfg.num_layers - cfg.moe_first_dense
+    decode_calls = calls[-n_moe:]
+    del calls[:]
+    teacher_forcing(lm, prompts, res, counter, "flash_attention", gate=False)
+    restore()
+    rows = route_agreement(decode_calls, calls, cfg.moe_top_k)
+    log(f"{cfg.name} bf16 routes of the last token, decode step vs forward, "
+        f"per row (first MoE layer whose top-{cfg.moe_top_k} differ, the "
+        f"k-th minus (k+1)-th probability there in the forward / in "
+        f"decode): " + "; ".join(
+            "same experts in every layer" if r is None else
+            f"layer {r[0]}, {r[1]:.2e} / {r[2]:.2e}" for r in rows))
+    lm.cfg = cfg
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                moe_capacity_factor=TF_CAPACITY_FACTOR)
+    params = lm.params
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, state = prefill(params, cfg32, prompts,
+                                prompts.shape[1] + DECODE_STEPS + 1)
+        toks = [logits.argmax(dim=-1)]
+        for _ in range(DECODE_STEPS):
+            logits, state = decode_step(params, cfg32, toks[-1], state)
+            toks.append(logits.argmax(dim=-1))
+        del state
+        before = counter.launches
+        x, _ = hidden_states(params, cfg32, torch.cat([prompts, *toks[:-1]],
+                                                      dim=1))
+        full = logits_from_hidden(params, cfg32, x[:, -1:])[:, 0]
+        del x
+    torch.cuda.synchronize()
+    tf_launches = counter.launches - before
+    dec = logits[:, 0]
+    err = (full - dec).abs().max().item()
+    log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
+        f"compute from the bf16 weights, capacity factor "
+        f"{TF_CAPACITY_FACTOR}: max_abs_err {err:.3e} (tol "
+        f"{MOE_TF_F32_TOL:g}); argmax agreement "
+        f"{(full.argmax(-1) == dec.argmax(-1)).float().mean().item():.2f}; "
+        f"flash_attention launches {tf_launches} ({fa.last_variant}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if tf_launches != cfg.num_layers:
+        fail(f"the float32 forward launched flash_attention {tf_launches} "
+             f"times")
+    if not torch.allclose(full, dec, atol=MOE_TF_F32_TOL,
+                          rtol=MOE_TF_F32_TOL):
+        fail(f"{cfg.name} decode logits disagree with the teacher-forced "
+             f"forward in float32")
+    del full, logits
+    torch.cuda.empty_cache()
+
+
+def route_recorder(batch: int):
+    """Wrap ``moe._route`` (until ``restore()``): each call records, for
+    the last position of each of the ``batch`` rows, the top-(k + 1)
+    router probabilities and experts.  Returns (calls, restore)."""
+    import torch
+    from repro_torch.models import moe
+    route, calls = moe._route, []
+
+    def recording_route(router_w, x_flat, top_k, num_experts, capacity):
+        last = x_flat.reshape(batch, -1, x_flat.shape[-1])[:, -1]
+        probs = torch.softmax(last.float() @ router_w.float(), dim=-1)
+        calls.append(probs.topk(top_k + 1, dim=-1, sorted=True))
+        return route(router_w, x_flat, top_k, num_experts, capacity)
+
+    def restore():
+        moe._route = route
+    moe._route = recording_route
+    return calls, restore
+
+
+def route_agreement(decode_calls, forward_calls, top_k: int) -> list:
+    """Per row: (first MoE layer whose top-k experts differ between the
+    last decode step and the forward's last position, or None; the
+    forward's k-th minus (k+1)-th probability there; the decode's)."""
+    rows = []
+    for b in range(decode_calls[0].indices.shape[0]):
+        first = None
+        for i, (dc, fc) in enumerate(zip(decode_calls, forward_calls)):
+            if set(dc.indices[b, :top_k].tolist()) != set(
+                    fc.indices[b, :top_k].tolist()):
+                gap = (lambda c: (c.values[b, top_k - 1]
+                                  - c.values[b, top_k]).item())
+                first = (i, gap(fc), gap(dc))
+                break
+        rows.append(first)
+    return rows
+
+
+def serve_phase(dev, arch: str, kernel: str,
+                param_dtype: str = "float32") -> int:
+    """Phases 4, 4b and 4d: full-width ``arch`` (seeded random weights,
+    held in ``param_dtype``) through ``generate``.  ``kernel`` must launch
+    once per layer in a prefill, never in decode and once per layer in the
+    teacher-forced forward; every other kernel never.  The moe family also
+    logs the share of pairs dropped at capacity, and is held against
+    teacher forcing at TF_CAPACITY_FACTOR on the same weights.  Returns
+    ``kernel``'s launches in the main run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
@@ -534,15 +845,27 @@ def serve_phase(dev, arch: str, kernel: str) -> int:
     mods = kernel_counters()
     counter = mods[kernel]
     cfg = get_config(arch)
-    lm = LM.init(cfg, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM.init(cfg, seed=0, device=dev, dtype=getattr(torch, param_dtype))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     prompts = make_prompts(cfg, BATCH, PROMPT, seed=0, device=dev)
     heads = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
              f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
              f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
              f"{cfg.head_dim_}")
+    ffn = (f"{cfg.moe_first_dense} dense layer(s) of d_ff {cfg.d_ff}, "
+           f"{cfg.moe_num_experts} routed experts (top-"
+           f"{cfg.moe_top_k}) + {cfg.moe_shared_experts} shared of d_ff "
+           f"{cfg.moe_d_ff}, capacity factor {cfg.moe_capacity_factor}"
+           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
     log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}")
+        f"{heads}, {ffn}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.2f} B params held in {param_dtype}, "
+        f"{cfg.dtype} compute; init {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held, init peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     generate(lm, prompts, 2)          # warm-up: allocator, cuBLAS, kernel
     counter.launches = 0
     generate(lm, prompts, 1)          # a prefill alone
@@ -562,9 +885,18 @@ def serve_phase(dev, arch: str, kernel: str) -> int:
         f"peak memory {peak_gb:.2f} GiB")
     pre_bound, dec_bound, rec_ms = serve_bounds(cfg, BATCH, PROMPT,
                                                 DECODE_STEPS)
-    pre_how = (f"{pre_bound - rec_ms:.3f} ms of bf16 products at 989 TFLOP/s"
-               f" + {rec_ms:.3f} ms for {cfg.num_layers} recurrence calls at "
-               f"their bound" if rec_ms else "operations")
+    if cfg.family == "moe":
+        pre_how = "; ".join(f"{k} {v:.3f}" for k, v in moe_prefill_parts(
+            cfg, BATCH, PROMPT).items()) + " ms"
+        _, worst_idx, capacity = moe_drop_share(lm, prompts)
+        time_moe_dispatch(worst_idx, capacity, cfg, dev)
+        del worst_idx
+    elif rec_ms:
+        pre_how = (f"{pre_bound - rec_ms:.3f} ms of bf16 products at 989 "
+                   f"TFLOP/s + {rec_ms:.3f} ms for {cfg.num_layers} "
+                   f"recurrence calls at their bound")
+    else:
+        pre_how = "operations"
     log(f"{cfg.name} serve bounds on the card: prefill {pre_bound:.3f} ms "
         f"({pre_how}), decode {dec_bound:.4f} ms/step (bytes); measured / "
         f"bound: prefill {res.prefill_s * 1e3 / pre_bound:.2f}x, decode "
@@ -584,26 +916,12 @@ def serve_phase(dev, arch: str, kernel: str) -> int:
     if not bool(torch.isfinite(res.last_logits.float()).all()):
         fail(f"{cfg.name} decode logits are not finite")
 
-    before = counter.launches
-    with torch.inference_mode():
-        full = lm(torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1]
-    torch.cuda.synchronize()
-    tf_launches = counter.launches - before
-    dec = res.last_logits[:, 0].float()
-    err = (full.float() - dec).abs().max().item()
-    agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
-    margin = allclose_margin(full.float(), dec, SERVE_ATOL, SERVE_RTOL)
-    log(f"{cfg.name} teacher-forced forward vs last decode logits: "
-        f"max_abs_err {err:.4f} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}; worst "
-        f"error / tolerance {margin:.3f}); argmax agreement {agree:.2f}; "
-        f"{kernel} launches {tf_launches}")
-    if tf_launches != cfg.num_layers:
-        fail(f"teacher-forced forward launched {kernel} {tf_launches} times")
-    if not torch.allclose(full.float(), dec, atol=SERVE_ATOL, rtol=SERVE_RTOL):
-        fail(f"{cfg.name} decode logits disagree with the teacher-forced "
-             f"forward")
-    del full
-    profile_serve(lm, prompts, res.tokens)
+    if cfg.family == "moe":
+        moe_teacher_forcing(lm, prompts, counter)
+    else:
+        teacher_forcing(lm, prompts, res, counter, kernel)
+    profile_serve(lm, prompts, res.tokens,
+                  MOE_KINDS if cfg.family == "moe" else KERNEL_KINDS)
     del lm, res, prompts
     torch.cuda.empty_cache()
     return launches
@@ -1408,6 +1726,7 @@ def main() -> None:
     cases = [  # name, (B, S, Hq, Hkv, hd), dtype, causal, window[, fused]
         ("path-bf16", (BATCH, PROMPT, 32, 4, 64), bf16, True, None),
         ("path-f32", (BATCH, PROMPT, 32, 4, 64), f32, True, None),
+        ("deepseek-bf16", (BATCH, PROMPT, 16, 16, 128), bf16, True, None),
         ("mha", (2, 512, 8, 8, 64), bf16, True, None),
         ("mqa", (2, 512, 8, 1, 64), bf16, True, None),
         ("gqa-8", (2, 512, 16, 2, 64), bf16, True, None),
@@ -1433,7 +1752,7 @@ def main() -> None:
         ("hd128", (1, 300, 4, 2, 128), bf16, True, None),
         ("hd128-f32", (1, 300, 4, 2, 128), f32, True, None),
     ]
-    path_err = None
+    path_err = moe_err = None
     for name, shape, dtype, causal, window, *fused in cases:
         q, k, v = qkv(*shape, dtype, fused=bool(fused))
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -1458,6 +1777,10 @@ def main() -> None:
                  f"version (max_abs_err {err:.3e}, tol {tol})")
         if name == "path-bf16":
             path_err = err
+        if name == "deepseek-bf16":
+            moe_err = err
+            if fa.last_variant != "wgmma_tma":
+                fail(f"deepseek's attention shape ran {fa.last_variant}")
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     pm_err = check_phase_max(dev)
@@ -1477,6 +1800,14 @@ def main() -> None:
 
     # 4b. the recurrence's path: full-width rwkv6-3b serving ----------------
     rwkv_launches = serve_phase(dev, "rwkv6-3b", "rwkv6_chunked")
+
+    # 4d. the moe family: full-width deepseek-moe-16b, bf16-held weights ----
+    moe_launches = serve_phase(dev, "deepseek-moe-16b", "flash_attention",
+                               param_dtype="bfloat16")
+    moe_variant = fa.last_variant
+    if moe_variant != "wgmma_tma":
+        fail(f"deepseek prefill ran the {moe_variant} attention variant, "
+             f"not wgmma_tma")
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
@@ -1509,6 +1840,20 @@ def main() -> None:
     log(f"flash_attention variant on the tinyllama path: {path_variant} "
         f"({fa.last_variant} at the timed shape)")
     log_ptxas("flash_attention", report["flash_attention"])
+    # deepseek-moe-16b's shape: MHA 16 / 16, head_dim 128
+    mq, mk, mv = qkv(BATCH, PROMPT, 16, 16, 128, torch.bfloat16)
+    moe_ms = time_ms(lambda: fa.flash_attention(mq, mk, mv))
+    moe_plain_ms = time_ms(lambda: fa.flash_attention_plain(mq, mk, mv),
+                           iters=5)
+    mqh, mkh, mvh = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
+    moe_library_ms = time_ms(lambda: sdpa(mqh, mkh, mvh, is_causal=True))
+    moe_bound_ms, moe_bound_by = bound(mq, mk, mv, True, None)
+    log(f"flash_attention at deepseek-moe-16b's shape (B {BATCH}, S {PROMPT},"
+        f" 16 / 16 heads of 128, bf16, causal, {fa.last_variant}): kernel "
+        f"{moe_ms:.4f} ms, plain {moe_plain_ms:.4f} ms, library "
+        f"{moe_library_ms:.4f} ms, bound {moe_bound_ms:.4f} ms "
+        f"({moe_bound_by}); {smi}")
+    del mq, mk, mv, mqh, mkh, mvh
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), iters=5)
     f32_bound, f32_by = bound(qf, kf, vf, True, None)
@@ -1558,6 +1903,13 @@ def main() -> None:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "train_launches_per_step": train["launches_per_step"],
         "train_grad_max_abs_err": grad_errs["flash_attention"],
+        "moe_path": {
+            "arch": "deepseek-moe-16b", "variant": moe_variant,
+            "shape": f"B {BATCH}, S {PROMPT}, 16 / 16 heads of 128, bf16",
+            "launches": moe_launches, "max_abs_err": moe_err,
+            "ms": moe_ms, "plain_ms": moe_plain_ms,
+            "bound_ms": moe_bound_ms, "bound_by": moe_bound_by,
+            "library_ms": moe_library_ms},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",

@@ -1,9 +1,15 @@
-"""Serving launcher: batched greedy decoding with a KV cache (dense) or a
-recurrent state (ssm).
+"""Serving launcher: batched greedy decoding with a KV cache (dense, moe)
+or a recurrent state (ssm).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --param-dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+``--param-dtype`` is the held weights' dtype (``RunConfig.param_dtype`` in
+the reference, float32 by default); deepseek-moe-16b's 16.4 B parameters
+fit one 80 GB card only as bf16.
 
 Runs on the card unless ``--device cpu`` is given.  The first generated
 token comes from prefill, the other ``gen - 1`` from decode steps, as in
@@ -78,6 +84,8 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--param-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
     if args.gen < 1:
         ap.error("--gen must be >= 1")
@@ -85,13 +93,15 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    lm = LM.init(cfg, seed=0, device=args.device)
+    lm = LM.init(cfg, seed=0, device=args.device,
+                 dtype=getattr(torch, args.param_dtype))
     prompts = make_prompts(cfg, args.batch, args.prompt_len, seed=0,
                            device=args.device)
     fa.launches = rwkv6.launches = 0
     res = generate(lm, prompts, args.gen)
-    print(f"[serve] {cfg.name} on {prompts.device}: prefill {args.batch}x"
-          f"{args.prompt_len} tokens in {res.prefill_s * 1e3:.1f} ms")
+    print(f"[serve] {cfg.name} on {prompts.device}, {args.param_dtype} "
+          f"weights: prefill {args.batch}x{args.prompt_len} tokens in "
+          f"{res.prefill_s * 1e3:.1f} ms")
     steps = args.gen - 1
     if steps:
         print(f"[serve] {steps} decode steps x {args.batch}: "

@@ -23,10 +23,12 @@ Params = Dict[str, object]
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, lead=(),
                dtype=torch.float32) -> torch.Tensor:
     """``(*lead, d_in, d_out)`` normal matrix scaled by ``1/sqrt(d_in)``;
-    ``lead`` is the stacked layer axis."""
+    ``lead`` is the stacked layer axis (and the expert axis).  Drawn in
+    float32, scaled in place, then cast: a bf16 leaf is the bf16 cast of
+    the float32 one, and the transient is one float32 copy."""
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w / math.sqrt(d_in)).to(dtype)
+    return w.div_(math.sqrt(d_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,

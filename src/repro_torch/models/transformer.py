@@ -1,4 +1,4 @@
-"""Decoder-LM assembly, dense and ssm (RWKV6) families.
+"""Decoder-LM assembly: the dense, ssm (RWKV6) and moe families.
 
 Same parameter layout as the reference (``repro/models/transformer.py``):
 nested dicts with a stacked leading ``L`` axis on every layer leaf and
@@ -8,7 +8,10 @@ over ``L`` is a Python loop over the stacked axis here.
 
 The dense family (slice 1 of the port) and the ssm family (slice 3) are
 ported, for serving and, since slice 4, for training (``lm_loss`` on the
-float32 master tree); the others raise ``NotImplementedError``.
+float32 master tree); the moe family (slice 5a) through the single-device
+dispatch ``moe_apply_dense``, its ``moe_first_dense`` leading layers in
+``dense_layers`` as in the reference.  The hybrid, audio and vlm families
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,27 +27,52 @@ from .common import (Params, compute_dtype, dense_init, embed_init,
                      norm_apply, norm_init)
 from .context import NULL_CTX, ModelContext
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply_dense, moe_init
 from .ssm import (rwkv6_channel_mix, rwkv6_channel_mix_init, rwkv6_init,
                   rwkv6_time_mix)
 
 
 def check_ported(cfg) -> None:
-    if (cfg.family not in ("dense", "ssm") or cfg.is_encoder_decoder
+    if (cfg.family not in ("dense", "ssm", "moe") or cfg.is_encoder_decoder
             or cfg.frontend is not None):
         raise NotImplementedError(
             f"{cfg.name}: family '{cfg.family}' is not ported yet; the port "
-            f"covers the dense family (slice 1) and the ssm family (slice 3), "
-            f"the others are queued in ROADMAP.md")
+            f"covers the dense family (slice 1), the ssm family (slice 3) and "
+            f"the moe family (slice 5a), the others are queued in ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def _block_init(gen: torch.Generator, cfg, n: int, *, moe: bool, dtype,
+                dev) -> Params:
+    """``n`` stacked attention blocks with an MLP, or with an MoE layer."""
+    d, lead = cfg.d_model, (n,)
+    p: Params = {
+        "ln1": norm_init(cfg.norm, d, lead=lead, device=dev),
+        "ln2": norm_init(cfg.norm, d, lead=lead, device=dev),
+        "attn": attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim_, cfg.qkv_bias, lead=lead,
+                          dtype=dtype),
+    }
+    if moe:
+        p["moe"] = moe_init(gen, d, cfg.moe_num_experts,
+                            cfg.moe_d_ff or cfg.d_ff, cfg.moe_shared_experts,
+                            lead=lead, dtype=dtype)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, lead=lead,
+                            dtype=dtype)
+    return p
+
+
 def init_lm(cfg, seed: int = 0, *, device="cuda",
             dtype=torch.float32) -> Params:
     """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``);
-    the reference's layout and initializer scales, not its random numbers."""
+    the reference's layout and initializer scales, not its random numbers.
+    ``dtype`` is the matrices' (norms and the MoE router stay float32); each
+    is drawn in float32 and cast, so a bf16 tree is the bf16 cast of the
+    float32 tree from the same seed."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -53,21 +81,30 @@ def init_lm(cfg, seed: int = 0, *, device="cuda",
                  "ln_f": norm_init(cfg.norm, d, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype=dtype)
-    p["layers"] = {
-        "ln1": norm_init(cfg.norm, d, lead=L, device=dev),
-        "ln2": norm_init(cfg.norm, d, lead=L, device=dev),
-    }
     if cfg.family == "ssm":  # rwkv6
-        p["layers"].update(
-            tmix=rwkv6_init(gen, d, cfg.rwkv_head_dim, lead=L, dtype=dtype),
-            cmix=rwkv6_channel_mix_init(gen, d, cfg.d_ff, lead=L,
-                                        dtype=dtype))
+        p["layers"] = {
+            "ln1": norm_init(cfg.norm, d, lead=L, device=dev),
+            "ln2": norm_init(cfg.norm, d, lead=L, device=dev),
+            "tmix": rwkv6_init(gen, d, cfg.rwkv_head_dim, lead=L,
+                               dtype=dtype),
+            "cmix": rwkv6_channel_mix_init(gen, d, cfg.d_ff, lead=L,
+                                           dtype=dtype)}
         return p
-    p["layers"].update(
-        attn=attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.head_dim_, cfg.qkv_bias, lead=L, dtype=dtype),
-        mlp=mlp_init(gen, d, cfg.d_ff, cfg.act, lead=L, dtype=dtype))
+    for key, n, moe in attention_stacks(cfg):
+        p[key] = _block_init(gen, cfg, n, moe=moe, dtype=dtype, dev=dev)
     return p
+
+
+def attention_stacks(cfg) -> List[Tuple[str, int, bool]]:
+    """The stacked layers of an attention LM in order, as (params key,
+    number of layers, MoE?): the dense family's ``layers``; the moe
+    family's ``dense_layers`` (its ``moe_first_dense`` leading dense
+    layers, where it has any), then its MoE ``layers``."""
+    if cfg.family != "moe":
+        return [("layers", cfg.num_layers, False)]
+    n = cfg.moe_first_dense
+    return ([("dense_layers", n, False)] if n else []) + [
+        ("layers", cfg.num_layers - n, True)]
 
 
 def layer(params: Params, i: int) -> Params:
@@ -104,16 +141,32 @@ def _fit_chunk(t: int, chunk: int) -> int:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
-                 positions: torch.Tensor, kv_sink=None) -> torch.Tensor:
+def _attention_half(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                    positions: torch.Tensor, kv_sink
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual after attention, and its norm (the FFN's input)."""
     h = norm_apply(cfg.norm, lp["ln1"], x)
     h = ctx.shard(h, "dp", None, None)
     x = x + attention_block(lp["attn"], h, cfg, positions, kv_sink)
     x = ctx.shard(x, "dp", "sp", None)
     h = norm_apply(cfg.norm, lp["ln2"], x)
-    h = ctx.shard(h, "dp", None, None)
-    x = x + mlp_apply(lp["mlp"], h, cfg.act)
-    return ctx.shard(x, "dp", "sp", None)
+    return x, ctx.shard(h, "dp", None, None)
+
+
+def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                 positions: torch.Tensor, kv_sink=None) -> torch.Tensor:
+    x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink)
+    return ctx.shard(x + mlp_apply(lp["mlp"], h, cfg.act), "dp", "sp", None)
+
+
+def _moe_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+               positions: torch.Tensor, kv_sink=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_block`` on one device (``moe_apply_dense``);
+    returns (x, this layer's aux)."""
+    x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink)
+    y, aux = moe_apply_dense(lp["moe"], h, cfg)
+    return ctx.shard(x + y, "dp", "sp", None), aux
 
 
 def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -133,26 +186,36 @@ def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
 # ---------------------------------------------------------------------------
 
 def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
-                  ctx: ModelContext = NULL_CTX,
-                  sink: Optional[List] = None) -> torch.Tensor:
-    """tokens (B, S), positions 0..S-1 -> final-norm hidden states (B, S, D)
-    in the compute dtype.  ``sink`` collects each layer's decode state in
-    order: dense, its post-RoPE (k, v); ssm, the recurrence's final S and
-    the last position of the normed time-mix and channel-mix inputs.  Each
+                  ctx: ModelContext = NULL_CTX, sink: Optional[List] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S), positions 0..S-1 -> (final-norm hidden states
+    (B, S, D) in the compute dtype, aux loss).  ``sink`` collects each
+    layer's decode state in order: attention layers (moe: the dense layers,
+    then the MoE layers), their post-RoPE (k, v); ssm, the recurrence's
+    final S and the last position of the normed time-mix and channel-mix
+    inputs.  The aux loss is a float32 scalar, the sum over the MoE layers
+    in order (``transformer.py:284-295``), 0 for the other families.  Each
     layer's block runs under ``ctx.maybe_remat``."""
     check_ported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(compute_dtype(cfg))
     positions = torch.arange(s, device=tokens.device)[None]
     x = ctx.shard(x, "dp", "sp", None)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "ssm":
-        block, extra = _rwkv6_block, _fit_chunk(s, ctx.ssm_chunk)
-    else:
-        block, extra = _dense_block, positions
-    block = ctx.maybe_remat(block)
-    for lp in unstack(params["layers"], cfg.num_layers):
-        x = block(lp, x, cfg, ctx, extra, sink)
-    return norm_apply(cfg.norm, params["ln_f"], x)
+        block = ctx.maybe_remat(_rwkv6_block)
+        for lp in unstack(params["layers"], cfg.num_layers):
+            x = block(lp, x, cfg, ctx, _fit_chunk(s, ctx.ssm_chunk), sink)
+        return norm_apply(cfg.norm, params["ln_f"], x), aux
+    for key, n, moe in attention_stacks(cfg):
+        block = ctx.maybe_remat(_moe_block if moe else _dense_block)
+        for lp in unstack(params[key], n):
+            if moe:
+                x, a = block(lp, x, cfg, ctx, positions, sink)
+                aux = aux + a
+            else:
+                x = block(lp, x, cfg, ctx, positions, sink)
+    return norm_apply(cfg.norm, params["ln_f"], x), aux
 
 
 def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
@@ -168,8 +231,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
     and ssm families (only MoE layers add to it)."""
-    x = hidden_states(params, cfg, tokens, ctx=ctx)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, aux = hidden_states(params, cfg, tokens, ctx=ctx)
     return logits_from_hidden(params, cfg, x, ctx), aux
 
 
@@ -196,9 +258,10 @@ def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # leaves the compute copy keeps in float32, as the reference reads them:
-# norm params (norm_apply), and the RWKV6 decay base and bonus, which enter
-# float32 arithmetic (ssm.py:264 and :100-101)
-_KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u")
+# norm params (norm_apply), the RWKV6 decay base and bonus, which enter
+# float32 arithmetic (ssm.py:264 and :100-101), and the MoE router, which
+# routes in float32 (moe.py:57)
+_KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u", "router")
 
 
 def _flatten(tree: Params, prefix: str = ""
@@ -231,14 +294,15 @@ def _unflatten(flat: Dict[str, torch.Tensor],
 
 
 class LM(nn.Module):
-    """Owns the stacked float32 parameters of one LM and calls the
-    functional code.
+    """Owns the stacked parameters of one LM (float32 unless ``init`` was
+    given another dtype) and calls the functional code.
 
     ``compute_params()`` is the tree the entry points pass on: in bf16
-    configs it holds one bf16 copy of every other leaf, made once.  The
-    reference casts the same float32 values to bf16 where it uses them, so
-    the copy is bit-identical to that cast; the leaves of ``_KEEP_DTYPE``
-    stay float32, as the reference reads them."""
+    configs it holds one bf16 copy of every other leaf, made once (a leaf
+    already bf16 is the same tensor, not a copy).  The reference casts the
+    same float32 values to bf16 where it uses them, so the copy is
+    bit-identical to that cast; the leaves of ``_KEEP_DTYPE`` stay float32,
+    as the reference reads them."""
 
     def __init__(self, cfg, params: Params):
         super().__init__()
@@ -251,8 +315,12 @@ class LM(nn.Module):
         self._compute: Optional[Params] = None
 
     @classmethod
-    def init(cls, cfg, seed: int = 0, *, device="cuda") -> "LM":
-        return cls(cfg, init_lm(cfg, seed, device=device))
+    def init(cls, cfg, seed: int = 0, *, device="cuda",
+             dtype=torch.float32) -> "LM":
+        """``dtype``: the held matrices' (``init_lm``).  Bf16-held weights
+        serve a model whose float32 masters would not fit the card: the
+        compute copy then aliases them, and equals the float32 LM's."""
+        return cls(cfg, init_lm(cfg, seed, device=device, dtype=dtype))
 
     @property
     def params(self) -> Params:

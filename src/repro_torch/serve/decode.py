@@ -1,15 +1,22 @@
-"""Serving, dense and ssm families: one-pass prefill and one-token decode
-steps.
+"""Serving, dense, ssm and moe families: one-pass prefill and one-token
+decode steps.
 
 ``prefill`` runs the prompt through one full-sequence pass and fills the
-decode state from it: for the dense family every layer's post-RoPE K/V goes
-into the cache (the attention kernel on the card); for the ssm family every
-layer leaves the chunked recurrence's final S (the recurrence kernel on the
-card, once per layer) and the last position of its normed time-mix and
-channel-mix inputs.  It returns the same last-position logits and decode
-state as the reference's token-by-token ``repro.serve.decode.prefill``.
-``decode_step`` moves one token on: dense attends it against the cache with
-``decode_attention``, ssm steps the recurrence with
+decode state from it: for the attention families every layer's post-RoPE
+K/V goes into the cache (the attention kernel on the card); for the ssm
+family every layer leaves the chunked recurrence's final S (the recurrence
+kernel on the card, once per layer) and the last position of its normed
+time-mix and channel-mix inputs.  For the dense and ssm families it returns
+the same last-position logits and decode state as the reference's
+token-by-token ``repro.serve.decode.prefill``.  For the moe family the one
+pass routes all B·S prompt tokens against one capacity, as the reference's
+``forward`` does, where the reference's prefill routes B tokens a step:
+the two agree when no (token, choice) pair is dropped (a high enough
+``moe_capacity_factor``); at the default 1.25 the port's prefill equals the
+reference's ``forward`` (ROADMAP.md, deliberate differences).
+``decode_step`` moves one token on: attention layers attend it against the
+cache with ``decode_attention`` (MoE layers then dispatch the B tokens with
+``moe_apply_dense``), ssm steps the recurrence with
 ``linear_attention_step``.
 """
 
@@ -23,10 +30,11 @@ from ..models.attention import decode_attention, out_project, qkv_project
 from ..models.common import apply_rope, compute_dtype, norm_apply
 from ..models.context import NULL_CTX, ModelContext
 from ..models.mlp import mlp_apply
+from ..models.moe import moe_apply_dense
 from ..models.ssm import rwkv6_channel_mix, rwkv6_time_mix
-from ..models.transformer import (check_ported, hidden_states, layer,
-                                  logits_from_hidden)
-from .kv_cache import cache_write, init_decode_state
+from ..models.transformer import (attention_stacks, check_ported,
+                                  hidden_states, layer, logits_from_hidden)
+from .kv_cache import cache_names, cache_write, init_decode_state
 
 
 def _attn_decode(layer_attn: Dict, x: torch.Tensor, cfg, pos: int,
@@ -70,16 +78,19 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
     x = params["embed"][token].to(compute_dtype(cfg))
     x = ctx.shard(x, "dp", None, None)
     pos = state["cache_len"]
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        if cfg.family == "ssm":
-            x = _rwkv6_decode(lp, x, cfg, state, i)
-            continue
-        h = norm_apply(cfg.norm, lp["ln1"], x)
-        x = x + _attn_decode(lp["attn"], h, cfg, pos, state["k_cache"][i],
-                             state["v_cache"][i])
-        h = norm_apply(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.act)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = _rwkv6_decode(layer(params["layers"], i), x, cfg, state, i)
+    else:
+        for key, n, moe in attention_stacks(cfg):
+            kc, vc = (state[name] for name in cache_names(key))
+            for i in range(n):
+                lp = layer(params[key], i)
+                h = norm_apply(cfg.norm, lp["ln1"], x)
+                x = x + _attn_decode(lp["attn"], h, cfg, pos, kc[i], vc[i])
+                h = norm_apply(cfg.norm, lp["ln2"], x)
+                x = x + (moe_apply_dense(lp["moe"], h, cfg)[0] if moe
+                         else mlp_apply(lp["mlp"], h, cfg.act))
     x = norm_apply(cfg.norm, params["ln_f"], x)
     return logits_from_hidden(params, cfg, x, ctx), {**state,
                                                      "cache_len": pos + 1}
@@ -89,29 +100,34 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
             ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, S) -> (last-position logits (B, 1, V), decode state).
 
-    One ``hidden_states`` pass over the prompt.  Dense: each layer's K/V goes
-    into the cache, in the cache dtype, at slots pos % cap (for a rolling
-    cache shorter than the prompt, only the last ``cap`` positions, which
-    are the ones a token-by-token prefill leaves behind).  Ssm: each layer's
-    final S and last normed inputs go into the state."""
+    One ``hidden_states`` pass over the prompt.  Attention families: each
+    layer's K/V goes into its cache (moe: the dense layers' into
+    ``k/v_cache_dense``), in the cache dtype, at slots pos % cap (for a
+    rolling cache shorter than the prompt, only the last ``cap``
+    positions, which are the ones a token-by-token prefill leaves behind).
+    Ssm: each layer's final S and last normed inputs go into the state.
+    MoE layers route the whole prompt against one capacity (see the module
+    docstring)."""
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
                               device=tokens.device)
     sink: list = []
-    x = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink)
+    x, _ = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink)
     if cfg.family == "ssm":
         for i, (S, tmix_last, cmix_last) in enumerate(sink):
             state["rwkv_S"][i] = S
             state["tmix_last"][i] = tmix_last
             state["cmix_last"][i] = cmix_last
     else:
-        cap = state["k_cache"].shape[2]
-        first = max(0, s - cap)
-        slots = torch.arange(first, s, device=tokens.device) % cap
-        for i, (k, v) in enumerate(sink):
-            state["k_cache"][i][:, slots] = k[:, first:].to(
-                state["k_cache"].dtype)
-            state["v_cache"][i][:, slots] = v[:, first:].to(
-                state["v_cache"].dtype)
+        kv = iter(sink)
+        for key, n, _ in attention_stacks(cfg):
+            kc, vc = (state[name] for name in cache_names(key))
+            cap = kc.shape[2]
+            first = max(0, s - cap)
+            slots = torch.arange(first, s, device=tokens.device) % cap
+            for i in range(n):
+                k, v = next(kv)
+                kc[i][:, slots] = k[:, first:].to(kc.dtype)
+                vc[i][:, slots] = v[:, first:].to(vc.dtype)
     state["cache_len"] = s
     return logits_from_hidden(params, cfg, x[:, -1:], ctx), state

@@ -1,8 +1,11 @@
-"""Decode state: per-layer KV caches (dense), recurrent states (ssm).
+"""Decode state: per-layer KV caches (dense, moe), recurrent states (ssm).
 
 Layouts as the reference's:
   dense   k/v ``(L, B, cap, Hkv, hd)``, ``cap = min(max_len, window or inf)``;
           SWA caches are rolling, slot = pos % cap
+  moe     the same for the MoE layers (leading axis L - moe_first_dense),
+          and ``k_cache_dense`` / ``v_cache_dense`` for the leading dense
+          layers (``moe_first_dense``), where there are any
   rwkv6   ``rwkv_S`` (L, B, H, K, V) float32; ``tmix_last`` / ``cmix_last``
           (L, B, D), the last normed time-mix / channel-mix inputs, in the
           compute dtype; O(1) in the context length
@@ -12,11 +15,12 @@ the reference's functional updates, the port writes the state in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..device import resolve_device
+from ..models.transformer import attention_stacks
 
 
 def attn_cache_len(cfg, max_len: int) -> int:
@@ -37,11 +41,19 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
                                       dtype=torch.float32, device=dev),
                 "tmix_last": torch.zeros(last, dtype=dtype, device=dev),
                 "cmix_last": torch.zeros(last, dtype=dtype, device=dev)}
-    shape = (cfg.num_layers, batch, attn_cache_len(cfg, max_len),
-             cfg.num_kv_heads, cfg.head_dim_)
-    return {"cache_len": 0,
-            "k_cache": torch.zeros(shape, dtype=dtype, device=dev),
-            "v_cache": torch.zeros(shape, dtype=dtype, device=dev)}
+    state: Dict[str, Any] = {"cache_len": 0}
+    for key, n, _ in attention_stacks(cfg):
+        shape = (n, batch, attn_cache_len(cfg, max_len), cfg.num_kv_heads,
+                 cfg.head_dim_)
+        for name in cache_names(key):
+            state[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    return state
+
+
+def cache_names(stack: str) -> Tuple[str, str]:
+    """The k and v cache keys of a stack of ``attention_stacks``."""
+    suffix = "_dense" if stack == "dense_layers" else ""
+    return f"k_cache{suffix}", f"v_cache{suffix}"
 
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,

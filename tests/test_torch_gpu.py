@@ -790,3 +790,76 @@ def test_loss_and_grads_on_cuda_match_cpu(cuda, arch, remat):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.detach().to(dev)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the moe family on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,factor", [("deepseek-moe-16b", 1.25),
+                                         ("deepseek-moe-16b", 0.5),
+                                         ("mixtral-8x22b", 1.25)])
+def test_moe_apply_dense_on_cuda_matches_cpu(cuda, arch, factor):
+    """Float32 (no TF32): the same routing decisions (indices, slots, keep;
+    the inputs have no near-tie at the k-th choice) and outputs within
+    1e-4; factor 0.5 drops pairs."""
+    from repro_torch.models import moe as TM
+    cfg = configs.reduced(configs.get_config(arch), dtype="float32",
+                          moe_num_experts=16, moe_top_k=4,
+                          moe_capacity_factor=factor)
+    params = TM.moe_init(torch.Generator().manual_seed(0), cfg.d_model,
+                      cfg.moe_num_experts, cfg.moe_d_ff,
+                      cfg.moe_shared_experts)
+    params["router"] *= 4.0          # spread the choices
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    x_flat = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax(x_flat @ params["router"], dim=-1)
+    top = probs.topk(cfg.moe_top_k + 1, dim=-1).values
+    assert bool((top[:, -2] - top[:, -1] > 1e-5).all())
+    cap = TM._capacity(x_flat.shape[0], cfg.moe_top_k, cfg.moe_num_experts,
+                       factor)
+    want = TM._route(params["router"], x_flat, cfg.moe_top_k,
+                     cfg.moe_num_experts, cap)
+    got = TM._route(params["router"].to(cuda), x_flat.to(cuda),
+                    cfg.moe_top_k, cfg.moe_num_experts, cap)
+    for i in (0, 2, 3):
+        assert torch.equal(got[i].cpu(), want[i])
+    if factor < 1:
+        assert not bool(want[3].all())
+    y, aux = TM.moe_apply_dense(_to(params, cuda), x.to(cuda), cfg)
+    ref, ref_aux = TM.moe_apply_dense(params, x, cfg)
+    torch.testing.assert_close(y.cpu(), ref, atol=F32_TOL, rtol=F32_TOL)
+    assert abs(aux.item() - ref_aux.item()) <= 1e-6
+
+
+@pytest.mark.parametrize("b,s", [(4, 2048), (1, 300)])
+def test_kernel_at_the_deepseek_shape(cuda, b, s):
+    """deepseek-moe-16b's prefill attention: MHA 16 / 16, head_dim 128,
+    bf16, causal: the wgmma variant, one bf16 ulp of its plain version."""
+    _check(*_qkv(cuda, b, s, 16, 16, 128, torch.bfloat16), "wgmma_tma")
+
+
+def test_moe_generate_launches_attention_once_per_layer(cuda):
+    """Reduced deepseek-moe-16b (a dense layer, then MoE layers) with bf16
+    weights through ``generate``: one attention launch per layer in
+    prefill, none in decode; float32 compute matches the CPU at 1e-4."""
+    from repro_torch.launch.serve import generate
+    cfg = configs.reduced(configs.get_config("deepseek-moe-16b"),
+                          dtype="float32", num_layers=3)
+    lm_cpu = LM.init(cfg, seed=2, device="cpu", dtype=torch.bfloat16)
+    lm_gpu = LM(cfg, lm_cpu.params).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    fa.launches = kr.launches = pm.launches = 0
+    res = generate(lm_gpu, toks.to(cuda), 1)
+    torch.cuda.synchronize()
+    assert fa.launches == cfg.num_layers
+    fa.launches = 0
+    res = generate(lm_gpu, toks.to(cuda), 6)
+    torch.cuda.synchronize()
+    assert fa.launches == cfg.num_layers and kr.launches == pm.launches == 0
+    ref = generate(lm_cpu, toks, 6)
+    assert torch.equal(res.tokens.cpu(), ref.tokens)
+    torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,
+                               atol=F32_TOL, rtol=F32_TOL)

@@ -70,7 +70,7 @@ def test_every_module_imports_without_a_card():
                                                     "repro_torch.")]
     for need in ("repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.phase_max", "repro_torch.kernels.rwkv6",
-                 "repro_torch.models.ssm", "repro_torch.core.fairshare",
+                 "repro_torch.models.ssm", "repro_torch.models.moe", "repro_torch.core.fairshare",
                  "repro_torch.core.simulator", "repro_torch.core.batched",
                  "repro_torch.core.strategies.builtin",
                  "repro_torch.core.rankmap", "repro_torch.data.pipeline",
@@ -126,6 +126,19 @@ def test_ssm_entry_points_default_to_cuda_and_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(cfg)
     assert rwkv6.launches == before
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: transformer.init_lm(cfg, dtype=torch.bfloat16),
+    lambda cfg: transformer.LM.init(cfg, dtype=torch.bfloat16),
+    lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
+    lambda cfg: serve.main(["--arch", "deepseek-moe-16b", "--reduced",
+                            "--param-dtype", "bfloat16"]),
+], ids=["init_lm", "LM.init", "init_decode_state", "serve.main"])
+def test_moe_entry_points_default_to_cuda_and_raise(no_card, entry):
+    cfg = configs.reduced(configs.get_config("deepseek-moe-16b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg)
 
 
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])

@@ -56,9 +56,15 @@ def _tokens(cfg, b=2, s=24, seed=1):
     lambda m: m.reduced(m.get_config("qwen1.5-32b"), dtype="float32"),
     lambda m: m.get_config("nemotron-4-340b"),
     lambda m: m.reduced(m.get_config("nemotron-4-340b"), dtype="float32"),
+    lambda m: m.get_config("deepseek-moe-16b"),
+    lambda m: m.reduced(m.get_config("deepseek-moe-16b"), dtype="float32"),
+    lambda m: m.get_config("mixtral-8x22b"),
+    lambda m: m.reduced(m.get_config("mixtral-8x22b"), dtype="float32"),
 ], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
         "rwkv6-reduced-f32", "olmo-full", "olmo-reduced-f32", "qwen-full",
-        "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32"])
+        "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32",
+        "deepseek-full", "deepseek-reduced-f32", "mixtral-full",
+        "mixtral-reduced-f32"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -136,10 +142,11 @@ def test_compute_params_keep_norms_f32_and_cast_matrices():
     assert lm.compute_params() is cp          # made once
 
 
-UNPORTED = r"dense family \(slice 1\) and the ssm family \(slice 3\)"
+UNPORTED = (r"dense family \(slice 1\), the ssm family \(slice 3\) and "
+            r"the moe family \(slice 5a\)")
 
 
-@pytest.mark.parametrize("arch_family", ["moe", "hybrid", "audio"])
+@pytest.mark.parametrize("arch_family", ["vlm", "hybrid", "audio"])
 def test_unported_families_raise(arch_family):
     cfg = dataclasses.replace(
         tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family=arch_family,
@@ -207,7 +214,8 @@ def _olmo():
 
 def test_port_registers_the_dense_family():
     assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b", "nemotron-4-340b",
-            "rwkv6-3b"} == set(tcfg.list_configs())
+            "rwkv6-3b", "deepseek-moe-16b",
+            "mixtral-8x22b"} == set(tcfg.list_configs())
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",

@@ -122,7 +122,7 @@ def test_serve_main_rejects_zero_gen():
 
 def test_unknown_arch_is_refused():
     with pytest.raises(KeyError, match="tinyllama"):
-        tserve.main(["--arch", "mixtral-8x22b", "--reduced", "--device",
+        tserve.main(["--arch", "zamba2-2.7b", "--reduced", "--device",
                      "cpu"])
 
 
