@@ -13,9 +13,11 @@ Phases, in order; any failure exits non-zero before the result line:
                ptxas registers / shared memory.
   3. kernels — each kernel against its plain PyTorch version on the card:
                flash attention at the serving path's shape, at
-               deepseek-moe-16b's (MHA 16 / 16, head_dim 128) and at MHA /
-               MQA / GQA-8 / ragged / non-causal / windowed / other head-dim
-               cases,
+               deepseek-moe-16b's (MHA 16 / 16, head_dim 128), at
+               zamba2-2.7b's (MHA 32 / 32, head_dim 80, bf16 and float32,
+               with ragged S, GQA and windowed head_dim 80 cases) and at MHA
+               / MQA / GQA-8 / ragged / non-causal / windowed / other
+               head-dim cases,
                at the wgmma kernel's tile edges (S 1, 127, 129, 300 with
                windows 48 and 200) and on views of a fused qkv projection,
                on both kernels of the source (bf16 within one bf16 ulp of the
@@ -31,7 +33,10 @@ Phases, in order; any failure exits non-zero before the result line:
                chunks 1 to 64 (12 and 7 among them) and mask kind, float32
                output and final state within 1e-4; then the path's case in
                bf16 from the model's split_heads views, output within one
-               bf16 ulp; each case logs the VB and loads it took.
+               bf16 ulp; each case logs the VB and loads it took; then the
+               recurrence as zamba2's Mamba2 blocks call it (float32,
+               inclusive, B·H 160, T 2048, K 64, V 128, chunk 16, q
+               broadcast over the heads), output and S within 1e-4.
   4. serve   — full-width tinyllama-1.1b (22 layers, seeded random weights,
                bf16) through ``repro_torch.launch.serve.generate``: prefill of
                4 x 2048 tokens and 32 greedy decode steps.  The kernel must be
@@ -82,7 +87,18 @@ Phases, in order; any failure exits non-zero before the result line:
                dropped at capacity 960 and the bounds by part; the
                teacher-forced check runs on the same weights at capacity
                factor 16, where nothing is dropped; the profile adds a "moe
-               dispatch" kind.  The model is freed before phase 5.
+               dispatch" kind.  The model is freed before phase 4e.
+  4e. serve-hybrid — the same for full-width, full-depth zamba2-2.7b (54
+               Mamba2 blocks of d_inner 5120, 40 SSM heads of 128, state 64;
+               one shared attention + gelu MLP block, 32 / 32 heads of 80,
+               d_ff 10240, applied after every 6 on concat(h, x0); 2.40 B
+               parameters, float32 masters, bf16 compute, seed 0): 4 x 2048
+               prompt, 32 greedy decode steps.  A prefill and the
+               teacher-forced forward must launch flash attention 9 times
+               (mma_sync) and the recurrence 54 times, decode neither, the
+               segment max never; teacher forcing within 0.15 / 0.05.  Logs
+               the bounds by part (``hybrid_prefill_parts``,
+               ``hybrid_decode_bytes``).  The model is freed before phase 5.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -102,7 +118,8 @@ Phases, in order; any failure exits non-zero before the result line:
                host).
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
-               events), flash attention at deepseek-moe-16b's too; the
+               events), flash attention at deepseek-moe-16b's and
+               zamba2-2.7b's too; the
                attention variant the path took and the ptxas
                report (registers, spills, wgmma serialisation) of each
                attention variant; the segment max at the grid's p50 / p90 /
@@ -116,7 +133,9 @@ Phases, in order; any failure exits non-zero before the result line:
                views, at the plan the library makes (no single PyTorch call
                computes it, so it has no library time), then at VB 16, 32
                and 64 (each a compile-time instance there) at batch 4 and 1
-               (B·H 160 and 40).
+               (B·H 160 and 40); then the recurrence at the Mamba2 path's
+               shape and call (float32 operands, q broadcast over the
+               heads, bound with q read once).
 The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
@@ -148,6 +167,11 @@ DISPATCH_SHAPES = (("p50", 3345, 62), ("p90", 22652, 398),
 # the recurrence kernel's shape on the rwkv6-3b serving path: (B, H, T, K, V)
 # and the chunk hidden_states picks for a 2048-token prompt (_fit_chunk)
 RWKV_PATH, RWKV_CHUNK = (BATCH, 40, PROMPT, 64, 64), 16
+# its call from zamba2-2.7b's Mamba2 blocks: 40 heads of 128, ssm_state 64,
+# float32 operands, inclusive mask, q broadcast over the heads
+MAMBA_PATH = (BATCH, 40, PROMPT, 64, 128)
+# zamba2-2.7b's shared attention: 32 / 32 heads of 80
+ZAMBA_ATTN = (BATCH, PROMPT, 32, 32, 80)
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12
@@ -174,6 +198,15 @@ TF_CAPACITY_FACTOR = 16.0
 # probability, which the two computations' bf16 rounding crosses (recorded,
 # with the routes).
 MOE_TF_F32_TOL = 1e-2
+# The hybrid family's gate runs in float32 compute from the held float32
+# masters, as the moe family's does.  In bf16 each Mamba2 block rounds its
+# output by about 1%, and with random weights each block's output moves
+# about three times as far as its input does (q = C, k = B·dt and v are
+# all projections of it), so the rounding of any two bf16 computations
+# grows with depth to logits about 1 apart after 54 blocks: decode against
+# the forward, and the bf16 forward against the float32 one alike
+# (recorded, with the growth block by block and point by point).
+HYBRID_TF_F32_TOL = 1e-2
 # Training (phase 4c): full-width tinyllama-1.1b at B x S, warm-up and timed
 # steps through repro_torch.launch.train.main on a 64-GPU vclos grant on
 # CLUSTER512; then checkpoint / resume of reduced configs, ckpt_every 2.
@@ -231,7 +264,7 @@ def bound(q, k, v, causal, window):
 
 def rwkv6_bound(bh: int, t: int, dk: int, dv: int, chunk: int,
                 exclusive: bool, with_state: bool, esize: int = 2,
-                heads: int = 0):
+                heads: int = 0, shared_q: bool = False):
     """Least time of one fused recurrence call: max(live float32 operations
     at their rate, bytes / memory rate).  Per chunk: the live score pairs
     times K and V, the cross-chunk read and the state update (C·K·V FMAs
@@ -240,14 +273,17 @@ def rwkv6_bound(bh: int, t: int, dk: int, dv: int, chunk: int,
     per row with a bonus, Σ_k q·u·k (3·K) and its product with v added
     (2·V), at PEAK_F32_FLOPS.  Bytes: q, k, log decay and v read once and
     the output written once in their dtype (``esize`` bytes), S written and
-    s0 read in float32, the bonus (heads, K) read in float32."""
+    s0 read in float32, the bonus (heads, K) read in float32.  ``shared_q``
+    (Mamba2's call): q is one (B, T, K) tensor broadcast over the
+    ``heads``, read once."""
     nc = t // chunk
     pairs = chunk * (chunk - 1) // 2 if exclusive else chunk * (chunk + 1) // 2
     products = bh * nc * (2 * pairs * (dk + dv) + 4 * chunk * dk * dv)
     other = bh * nc * dk * dv + (bh * t * (3 * dk + 2 * dv) if exclusive
                                  else 0)
-    nbytes = (bh * (esize * (3 * t * dk + 2 * t * dv)
-                    + 4 * dk * dv * (2 if with_state else 1))
+    q_bytes = esize * t * dk * (bh // heads if shared_q else bh)
+    nbytes = (q_bytes + bh * (esize * (2 * t * dk + 2 * t * dv)
+                              + 4 * dk * dv * (2 if with_state else 1))
               + (4 * heads * dk if exclusive else 0))
     t_ops = (3 * products / PEAK_TF32_FLOPS + other / PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -264,7 +300,8 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
     must read, i.e. every matrix once (bf16) plus the valid part of the KV
     cache (its mean over the steps) or the float32 recurrent state (read and
     written), over the memory rate.  The moe family: ``moe_prefill_parts``
-    and ``moe_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
+    and ``moe_decode_bytes``; the hybrid family: ``hybrid_prefill_parts``
+    and ``hybrid_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
     recurrence's share of prefill_ms).
     """
     d, L = cfg.d_model, cfg.num_layers
@@ -289,6 +326,11 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
         return (sum(moe_prefill_parts(cfg, batch, prompt).values()),
                 moe_decode_bytes(cfg, batch, prompt, steps) / PEAK_BYTES
                 * 1e3, 0.0)
+    if cfg.family == "hybrid":
+        parts = hybrid_prefill_parts(cfg, batch, prompt)
+        return (sum(parts.values()),
+                hybrid_decode_bytes(cfg, batch, prompt, steps) / PEAK_BYTES
+                * 1e3, parts["recurrence"])
     hd = cfg.head_dim_
     per_layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
                  + 3 * d * cfg.d_ff)
@@ -330,6 +372,61 @@ def moe_prefill_parts(cfg, batch: int, prompt: int) -> dict:
     ms = {k: v / PEAK_BF16_FLOPS * 1e3 for k, v in flops.items()}
     ms["router (float32)"] = 2 * d * e * t * n_moe / PEAK_F32_FLOPS * 1e3
     return ms
+
+
+def hybrid_matrices(cfg):
+    """(weights of one Mamba2 block's products: w_in, w_bc, w_dt, w_out;
+    of the shared block's: shared_proj, q / k / v / o, the gelu MLP)."""
+    from repro_torch.models.transformer import ssm_heads
+    d, hd = cfg.d_model, cfg.head_dim_
+    din, heads = d * cfg.ssm_expand, ssm_heads(cfg)
+    mamba = d * 2 * din + d * 2 * cfg.ssm_state + d * heads + din * d
+    shared = (2 * d * d + 2 * d * cfg.num_heads * hd
+              + 2 * d * cfg.num_kv_heads * hd + 2 * d * cfg.d_ff)
+    return mamba, shared
+
+
+def hybrid_prefill_parts(cfg, batch: int, prompt: int) -> dict:
+    """Least time of each part of a hybrid prefill on the card, ms: the bf16
+    products of the Mamba2 blocks' and the shared block's matrices over
+    every prompt token, the shared attention's live causal pairs at each
+    application point and the lm_head at the last position, at 989
+    TFLOP/s; one recurrence call per Mamba2 block at its bound (float32
+    operands, q shared by the heads)."""
+    from repro_torch.models.transformer import ssm_heads
+    mamba, shared = hybrid_matrices(cfg)
+    t, hd = batch * prompt, cfg.head_dim_
+    points = cfg.num_layers // cfg.attn_every
+    heads = ssm_heads(cfg)
+    din = cfg.d_model * cfg.ssm_expand
+    flops = {
+        "Mamba2 products": 2 * mamba * t * cfg.num_layers,
+        "shared-block products": 2 * shared * t * points,
+        "attention": points * 4 * hd * cfg.num_heads * batch
+        * live_pairs(prompt, prompt, True, cfg.sliding_window),
+        "lm_head": 2 * cfg.d_model * cfg.vocab_size * batch,
+    }
+    ms = {k: v / PEAK_BF16_FLOPS * 1e3 for k, v in flops.items()}
+    ms["recurrence"] = cfg.num_layers * rwkv6_bound(
+        batch * heads, prompt, cfg.ssm_state, din // heads, 16, False, False,
+        4, heads, shared_q=True)[0]
+    return ms
+
+
+def hybrid_decode_bytes(cfg, batch: int, prompt: int, steps: int) -> float:
+    """Bytes a hybrid decode step must read: every matrix once in bf16 (the
+    shared block's too, though nine points apply it), the lm_head, the
+    float32 SSM state and the conv context read and written, and the
+    valid KV cache of each application point (its mean over the steps)."""
+    mamba, shared = hybrid_matrices(cfg)
+    din = cfg.d_model * cfg.ssm_expand
+    points = cfg.num_layers // cfg.attn_every
+    mats = cfg.num_layers * mamba + shared + cfg.d_model * cfg.vocab_size
+    ssm = cfg.num_layers * batch * cfg.ssm_state * din * 4 * 2
+    conv = cfg.num_layers * batch * 3 * din * 2 * 2
+    kv = (points * 2 * batch * (prompt + steps / 2) * cfg.num_kv_heads
+          * cfg.head_dim_)
+    return 2 * (mats + kv) + ssm + conv
 
 
 def moe_decode_bytes(cfg, batch: int, prompt: int, steps: int) -> float:
@@ -595,6 +692,67 @@ def check_rwkv6(dev) -> float:
     return path_err
 
 
+def mamba2_operands(dev, shape, seed):
+    """The recurrence's operands as ``models.ssm.mamba2_apply`` builds them
+    on the card: float32 q = C (B, T, K) broadcast over the heads (head
+    stride 0), k = B·dt (B, H, T, K), v the (B, H, T, hd) view of a (B, T,
+    H·hd) tensor, and the scalar log decay dt·A broadcast over K and made
+    contiguous; dt = softplus(N(0, 1)), A = -exp(N(0, 0.5))."""
+    import torch
+    b, h, t, dk, dv = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    c, bb = normal(b, t, dk), normal(b, t, dk)
+    dt = torch.nn.functional.softplus(normal(b, t, h))
+    a = -torch.exp(normal(h) * 0.5)
+    q = c[:, None].expand(b, h, t, dk)
+    k = bb[:, None] * dt.transpose(1, 2)[..., None]
+    v = normal(b, t, h * dv).view(b, t, h, dv).transpose(1, 2)
+    ld = (dt * a).transpose(1, 2)[..., None].expand(b, h, t, dk).contiguous()
+    return q, k, v, ld
+
+
+def check_mamba2_call(dev) -> float:
+    """The recurrence called as ``mamba2_apply`` calls it at the served
+    path's shape (float32, inclusive, B·H 160, T 2048, K 64, V 128, chunk
+    16, from the head-broadcast views), and at a small case with an initial
+    state: output and final S within F32_TOL of the plain version.
+    Returns the path case's output max abs error."""
+    import torch
+    from repro_torch.kernels import rwkv6 as kr
+    err_path = None
+    for name, shape, with_s0 in (("mamba2-path", MAMBA_PATH, False),
+                                 ("mamba2-s0", (2, 8, 256, 64, 128), True)):
+        q, k, v, ld = mamba2_operands(dev, shape, 40)
+        b, h, _, dk, dv = shape
+        s0 = torch.randn((b, h, dk, dv), device=dev) if with_s0 else None
+        out, S = kr.rwkv6_fused(q, k, v, ld, chunk=RWKV_CHUNK,
+                                initial_state=s0)
+        torch.cuda.synchronize()
+        plan = kr.last_plan
+        ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, chunk=RWKV_CHUNK,
+                                          initial_state=s0)
+        err = (out - ref).abs().max().item()
+        s_err = (S - ref_S).abs().max().item()
+        ok = (bool(torch.isfinite(out).all() and torch.isfinite(S).all())
+              and torch.allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
+              and torch.allclose(S, ref_S, atol=F32_TOL, rtol=F32_TOL))
+        log(f"rwkv6 {name:16s} float32  B·H {b * h:4d} T {shape[2]:5d} K "
+            f"{dk:3d} V {dv:3d} C {RWKV_CHUNK} inclusive, q head stride "
+            f"{q.stride(1)} s0 {'yes' if with_s0 else 'no '} VB "
+            f"{plan['vb']:2d} {plan['loads']:6s} max_abs_err out {err:.3e} "
+            f"S {s_err:.3e} (tol {F32_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"rwkv6 {name}: kernel disagrees with its plain version")
+        if name == "mamba2-path":
+            err_path = err
+        del q, k, v, ld, out, S, ref, ref_S
+    torch.cuda.empty_cache()
+    return err_path
+
+
 def kernel_counters():
     """Each kernel's wrapper module under its name in the kernels line; its
     ``launches`` counts the kernel's launches since the last reset."""
@@ -685,18 +843,31 @@ def time_moe_dispatch(expert_idx, capacity: int, cfg, dev) -> None:
         + " (the port: sort and index_put)")
 
 
-def teacher_forcing(lm, prompts, res, counter, kernel: str,
+def counted(expect: dict, fn):
+    """Run ``fn`` with every kernel's count from 0; returns (its result,
+    each kernel's launches, whether they are ``expect``'s, every other
+    kernel 0)."""
+    import torch
+    mods = kernel_counters()
+    for mod in mods.values():
+        mod.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: mod.launches for name, mod in mods.items()}
+    return out, got, got == {name: expect.get(name, 0) for name in mods}
+
+
+def teacher_forcing(lm, prompts, res, expect: dict,
                     gate: bool = True) -> None:
     """The last decode logits of ``res`` against a forward over prompt +
     generated tokens, bf16, at atol SERVE_ATOL / rtol SERVE_RTOL; the
-    forward must launch ``kernel`` once per layer."""
+    forward must launch each kernel as often as a prefill does
+    (``expect``), the others never."""
     import torch
     cfg = lm.cfg
-    before = counter.launches
     with torch.inference_mode():
-        full = lm(torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1]
-    torch.cuda.synchronize()
-    tf_launches = counter.launches - before
+        full, tf_launches, as_expected = counted(expect, lambda: lm(
+            torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1])
     dec = res.last_logits[:, 0].float()
     err = (full.float() - dec).abs().max().item()
     agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
@@ -706,16 +877,17 @@ def teacher_forcing(lm, prompts, res, counter, kernel: str,
     log(f"{cfg.name} teacher-forced forward vs last decode logits, bf16{at}:"
         f" max_abs_err {err:.4f} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}; "
         f"worst error / tolerance {margin:.3f}); argmax agreement "
-        f"{agree:.2f}; {kernel} launches {tf_launches}")
-    if tf_launches != cfg.num_layers:
-        fail(f"teacher-forced forward launched {kernel} {tf_launches} times")
+        f"{agree:.2f}; kernel launches {tf_launches}")
+    if not as_expected:
+        fail(f"teacher-forced forward launched {tf_launches}, expected "
+             f"{expect}")
     if gate and not torch.allclose(full.float(), dec, atol=SERVE_ATOL,
                                    rtol=SERVE_RTOL):
         fail(f"{cfg.name} decode logits disagree with the teacher-forced "
              f"forward")
 
 
-def moe_teacher_forcing(lm, prompts, counter) -> None:
+def moe_teacher_forcing(lm, prompts, expect: dict) -> None:
     """The moe family against teacher forcing at TF_CAPACITY_FACTOR, where
     neither side drops a pair, on the served weights.  (a) bf16 through
     ``generate``, recorded with the routes: for each row, the first MoE
@@ -740,7 +912,7 @@ def moe_teacher_forcing(lm, prompts, counter) -> None:
     n_moe = cfg.num_layers - cfg.moe_first_dense
     decode_calls = calls[-n_moe:]
     del calls[:]
-    teacher_forcing(lm, prompts, res, counter, "flash_attention", gate=False)
+    teacher_forcing(lm, prompts, res, expect, gate=False)
     restore()
     rows = route_agreement(decode_calls, calls, cfg.moe_top_k)
     log(f"{cfg.name} bf16 routes of the last token, decode step vs forward, "
@@ -763,13 +935,10 @@ def moe_teacher_forcing(lm, prompts, counter) -> None:
             logits, state = decode_step(params, cfg32, toks[-1], state)
             toks.append(logits.argmax(dim=-1))
         del state
-        before = counter.launches
-        x, _ = hidden_states(params, cfg32, torch.cat([prompts, *toks[:-1]],
-                                                      dim=1))
+        x, tf_launches, as_expected = counted(expect, lambda: hidden_states(
+            params, cfg32, torch.cat([prompts, *toks[:-1]], dim=1))[0])
         full = logits_from_hidden(params, cfg32, x[:, -1:])[:, 0]
         del x
-    torch.cuda.synchronize()
-    tf_launches = counter.launches - before
     dec = logits[:, 0]
     err = (full - dec).abs().max().item()
     log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
@@ -777,17 +946,132 @@ def moe_teacher_forcing(lm, prompts, counter) -> None:
         f"{TF_CAPACITY_FACTOR}: max_abs_err {err:.3e} (tol "
         f"{MOE_TF_F32_TOL:g}); argmax agreement "
         f"{(full.argmax(-1) == dec.argmax(-1)).float().mean().item():.2f}; "
-        f"flash_attention launches {tf_launches} ({fa.last_variant}); "
+        f"kernel launches {tf_launches} ({fa.last_variant}); "
         f"{time.perf_counter() - t0:.1f} s")
-    if tf_launches != cfg.num_layers:
-        fail(f"the float32 forward launched flash_attention {tf_launches} "
-             f"times")
+    if not as_expected:
+        fail(f"the float32 forward launched {tf_launches}, expected "
+             f"{expect}")
     if not torch.allclose(full, dec, atol=MOE_TF_F32_TOL,
                           rtol=MOE_TF_F32_TOL):
         fail(f"{cfg.name} decode logits disagree with the teacher-forced "
              f"forward in float32")
     del full, logits
     torch.cuda.empty_cache()
+
+
+def hybrid_teacher_forcing(lm, prompts, res, expect: dict) -> None:
+    """The hybrid family against teacher forcing.  (a) bf16 through
+    ``generate`` (``teacher_forcing``), at SERVE_ATOL / SERVE_RTOL.  (b)
+    float32 compute from the same float32 masters: prefill, greedy decode
+    steps and the forward over prompt + generated tokens, within
+    HYBRID_TF_F32_TOL.  (c) the bf16 forward against that float32 forward
+    on the same tokens: the last logits, and at each application point of
+    the shared block the relative distance of its post-RoPE k at the last
+    position (from the sinks), which shows how bf16 rounding grows with
+    depth; and for the first ``attn_every`` Mamba2 blocks of the bf16
+    forward over the prompt, each block's own rounding (its bf16 output
+    against its float32 output on the same bf16 input) beside the distance
+    carried from the blocks before it.  Both forwards must launch as
+    ``expect`` says.  The gate is (b)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import (hidden_states,
+                                                logits_from_hidden)
+    from repro_torch.serve.decode import decode_step, prefill
+    cfg = lm.cfg
+    teacher_forcing(lm, prompts, res, expect, gate=False)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = lm.params
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, state = prefill(params, cfg32, prompts,
+                                prompts.shape[1] + DECODE_STEPS + 1)
+        toks = [logits.argmax(dim=-1)]
+        for _ in range(DECODE_STEPS):
+            logits, state = decode_step(params, cfg32, toks[-1], state)
+            toks.append(logits.argmax(dim=-1))
+        del state
+        tokens = torch.cat([prompts, *toks[:-1]], dim=1)
+        sinks = {}
+
+        def last_logits(p, c, name):
+            sinks[name] = []
+            x, launched, ok = counted(expect, lambda: hidden_states(
+                p, c, tokens, sink=sinks[name])[0])
+            sinks[name] = [k[:, -1].float() for k, v in sinks[name]
+                           if v.dim() == 4]       # (k, v), not (S, conv)
+            if not ok:
+                fail(f"the {name} forward launched {launched}, expected "
+                     f"{expect}")
+            return logits_from_hidden(p, c, x[:, -1:])[:, 0].float()
+        full = last_logits(params, cfg32, "float32")
+        full16 = last_logits(lm.compute_params(), cfg, "bf16")
+    dec = logits[:, 0]
+    err = (full - dec).abs().max().item()
+    log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
+        f"compute from the float32 masters: max_abs_err {err:.3e} (tol "
+        f"{HYBRID_TF_F32_TOL:g}); argmax agreement "
+        f"{(full.argmax(-1) == dec.argmax(-1)).float().mean().item():.2f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    rel = [((a - b).norm() / b.norm()).item()
+           for a, b in zip(sinks["bf16"], sinks["float32"])]
+    log(f"{cfg.name} bf16 forward vs float32 forward on the same "
+        f"{tokens.shape[1]} tokens: last logits max_abs_err "
+        f"{(full16 - full).abs().max().item():.4f} (worst error / "
+        f"tolerance at {SERVE_ATOL} / {SERVE_RTOL}: "
+        f"{allclose_margin(full16, full, SERVE_ATOL, SERVE_RTOL):.3f}), "
+        f"argmax agreement "
+        f"{(full16.argmax(-1) == full.argmax(-1)).float().mean().item():.2f};"
+        f" relative distance of the shared attention's k at the last "
+        f"position, by application point: "
+        + ", ".join(f"{r:.2e}" for r in rel))
+    del full16, sinks
+    log(f"{cfg.name} bf16 rounding through the first {cfg.attn_every} "
+        f"Mamba2 blocks over the prompt, relative distance of each block's "
+        f"output from float32's (its own rounding / carried from the blocks"
+        f" before): " + ", ".join(
+            f"{own:.2e} / {carried:.2e}"
+            for own, carried in mamba2_rounding(lm, prompts)))
+    if not torch.allclose(full, dec, atol=HYBRID_TF_F32_TOL,
+                          rtol=HYBRID_TF_F32_TOL):
+        fail(f"{cfg.name} decode logits disagree with the teacher-forced "
+             f"forward in float32")
+    del full, logits
+    torch.cuda.empty_cache()
+
+
+def mamba2_rounding(lm, prompts) -> list:
+    """For each of the first ``attn_every`` Mamba2 blocks, run on the
+    prompt both in bf16 (from the bf16 forward's running h) and in float32
+    (from the float32 forward's): (the relative distance of the bf16
+    output from the float32 output on the same bf16 input, its distance
+    from the float32 forward's output)."""
+    import torch
+    from repro_torch.models.common import norm_apply
+    from repro_torch.models.ssm import mamba2_apply
+    from repro_torch.models.transformer import ssm_heads, unstack
+    cfg = lm.cfg
+    p32, p16 = lm.params, lm.compute_params()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def block(lp, x):
+        return mamba2_apply(lp["mamba"], norm_apply(cfg.norm, lp["ln"], x),
+                            ssm_heads(cfg), cfg.ssm_state,
+                            cfg.ssm_expand)[0]
+    n = cfg.attn_every
+    out = []
+    with torch.inference_mode():
+        x32 = p32["embed"][prompts].float()
+        x16 = p16["embed"][prompts].to(torch.bfloat16)
+        for l32, l16 in zip(unstack(p32["layers"], n),
+                            unstack(p16["layers"], n)):
+            y16, y32 = block(l16, x16), block(l32, x32)
+            own = block(l32, x16.float())
+            out.append((rel(y16, own), rel(y16, y32)))
+            x16, x32 = x16 + y16, x32 + y32
+    return out
 
 
 def route_recorder(batch: int):
@@ -828,22 +1112,49 @@ def route_agreement(decode_calls, forward_calls, top_k: int) -> list:
     return rows
 
 
-def serve_phase(dev, arch: str, kernel: str,
-                param_dtype: str = "float32") -> int:
-    """Phases 4, 4b and 4d: full-width ``arch`` (seeded random weights,
-    held in ``param_dtype``) through ``generate``.  ``kernel`` must launch
-    once per layer in a prefill, never in decode and once per layer in the
-    teacher-forced forward; every other kernel never.  The moe family also
-    logs the share of pairs dropped at capacity, and is held against
-    teacher forcing at TF_CAPACITY_FACTOR on the same weights.  Returns
-    ``kernel``'s launches in the main run."""
+def describe(cfg, param_dtype: str) -> str:
+    """One line of the served config's shapes."""
+    from repro_torch.models.transformer import ssm_heads
+    if cfg.family == "ssm":
+        mix = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
+               f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}")
+    elif cfg.family == "hybrid":
+        heads = ssm_heads(cfg)
+        din = cfg.d_model * cfg.ssm_expand
+        mix = (f"Mamba2 d_inner {din}, {heads} SSM heads of {din // heads}, "
+               f"ssm_state {cfg.ssm_state}; one shared block every "
+               f"{cfg.attn_every} ({cfg.num_layers // cfg.attn_every} "
+               f"points): {cfg.num_heads} heads, {cfg.num_kv_heads} kv heads "
+               f"of {cfg.head_dim_}, {cfg.act} d_ff {cfg.d_ff}")
+    elif cfg.family == "moe":
+        mix = (f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
+               f"{cfg.head_dim_}, {cfg.moe_first_dense} dense layer(s) of "
+               f"d_ff {cfg.d_ff}, {cfg.moe_num_experts} routed experts (top-"
+               f"{cfg.moe_top_k}) + {cfg.moe_shared_experts} shared of d_ff "
+               f"{cfg.moe_d_ff}, capacity factor {cfg.moe_capacity_factor}")
+    else:
+        mix = (f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
+               f"{cfg.head_dim_}, d_ff {cfg.d_ff}")
+    return (f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{mix}, vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B "
+            f"params held in {param_dtype}, {cfg.dtype} compute")
+
+
+def serve_phase(dev, arch: str, expect: dict,
+                param_dtype: str = "float32") -> dict:
+    """Phases 4, 4b, 4d and 4e: full-width ``arch`` (seeded random weights,
+    held in ``param_dtype``) through ``generate``.  ``expect`` gives each
+    kernel's launches in a prefill: the main run (prefill and decode) and
+    the teacher-forced forward must launch each exactly that often, every
+    other kernel never.  The moe family also logs the share of pairs
+    dropped at capacity, and is held against teacher forcing at
+    TF_CAPACITY_FACTOR on the same weights.  Returns each kernel's launches
+    in the main run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.transformer import LM
 
-    mods = kernel_counters()
-    counter = mods[kernel]
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -851,33 +1162,15 @@ def serve_phase(dev, arch: str, kernel: str,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = make_prompts(cfg, BATCH, PROMPT, seed=0, device=dev)
-    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of "
-             f"{cfg.rwkv_head_dim}" if cfg.family == "ssm" else
-             f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
-             f"{cfg.head_dim_}")
-    ffn = (f"{cfg.moe_first_dense} dense layer(s) of d_ff {cfg.d_ff}, "
-           f"{cfg.moe_num_experts} routed experts (top-"
-           f"{cfg.moe_top_k}) + {cfg.moe_shared_experts} shared of d_ff "
-           f"{cfg.moe_d_ff}, capacity factor {cfg.moe_capacity_factor}"
-           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
-    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{heads}, {ffn}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.2f} B params held in {param_dtype}, "
-        f"{cfg.dtype} compute; init {init_s:.1f} s, "
+    log(f"{describe(cfg, param_dtype)}; init {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held, init peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     generate(lm, prompts, 2)          # warm-up: allocator, cuBLAS, kernel
-    counter.launches = 0
-    generate(lm, prompts, 1)          # a prefill alone
-    per_prefill = counter.launches
-    torch.cuda.synchronize()
+    _, per_prefill, prefill_ok = counted(
+        expect, lambda: generate(lm, prompts, 1))      # a prefill alone
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
-    res = generate(lm, prompts, DECODE_STEPS + 1)
-    launches = counter.launches
-    others = {name: mod.launches for name, mod in mods.items()
-              if name != kernel}
+    res, launches, run_ok = counted(
+        expect, lambda: generate(lm, prompts, DECODE_STEPS + 1))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"{cfg.name} prefill {BATCH}x{PROMPT}: {res.prefill_s * 1e3:.2f} ms; "
         f"decode {res.decode_s / DECODE_STEPS * 1e3:.3f} ms/step, "
@@ -891,6 +1184,11 @@ def serve_phase(dev, arch: str, kernel: str,
         _, worst_idx, capacity = moe_drop_share(lm, prompts)
         time_moe_dispatch(worst_idx, capacity, cfg, dev)
         del worst_idx
+    elif cfg.family == "hybrid":
+        pre_how = "; ".join(f"{k} {v:.3f}" for k, v in hybrid_prefill_parts(
+            cfg, BATCH, PROMPT).items()) + (
+            f" ms: bf16 products at 989 TFLOP/s, {cfg.num_layers} recurrence "
+            f"calls at their bound")
     elif rec_ms:
         pre_how = (f"{pre_bound - rec_ms:.3f} ms of bf16 products at 989 "
                    f"TFLOP/s + {rec_ms:.3f} ms for {cfg.num_layers} "
@@ -901,15 +1199,13 @@ def serve_phase(dev, arch: str, kernel: str,
         f"({pre_how}), decode {dec_bound:.4f} ms/step (bytes); measured / "
         f"bound: prefill {res.prefill_s * 1e3 / pre_bound:.2f}x, decode "
         f"{res.decode_s / DECODE_STEPS * 1e3 / dec_bound:.1f}x")
-    log(f"{kernel} launches on the {cfg.name} path: {per_prefill} per prefill"
-        f" alone, {launches} in prefill + {DECODE_STEPS} decode steps; other "
-        f"kernels {others}")
-    if per_prefill != cfg.num_layers or launches != cfg.num_layers:
-        fail(f"{kernel} launches: {per_prefill} per prefill and {launches} "
-             f"with decode, expected one per layer ({cfg.num_layers}) and "
-             f"none in decode")
-    if any(others.values()):
-        fail(f"{cfg.name} serving launched other kernels: {others}")
+    log(f"kernel launches on the {cfg.name} path: {per_prefill} per prefill"
+        f" alone, {launches} in prefill + {DECODE_STEPS} decode steps; "
+        f"expected {expect} in both, the others 0")
+    if not (prefill_ok and run_ok):
+        fail(f"{cfg.name} launches: {per_prefill} per prefill and "
+             f"{launches} with decode, expected {expect} in both (none in "
+             f"decode)")
     if tuple(res.tokens.shape) != (BATCH, DECODE_STEPS + 1):
         fail(f"{cfg.name} generated tokens of shape "
              f"{tuple(res.tokens.shape)}")
@@ -917,9 +1213,11 @@ def serve_phase(dev, arch: str, kernel: str,
         fail(f"{cfg.name} decode logits are not finite")
 
     if cfg.family == "moe":
-        moe_teacher_forcing(lm, prompts, counter)
+        moe_teacher_forcing(lm, prompts, expect)
+    elif cfg.family == "hybrid":
+        hybrid_teacher_forcing(lm, prompts, res, expect)
     else:
-        teacher_forcing(lm, prompts, res, counter, kernel)
+        teacher_forcing(lm, prompts, res, expect)
     profile_serve(lm, prompts, res.tokens,
                   MOE_KINDS if cfg.family == "moe" else KERNEL_KINDS)
     del lm, res, prompts
@@ -1751,8 +2049,21 @@ def main() -> None:
         ("hd32", (1, 300, 4, 2, 32), bf16, True, None),
         ("hd128", (1, 300, 4, 2, 128), bf16, True, None),
         ("hd128-f32", (1, 300, 4, 2, 128), f32, True, None),
+        # zamba2-2.7b's shared attention (head_dim 80, MHA 32 / 32) on the
+        # mma kernel, its tile edges, GQA and windows
+        ("zamba2-bf16", ZAMBA_ATTN, bf16, True, None),
+        ("zamba2-f32", ZAMBA_ATTN, f32, True, None),
+        ("hd80-s1", (2, 1, 8, 8, 80), bf16, True, None),
+        ("hd80-s127", (2, 127, 8, 8, 80), bf16, True, None),
+        ("hd80-s129", (2, 129, 8, 8, 80), bf16, True, None),
+        ("hd80-s300", (2, 300, 8, 8, 80), bf16, True, None),
+        ("hd80-s300-f32", (2, 300, 8, 8, 80), f32, True, None),
+        ("hd80-gqa-4", (2, 300, 8, 2, 80), bf16, True, None),
+        ("hd80-window-48", (2, 300, 8, 8, 80), bf16, True, 48),
+        ("hd80-w48-f32", (2, 300, 8, 2, 80), f32, True, 48),
+        ("fused-hd80", (2, 257, 8, 2, 80), bf16, True, None, True),
     ]
-    path_err = moe_err = None
+    path_err = moe_err = zamba_err = None
     for name, shape, dtype, causal, window, *fused in cases:
         q, k, v = qkv(*shape, dtype, fused=bool(fused))
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -1781,13 +2092,18 @@ def main() -> None:
             moe_err = err
             if fa.last_variant != "wgmma_tma":
                 fail(f"deepseek's attention shape ran {fa.last_variant}")
+        if name == "zamba2-bf16":
+            zamba_err = err
+            if fa.last_variant != "mma_sync":
+                fail(f"zamba2's attention shape ran {fa.last_variant}")
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     pm_err = check_phase_max(dev)
     rwkv_err = check_rwkv6(dev)
+    mamba_err = check_mamba2_call(dev)
 
     # 4. the main path: full-width tinyllama-1.1b serving -------------------
-    launches = serve_phase(dev, "tinyllama-1.1b", "flash_attention")
+    launches = serve_phase(dev, "tinyllama-1.1b", {"flash_attention": 22})
     path_variant = fa.last_variant
     if path_variant != "wgmma_tma":
         fail(f"tinyllama prefill ran the {path_variant} attention variant, "
@@ -1799,15 +2115,24 @@ def main() -> None:
     resume_phase(dev)
 
     # 4b. the recurrence's path: full-width rwkv6-3b serving ----------------
-    rwkv_launches = serve_phase(dev, "rwkv6-3b", "rwkv6_chunked")
+    rwkv_launches = serve_phase(dev, "rwkv6-3b", {"rwkv6_chunked": 32})
 
     # 4d. the moe family: full-width deepseek-moe-16b, bf16-held weights ----
-    moe_launches = serve_phase(dev, "deepseek-moe-16b", "flash_attention",
+    moe_launches = serve_phase(dev, "deepseek-moe-16b",
+                               {"flash_attention": 28},
                                param_dtype="bfloat16")
     moe_variant = fa.last_variant
     if moe_variant != "wgmma_tma":
         fail(f"deepseek prefill ran the {moe_variant} attention variant, "
              f"not wgmma_tma")
+
+    # 4e. the hybrid family: full-width zamba2-2.7b, both model kernels -----
+    hybrid_launches = serve_phase(dev, "zamba2-2.7b", {"flash_attention": 9,
+                                                       "rwkv6_chunked": 54})
+    hybrid_variant = fa.last_variant
+    if hybrid_variant != "mma_sync":
+        fail(f"zamba2 prefill ran the {hybrid_variant} attention variant, "
+             f"not mma_sync")
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
@@ -1854,6 +2179,21 @@ def main() -> None:
         f"{moe_library_ms:.4f} ms, bound {moe_bound_ms:.4f} ms "
         f"({moe_bound_by}); {smi}")
     del mq, mk, mv, mqh, mkh, mvh
+    # zamba2-2.7b's shared attention: MHA 32 / 32, head_dim 80
+    zq, zk, zv = qkv(*ZAMBA_ATTN, torch.bfloat16)
+    zamba_ms = time_ms(lambda: fa.flash_attention(zq, zk, zv))
+    zamba_variant = fa.last_variant
+    zamba_plain_ms = time_ms(lambda: fa.flash_attention_plain(zq, zk, zv),
+                             iters=5)
+    zqh, zkh, zvh = (t.transpose(1, 2).contiguous() for t in (zq, zk, zv))
+    zamba_library_ms = time_ms(lambda: sdpa(zqh, zkh, zvh, is_causal=True))
+    zamba_bound_ms, zamba_bound_by = bound(zq, zk, zv, True, None)
+    log(f"flash_attention at zamba2-2.7b's shape (B {BATCH}, S {PROMPT}, "
+        f"32 / 32 heads of 80, bf16, causal, {zamba_variant}): kernel "
+        f"{zamba_ms:.4f} ms, plain {zamba_plain_ms:.4f} ms, library "
+        f"{zamba_library_ms:.4f} ms, bound {zamba_bound_ms:.4f} ms "
+        f"({zamba_bound_by}); {smi}")
+    del zq, zk, zv, zqh, zkh, zvh
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), iters=5)
     f32_bound, f32_by = bound(qf, kf, vf, True, None)
@@ -1890,6 +2230,26 @@ def main() -> None:
             log(f"rwkv6 VB sweep, bf16 views, B·H {batch * h}: VB {vb} "
                 f"{ms:.4f} ms (CUDA events; plan {kr.last_plan})")
         del q, k, v, ld, u
+    # the recurrence as zamba2-2.7b's Mamba2 blocks call it
+    mq, mk, mv, mld = mamba2_operands(dev, MAMBA_PATH, 0)
+    mamba_ms = time_ms(lambda: kr.rwkv6_fused(mq, mk, mv, mld,
+                                              chunk=RWKV_CHUNK))
+    mamba_plan = kr.last_plan
+    mamba_plain_ms = time_ms(lambda: kr.rwkv6_fused_plain(
+        mq, mk, mv, mld, chunk=RWKV_CHUNK), iters=3)
+    b, h, t, dk, dv = MAMBA_PATH
+    mamba_bound_ms, mamba_by = rwkv6_bound(b * h, t, dk, dv, RWKV_CHUNK,
+                                           False, False, 4, h, shared_q=True)
+    per_head_ms = rwkv6_bound(b * h, t, dk, dv, RWKV_CHUNK, False, False, 4,
+                              h)[0]
+    log(f"rwkv6 at the Mamba2 path's shape (B·H {b * h}, T {t}, K {dk}, V "
+        f"{dv}, chunk {RWKV_CHUNK}, inclusive, float32, q broadcast over the "
+        f"heads): kernel {mamba_ms:.4f} ms (plan {mamba_plan}), plain "
+        f"{mamba_plain_ms:.4f} ms, bound {mamba_bound_ms:.4f} ms "
+        f"({mamba_by}; q read once; {per_head_ms:.4f} ms with q read per "
+        f"head, as the kernel reads it); no single PyTorch call computes it "
+        f"(library none); {smi}")
+    del mq, mk, mv, mld
     log_ptxas("rwkv6", report["rwkv6"])
 
     print(smi, flush=True)
@@ -1898,7 +2258,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "variant": path_variant,
-        "launches": launches, "max_abs_err": path_err,
+        "launches": launches["flash_attention"], "max_abs_err": path_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "train_launches_per_step": train["launches_per_step"],
@@ -1906,10 +2266,18 @@ def main() -> None:
         "moe_path": {
             "arch": "deepseek-moe-16b", "variant": moe_variant,
             "shape": f"B {BATCH}, S {PROMPT}, 16 / 16 heads of 128, bf16",
-            "launches": moe_launches, "max_abs_err": moe_err,
+            "launches": moe_launches["flash_attention"],
+            "max_abs_err": moe_err,
             "ms": moe_ms, "plain_ms": moe_plain_ms,
             "bound_ms": moe_bound_ms, "bound_by": moe_bound_by,
             "library_ms": moe_library_ms},
+        "hybrid_path": {
+            "arch": "zamba2-2.7b", "variant": hybrid_variant,
+            "shape": f"B {BATCH}, S {PROMPT}, 32 / 32 heads of 80, bf16",
+            "launches": hybrid_launches["flash_attention"],
+            "max_abs_err": zamba_err, "ms": zamba_ms,
+            "plain_ms": zamba_plain_ms, "bound_ms": zamba_bound_ms,
+            "bound_by": zamba_bound_by, "library_ms": zamba_library_ms},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
@@ -1929,13 +2297,24 @@ def main() -> None:
         "name": "rwkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
         "replaces": "src/repro/kernels/rwkv6.py:31",
-        "launches": rwkv_launches, "max_abs_err": rwkv_err,
+        "launches": rwkv_launches["rwkv6_chunked"], "max_abs_err": rwkv_err,
         "ms": rwkv_ms, "kernel_ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
         "bound_ms": rwkv_bound_ms, "bound_by": rwkv_by, "library_ms": None,
         "vb": rwkv_plan["vb"], "vb_ms": vb_ms,
         "train_grad_max_abs_err": grad_errs["rwkv6_chunked"],
-        "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk {RWKV_CHUNK}, "
+        "shape": f"B·H {RWKV_PATH[0] * RWKV_PATH[1]}, T {RWKV_PATH[2]}, K "
+                 f"{RWKV_PATH[3]}, V {RWKV_PATH[4]}, chunk {RWKV_CHUNK}, "
                  f"bonus, bf16 split_heads views",
+        "hybrid_path": {
+            "arch": "zamba2-2.7b",
+            "shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk "
+                     f"{RWKV_CHUNK}, inclusive, float32, q broadcast over "
+                     f"the heads",
+            "launches": hybrid_launches["rwkv6_chunked"],
+            "max_abs_err": mamba_err, "ms": mamba_ms,
+            "plain_ms": mamba_plain_ms, "bound_ms": mamba_bound_ms,
+            "bound_by": mamba_by, "library_ms": None,
+            "vb": mamba_plan["vb"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,11 @@ repro.models.transformer.init_lm(...))`` gives it, is nested dicts of numpy
 arrays.  The port keeps the same keys and shapes (``embed``, ``ln_f/scale``,
 ``lm_head``; dense ``layers/{ln1,ln2,attn/{wq,wk,wv,wo},mlp/{w_up,w_gate,
 w_down}}``; ssm ``layers/{ln1,ln2,tmix/{w_r,w_k,w_v,w_g,w_o,w_decay_a,
-w_decay_b,decay_base,bonus_u,mix_x,ln_x},cmix/{w_k,w_v,mix}}``; stacked ``L``
-axis, ``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
+w_decay_b,decay_base,bonus_u,mix_x,ln_x},cmix/{w_k,w_v,mix}}``; moe
+``layers/moe/...`` and ``dense_layers``; hybrid ``layers/{ln,mamba/{w_in,
+w_bc,w_dt,a_log,d_skip,dt_bias,conv,w_out,norm}}`` with the unstacked
+``shared_block`` (a dense layer) and ``shared_proj``; stacked ``L`` axis,
+``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
 packages compute the same function on the same numbers.
 
 Optimizer state crosses the same way: the reference's ``AdamWState(step,

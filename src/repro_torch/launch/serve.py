@@ -1,10 +1,11 @@
-"""Serving launcher: batched greedy decoding with a KV cache (dense, moe)
-or a recurrent state (ssm).
+"""Serving launcher: batched greedy decoding with a KV cache (dense, moe),
+a recurrent state (ssm) or both (hybrid).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --param-dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--param-dtype`` is the held weights' dtype (``RunConfig.param_dtype`` in

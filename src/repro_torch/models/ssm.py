@@ -1,6 +1,7 @@
-"""Attention-free sequence mixer: RWKV6 time-mix and channel-mix.
+"""Attention-free sequence mixers: Mamba2 (SSD) and RWKV6 time-mix /
+channel-mix.
 
-The time-mix is a chunked linear recurrence with a per-channel decay,
+Both are chunked linear recurrences,
 
     S_t = diag(d_t) · S_{t-1} + k_t vᵀ_t          (state: (K, V) per head)
     o_t = qᵀ_t · S_t  (+ the bonus diagonal)
@@ -8,14 +9,16 @@ The time-mix is a chunked linear recurrence with a per-channel decay,
 clamped at LOG_DECAY_MIN and centred per chunk as in the reference
 (``repro/models/ssm.py``).  The full-sequence pass goes through
 ``kernels.ops.rwkv6_mix_state``: on the card the fused Hopper kernel, which
-reads the ``split_heads`` views of q, k, v and the log decay in place and
-does the decay precompute and the bonus itself, its plain version on the CPU
-(where the reference scans the jnp chunked form, ``ssm.py:204,271``),
-inside an autograd ``Function`` whose backward recomputes through
+reads q, k, v and the log decay in place through their strides and does the
+decay precompute and the bonus itself, its plain version on the CPU (where
+the reference scans the jnp chunked form, ``ssm.py:204,271``), inside an
+autograd ``Function`` whose backward recomputes through
 ``chunked_linear_attention_scan``, the reference's differentiable chunk
-scan written as a loop over chunks.  Decode steps one token in plain
-PyTorch, as the reference does (it has no decode kernel).  Mamba2 comes
-with the hybrid family.
+scan written as a loop over chunks.  RWKV6 runs the exclusive mask with a
+bonus on the model's bf16 ``split_heads`` views; Mamba2 the inclusive mask
+with no bonus, on float32 operands (see :func:`mamba2_apply`).  Decode
+steps one token in plain PyTorch, as the reference does (it has no decode
+kernel).
 """
 
 from __future__ import annotations
@@ -131,6 +134,102 @@ def linear_attention_reference(q, k, v, log_decay, bonus=None,
                                      log_decay[:, :, i], S, bonus=bonus)
         outs.append(o)
     return torch.stack(outs, dim=2).to(q.dtype), S
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD formulation)
+# ---------------------------------------------------------------------------
+
+def mamba2_init(gen: torch.Generator, d_model: int, d_state: int, heads: int,
+                expand: int, *, lead=(), dtype=torch.float32) -> Params:
+    """The reference's ``mamba2_init`` (``ssm.py:144-159``) with a ``lead``
+    axis: ``a_log``, ``d_skip``, ``dt_bias`` and the norm stay float32
+    whatever ``dtype`` is, as there."""
+    d_inner = d_model * expand
+    dev = gen.device
+
+    def dense(d_in, d_out):
+        return dense_init(gen, d_in, d_out, lead=lead, dtype=dtype)
+    conv = torch.randn((*lead, 4, d_inner), generator=gen, device=dev)
+    return {
+        "w_in": dense(d_model, 2 * d_inner),                   # x, z gate
+        "w_bc": dense(d_model, 2 * d_state),                   # B, C proj
+        "w_dt": dense(d_model, heads),
+        "a_log": torch.zeros((*lead, heads), device=dev),      # A = -exp(a)
+        "d_skip": torch.ones((*lead, heads), device=dev),
+        "dt_bias": torch.zeros((*lead, heads), device=dev),
+        "conv": conv.mul_(0.1).to(dtype),
+        "w_out": dense(d_inner, d_model),
+        "norm": norm_init("rmsnorm", d_inner, device=dev, lead=lead),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv, kernel 4.  x: (B,T,D), w: (4,D); state
+    (B,3,D): the trailing context decode carries (zeros when None).
+    Returns (y in x's dtype, the new trailing context)."""
+    b, t, d = x.shape
+    kw = w.shape[0]
+    if state is None:
+        state = x.new_zeros((b, kw - 1, d))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    wx = w.to(x.dtype)
+    y = xp[:, :t] * wx[0]
+    for i in range(1, kw):
+        y = y + xp[:, i:i + t] * wx[i]
+    return y, xp[:, -(kw - 1):]
+
+
+def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
+                 expand: int, chunk: int = 16, state: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,T,D).  state (decode): {"ssm": (B,H,K,V), "conv": (B,3,Din)}.
+    Returns (y, {"ssm": the final S (B,H,K,V) float32, "conv": the conv's
+    trailing context}); the one-pass prefill hands both to decode.
+
+    As in the reference (``ssm.py:177-222``) q = C and v = the conv output
+    are in x's dtype while k = B·dt and the log decay dt·A are float32, and
+    the recurrence computes in float32 and returns q's dtype.  The kernel
+    takes one dtype for all four operands, so the full-sequence pass hands
+    it float32 ones and casts its output to x's dtype.  C and B are shared
+    by the heads: q is C broadcast over H (a zero head stride, read in
+    place), k the product B·dt (B,H,T,K).  The log decay is a scalar per
+    (b, h, t) broadcast over K: a zero inner stride, which the kernel
+    refuses, so it alone is made contiguous (B,H,T,K).  v is the float32
+    copy of the conv output's (B,H,T,hd) view, in its strides."""
+    b, t, d = x.shape
+    d_inner = d * expand
+    hd = d_inner // heads
+    xi, z = (x @ params["w_in"].to(x.dtype)).chunk(2, dim=-1)
+    xi, conv_state = _causal_conv(xi, params["conv"],
+                                  None if state is None else state["conv"])
+    xi = F.silu(xi)
+    B_, C_ = (x @ params["w_bc"].to(x.dtype)).chunk(2, dim=-1)  # (B,T,K)
+    dt = F.softplus((x @ params["w_dt"].to(x.dtype)).float()
+                    + params["dt_bias"].float())                 # (B,T,H)
+    a = -torch.exp(params["a_log"].float())                      # (H,) < 0
+    ld = (dt * a).transpose(1, 2)[..., None].expand(b, heads, t, d_state)
+    vals = xi.reshape(b, t, heads, hd).transpose(1, 2)           # (B,H,T,hd)
+    kq = B_.float()[:, None] * dt.transpose(1, 2)[..., None]     # (B,H,T,K)
+
+    def over_heads(y):
+        return y[:, None].expand(b, heads, t, d_state)
+    if state is None:
+        out, S = ops.rwkv6_mix_state(over_heads(C_.float()), kq,
+                                     vals.float(), ld.contiguous(),
+                                     chunk=chunk)
+        out = out.to(x.dtype)
+    else:
+        o, S = linear_attention_step(over_heads(C_)[:, :, 0], kq[:, :, 0],
+                                     vals[:, :, 0], ld[:, :, 0],
+                                     state["ssm"])
+        out = o[:, :, None]
+    out = out + params["d_skip"].to(out.dtype)[:, None, None] * vals
+    y = out.transpose(1, 2).reshape(b, t, d_inner)
+    y = norm_apply("rmsnorm", params["norm"], y) * F.silu(z)
+    return y @ params["w_out"].to(x.dtype), {"ssm": S, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-LM assembly: the dense, ssm (RWKV6) and moe families.
+"""Decoder-LM assembly: the dense, ssm (RWKV6), moe and hybrid (zamba2)
+families.
 
 Same parameter layout as the reference (``repro/models/transformer.py``):
 nested dicts with a stacked leading ``L`` axis on every layer leaf and
@@ -10,8 +11,11 @@ The dense family (slice 1 of the port) and the ssm family (slice 3) are
 ported, for serving and, since slice 4, for training (``lm_loss`` on the
 float32 master tree); the moe family (slice 5a) through the single-device
 dispatch ``moe_apply_dense``, its ``moe_first_dense`` leading layers in
-``dense_layers`` as in the reference.  The hybrid, audio and vlm families
-raise ``NotImplementedError``.
+``dense_layers`` as in the reference; the hybrid family (slice 5b):
+stacked Mamba2 ``layers`` and one ``shared_block`` (an attention + MLP
+block, unstacked) applied after every ``attn_every`` of them on
+``concat(h, x0) @ shared_proj``.  The audio and vlm families raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,27 +32,38 @@ from .common import (Params, compute_dtype, dense_init, embed_init,
 from .context import NULL_CTX, ModelContext
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply_dense, moe_init
-from .ssm import (rwkv6_channel_mix, rwkv6_channel_mix_init, rwkv6_init,
-                  rwkv6_time_mix)
+from .ssm import (mamba2_apply, mamba2_init, rwkv6_channel_mix,
+                  rwkv6_channel_mix_init, rwkv6_init, rwkv6_time_mix)
 
 
 def check_ported(cfg) -> None:
-    if (cfg.family not in ("dense", "ssm", "moe") or cfg.is_encoder_decoder
-            or cfg.frontend is not None):
+    if (cfg.family not in ("dense", "ssm", "moe", "hybrid")
+            or cfg.is_encoder_decoder or cfg.frontend is not None):
         raise NotImplementedError(
             f"{cfg.name}: family '{cfg.family}' is not ported yet; the port "
-            f"covers the dense family (slice 1), the ssm family (slice 3) and "
-            f"the moe family (slice 5a), the others are queued in ROADMAP.md")
+            f"covers the dense family (slice 1), the ssm family (slice 3), "
+            f"the moe family (slice 5a) and the hybrid family (slice 5b), "
+            f"the others are queued in ROADMAP.md")
+    if cfg.family == "hybrid" and (cfg.attn_every < 1
+                                   or cfg.num_layers % cfg.attn_every):
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} must be "
+                         f"a multiple of attn_every {cfg.attn_every}")
+
+
+def ssm_heads(cfg) -> int:
+    """Mamba2 heads of the hybrid family (``num_heads`` when unset)."""
+    return cfg.ssm_heads or cfg.num_heads
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen: torch.Generator, cfg, n: int, *, moe: bool, dtype,
+def _block_init(gen: torch.Generator, cfg, lead: tuple, *, moe: bool, dtype,
                 dev) -> Params:
-    """``n`` stacked attention blocks with an MLP, or with an MoE layer."""
-    d, lead = cfg.d_model, (n,)
+    """Attention blocks with an MLP, or with an MoE layer, stacked on the
+    ``lead`` axes (``()``: one block, unstacked)."""
+    d = cfg.d_model
     p: Params = {
         "ln1": norm_init(cfg.norm, d, lead=lead, device=dev),
         "ln2": norm_init(cfg.norm, d, lead=lead, device=dev),
@@ -90,8 +105,17 @@ def init_lm(cfg, seed: int = 0, *, device="cuda",
             "cmix": rwkv6_channel_mix_init(gen, d, cfg.d_ff, lead=L,
                                            dtype=dtype)}
         return p
+    if cfg.family == "hybrid":  # zamba2
+        p["layers"] = {
+            "ln": norm_init(cfg.norm, d, lead=L, device=dev),
+            "mamba": mamba2_init(gen, d, cfg.ssm_state, ssm_heads(cfg),
+                                 cfg.ssm_expand, lead=L, dtype=dtype)}
+        p["shared_block"] = _block_init(gen, cfg, (), moe=False, dtype=dtype,
+                                        dev=dev)
+        p["shared_proj"] = dense_init(gen, 2 * d, d, dtype=dtype)
+        return p
     for key, n, moe in attention_stacks(cfg):
-        p[key] = _block_init(gen, cfg, n, moe=moe, dtype=dtype, dev=dev)
+        p[key] = _block_init(gen, cfg, (n,), moe=moe, dtype=dtype, dev=dev)
     return p
 
 
@@ -181,6 +205,36 @@ def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
     return ctx.shard(x + y, "dp", "sp", None)
 
 
+def _mamba2_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                  chunk: int, sink=None) -> torch.Tensor:
+    y, st = mamba2_apply(lp["mamba"], norm_apply(cfg.norm, lp["ln"], x),
+                         ssm_heads(cfg), cfg.ssm_state, cfg.ssm_expand,
+                         chunk=chunk)
+    if sink is not None:
+        sink.append((st["ssm"], st["conv"]))
+    return ctx.shard(x + y, "dp", "sp", None)
+
+
+def _hybrid_stack(params: Params, x: torch.Tensor, cfg, ctx: ModelContext,
+                  positions: torch.Tensor, chunk: int, sink=None
+                  ) -> torch.Tensor:
+    """The reference's hybrid groups (``transformer.py:256-282``): per
+    group, ``attn_every`` Mamba2 blocks (each under ``ctx.maybe_remat``),
+    then the shared block on ``concat(h, x0) @ shared_proj`` added to h.
+    x0 is the embedded input ``x``."""
+    x0, k = x, cfg.attn_every
+    block = ctx.maybe_remat(_mamba2_block)
+    layers = unstack(params["layers"], cfg.num_layers)
+    for g in range(cfg.num_layers // k):
+        h = x
+        for lp in layers[g * k:(g + 1) * k]:
+            h = block(lp, h, cfg, ctx, chunk, sink)
+        z = torch.cat([h, x0], dim=-1) @ params["shared_proj"].to(h.dtype)
+        z = _dense_block(params["shared_block"], z, cfg, ctx, positions, sink)
+        x = ctx.shard(h + z, "dp", "sp", None)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill / teacher forcing)
 # ---------------------------------------------------------------------------
@@ -193,7 +247,8 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     layer's decode state in order: attention layers (moe: the dense layers,
     then the MoE layers), their post-RoPE (k, v); ssm, the recurrence's
     final S and the last position of the normed time-mix and channel-mix
-    inputs.  The aux loss is a float32 scalar, the sum over the MoE layers
+    inputs; hybrid, per group each Mamba2 block's (final S, conv tail),
+    then the shared block's post-RoPE (k, v).  The aux loss is a float32 scalar, the sum over the MoE layers
     in order (``transformer.py:284-295``), 0 for the other families.  Each
     layer's block runs under ``ctx.maybe_remat``."""
     check_ported(cfg)
@@ -206,6 +261,10 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
         block = ctx.maybe_remat(_rwkv6_block)
         for lp in unstack(params["layers"], cfg.num_layers):
             x = block(lp, x, cfg, ctx, _fit_chunk(s, ctx.ssm_chunk), sink)
+        return norm_apply(cfg.norm, params["ln_f"], x), aux
+    if cfg.family == "hybrid":
+        x = _hybrid_stack(params, x, cfg, ctx, positions,
+                          _fit_chunk(s, ctx.ssm_chunk), sink)
         return norm_apply(cfg.norm, params["ln_f"], x), aux
     for key, n, moe in attention_stacks(cfg):
         block = ctx.maybe_remat(_moe_block if moe else _dense_block)
@@ -230,7 +289,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
     """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss).
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
-    and ssm families (only MoE layers add to it)."""
+    ssm and hybrid families (only MoE layers add to it)."""
     x, aux = hidden_states(params, cfg, tokens, ctx=ctx)
     return logits_from_hidden(params, cfg, x, ctx), aux
 
@@ -259,9 +318,11 @@ def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
 
 # leaves the compute copy keeps in float32, as the reference reads them:
 # norm params (norm_apply), the RWKV6 decay base and bonus, which enter
-# float32 arithmetic (ssm.py:264 and :100-101), and the MoE router, which
-# routes in float32 (moe.py:57)
-_KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u", "router")
+# float32 arithmetic (ssm.py:264 and :100-101), the MoE router, which
+# routes in float32 (moe.py:57), and Mamba2's A and dt bias (ssm.py:
+# 195-199)
+_KEEP_DTYPE = ("scale", "bias", "decay_base", "bonus_u", "router", "a_log",
+               "dt_bias")
 
 
 def _flatten(tree: Params, prefix: str = ""

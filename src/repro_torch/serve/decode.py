@@ -1,14 +1,18 @@
-"""Serving, dense, ssm and moe families: one-pass prefill and one-token
-decode steps.
+"""Serving, dense, ssm, moe and hybrid families: one-pass prefill and
+one-token decode steps.
 
 ``prefill`` runs the prompt through one full-sequence pass and fills the
 decode state from it: for the attention families every layer's post-RoPE
 K/V goes into the cache (the attention kernel on the card); for the ssm
 family every layer leaves the chunked recurrence's final S (the recurrence
 kernel on the card, once per layer) and the last position of its normed
-time-mix and channel-mix inputs.  For the dense and ssm families it returns
-the same last-position logits and decode state as the reference's
-token-by-token ``repro.serve.decode.prefill``.  For the moe family the one
+time-mix and channel-mix inputs; for the hybrid family every Mamba2 block
+leaves its final S (the recurrence kernel on the card, once per block) and
+its conv's trailing context, and every application point of the shared
+block its post-RoPE K/V (the attention kernel, once per point).  For the
+dense, ssm and hybrid families it returns the same last-position logits
+and decode state as the reference's token-by-token
+``repro.serve.decode.prefill``.  For the moe family the one
 pass routes all B·S prompt tokens against one capacity, as the reference's
 ``forward`` does, where the reference's prefill routes B tokens a step:
 the two agree when no (token, choice) pair is dropped (a high enough
@@ -16,8 +20,9 @@ the two agree when no (token, choice) pair is dropped (a high enough
 reference's ``forward`` (ROADMAP.md, deliberate differences).
 ``decode_step`` moves one token on: attention layers attend it against the
 cache with ``decode_attention`` (MoE layers then dispatch the B tokens with
-``moe_apply_dense``), ssm steps the recurrence with
-``linear_attention_step``.
+``moe_apply_dense``), ssm and the hybrid's Mamba2 blocks step the
+recurrence with ``linear_attention_step``, and each application point of
+the hybrid's shared block attends against its own cache.
 """
 
 from __future__ import annotations
@@ -31,9 +36,10 @@ from ..models.common import apply_rope, compute_dtype, norm_apply
 from ..models.context import NULL_CTX, ModelContext
 from ..models.mlp import mlp_apply
 from ..models.moe import moe_apply_dense
-from ..models.ssm import rwkv6_channel_mix, rwkv6_time_mix
+from ..models.ssm import mamba2_apply, rwkv6_channel_mix, rwkv6_time_mix
 from ..models.transformer import (attention_stacks, check_ported,
-                                  hidden_states, layer, logits_from_hidden)
+                                  hidden_states, layer, logits_from_hidden,
+                                  ssm_heads)
 from .kv_cache import cache_names, cache_write, init_decode_state
 
 
@@ -68,6 +74,36 @@ def _rwkv6_decode(lp: Dict, x: torch.Tensor, cfg, state: Dict,
     return x + o
 
 
+def _hybrid_decode(params: Dict, x: torch.Tensor, cfg, state: Dict,
+                   pos: int) -> torch.Tensor:
+    """x: (B,1,D); the reference's hybrid step (``decode.py:87-128``):
+    each Mamba2 block steps its recurrence and conv context (written into
+    ``state`` in place), each application point of the shared block
+    writes its own cache slot."""
+    x0, k, shared = x, cfg.attn_every, params["shared_block"]
+    for g in range(cfg.num_layers // k):
+        h = x
+        for i in range(g * k, (g + 1) * k):
+            lp = layer(params["layers"], i)
+            o, st = mamba2_apply(lp["mamba"],
+                                 norm_apply(cfg.norm, lp["ln"], h),
+                                 ssm_heads(cfg), cfg.ssm_state,
+                                 cfg.ssm_expand,
+                                 state={"ssm": state["mamba_ssm"][i],
+                                        "conv": state["mamba_conv"][i]})
+            state["mamba_ssm"][i] = st["ssm"]
+            state["mamba_conv"][i] = st["conv"]
+            h = h + o
+        z = torch.cat([h, x0], dim=-1) @ params["shared_proj"].to(h.dtype)
+        zn = norm_apply(cfg.norm, shared["ln1"], z)
+        z = z + _attn_decode(shared["attn"], zn, cfg, pos,
+                             state["k_cache"][g], state["v_cache"][g])
+        zn = norm_apply(cfg.norm, shared["ln2"], z)
+        z = z + mlp_apply(shared["mlp"], zn, cfg.act)
+        x = h + z
+    return x
+
+
 def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
                 ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int -> (logits (B, 1, V), new state).
@@ -81,6 +117,8 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = _rwkv6_decode(layer(params["layers"], i), x, cfg, state, i)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, x, cfg, state, pos)
     else:
         for key, n, moe in attention_stacks(cfg):
             kc, vc = (state[name] for name in cache_names(key))
@@ -102,12 +140,11 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
 
     One ``hidden_states`` pass over the prompt.  Attention families: each
     layer's K/V goes into its cache (moe: the dense layers' into
-    ``k/v_cache_dense``), in the cache dtype, at slots pos % cap (for a
-    rolling cache shorter than the prompt, only the last ``cap``
-    positions, which are the ones a token-by-token prefill leaves behind).
-    Ssm: each layer's final S and last normed inputs go into the state.
-    MoE layers route the whole prompt against one capacity (see the module
-    docstring)."""
+    ``k/v_cache_dense``) through ``_fill_cache``.  Ssm: each layer's final
+    S and last normed inputs go into the state.  Hybrid: each Mamba2
+    block's final S and conv context, and each application point's K/V
+    into its own cache.  MoE layers route the whole prompt against one
+    capacity (see the module docstring)."""
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
                               device=tokens.device)
@@ -118,16 +155,31 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
             state["rwkv_S"][i] = S
             state["tmix_last"][i] = tmix_last
             state["cmix_last"][i] = cmix_last
+    elif cfg.family == "hybrid":
+        entries = iter(sink)
+        for g in range(cfg.num_layers // cfg.attn_every):
+            for i in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
+                state["mamba_ssm"][i], state["mamba_conv"][i] = next(entries)
+            _fill_cache(state["k_cache"][g], state["v_cache"][g],
+                        *next(entries))
     else:
         kv = iter(sink)
         for key, n, _ in attention_stacks(cfg):
             kc, vc = (state[name] for name in cache_names(key))
-            cap = kc.shape[2]
-            first = max(0, s - cap)
-            slots = torch.arange(first, s, device=tokens.device) % cap
             for i in range(n):
-                k, v = next(kv)
-                kc[i][:, slots] = k[:, first:].to(kc.dtype)
-                vc[i][:, slots] = v[:, first:].to(vc.dtype)
+                _fill_cache(kc[i], vc[i], *next(kv))
     state["cache_len"] = s
     return logits_from_hidden(params, cfg, x[:, -1:], ctx), state
+
+
+def _fill_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> None:
+    """A prompt's K/V (B, S, Hkv, hd) into one layer's cache (B, cap, Hkv,
+    hd), in the cache dtype, at slots pos % cap: for a rolling cache
+    shorter than the prompt, only the last ``cap`` positions, the ones a
+    token-by-token prefill leaves behind."""
+    s, cap = k.shape[1], kc.shape[1]
+    first = max(0, s - cap)
+    slots = torch.arange(first, s, device=k.device) % cap
+    kc[:, slots] = k[:, first:].to(kc.dtype)
+    vc[:, slots] = v[:, first:].to(vc.dtype)

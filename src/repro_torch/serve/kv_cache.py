@@ -1,4 +1,5 @@
-"""Decode state: per-layer KV caches (dense, moe), recurrent states (ssm).
+"""Decode state: per-layer KV caches (dense, moe), recurrent states (ssm,
+hybrid).
 
 Layouts as the reference's:
   dense   k/v ``(L, B, cap, Hkv, hd)``, ``cap = min(max_len, window or inf)``;
@@ -9,6 +10,11 @@ Layouts as the reference's:
   rwkv6   ``rwkv_S`` (L, B, H, K, V) float32; ``tmix_last`` / ``cmix_last``
           (L, B, D), the last normed time-mix / channel-mix inputs, in the
           compute dtype; O(1) in the context length
+  hybrid  ``mamba_ssm`` (L, B, H, K, hd) float32 and ``mamba_conv``
+          (L, B, 3, D_inner), the conv's trailing context, in the compute
+          dtype, per Mamba2 block; ``k_cache`` / ``v_cache`` (L /
+          attn_every, B, cap, Hkv, hd), one per application point of the
+          shared block
 ``cache_len`` is a Python int, the number of tokens already written.  Unlike
 the reference's functional updates, the port writes the state in place.
 """
@@ -20,7 +26,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..device import resolve_device
-from ..models.transformer import attention_stacks
+from ..models.transformer import attention_stacks, ssm_heads
 
 
 def attn_cache_len(cfg, max_len: int) -> int:
@@ -41,6 +47,18 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
                                       dtype=torch.float32, device=dev),
                 "tmix_last": torch.zeros(last, dtype=dtype, device=dev),
                 "cmix_last": torch.zeros(last, dtype=dtype, device=dev)}
+    if cfg.family == "hybrid":
+        h, d_in = ssm_heads(cfg), cfg.d_model * cfg.ssm_expand
+        kv = (cfg.num_layers // cfg.attn_every, batch,
+              attn_cache_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim_)
+        return {"cache_len": 0,
+                "mamba_ssm": torch.zeros(
+                    (cfg.num_layers, batch, h, cfg.ssm_state, d_in // h),
+                    dtype=torch.float32, device=dev),
+                "mamba_conv": torch.zeros((cfg.num_layers, batch, 3, d_in),
+                                          dtype=dtype, device=dev),
+                "k_cache": torch.zeros(kv, dtype=dtype, device=dev),
+                "v_cache": torch.zeros(kv, dtype=dtype, device=dev)}
     state: Dict[str, Any] = {"cache_len": 0}
     for key, n, _ in attention_stacks(cfg):
         shape = (n, batch, attn_cache_len(cfg, max_len), cfg.num_kv_heads,

@@ -28,7 +28,11 @@ masks, at chip_smoke.py's shapes, through every VB and both load paths
 (cp.async ring, direct), on the model's ``split_heads`` views without a
 copy; a CUDA prefill never calls the float32 precompute; reduced rwkv6-3b
 prefill on ``cuda`` of 40, 12 and 7 tokens (chunks 8, 12 and 7) launches
-it once per layer and matches ``device="cpu"``.
+it once per layer and matches ``device="cpu"``.  The hybrid family:
+attention at zamba2's head_dim 80 (MHA 32 / 32, GQA, windows, ragged S),
+the recurrence as ``mamba2_apply`` calls it (float32, inclusive, K 64 /
+V 128, q broadcast over the heads), and reduced zamba2's ``generate``
+against the CPU with its launches counted.
 """
 
 import numpy as np
@@ -92,7 +96,7 @@ def _check(q, k, v, variant=None, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("b,s,hq,hkv", [
     (2, 128, 4, 4),      # MHA
     (1, 256, 8, 2),      # GQA
@@ -152,7 +156,7 @@ def test_kernel_gqa_groups_and_variants(cuda, hq, hkv, hd, variant):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
 def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
     """q/k/v as strided views of one (B, S, (Hq + 2 Hkv) * hd) tensor, the
@@ -171,7 +175,7 @@ def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
     """The C side's dispatch_hd and the wrapper's check_layout name the
     same variant for every (dtype, head_dim)."""
@@ -859,6 +863,84 @@ def test_moe_generate_launches_attention_once_per_layer(cuda):
     res = generate(lm_gpu, toks.to(cuda), 6)
     torch.cuda.synchronize()
     assert fa.launches == cfg.num_layers and kr.launches == pm.launches == 0
+    ref = generate(lm_cpu, toks, 6)
+    assert torch.equal(res.tokens.cpu(), ref.tokens)
+    torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family: attention at head_dim 80, the recurrence as Mamba2
+# calls it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s", [(4, 2048), (1, 300)])
+def test_kernel_at_the_zamba2_shape(cuda, b, s, dtype):
+    """zamba2-2.7b's shared attention: MHA 32 / 32, head_dim 80, causal:
+    the mma kernel (mma.sync in bf16, FMAs in float32)."""
+    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    _check(*_qkv(cuda, b, s, 32, 32, 80, dtype, seed=s), variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1, 127, 129, 300])
+@pytest.mark.parametrize("hq,hkv,window", [(8, 2, None), (4, 4, 48),
+                                           (8, 1, 200)],
+                         ids=["gqa4", "window48", "mqa-window200"])
+def test_kernel_hd80_groups_windows_and_edges(cuda, hq, hkv, window, s,
+                                              dtype):
+    _check(*_qkv(cuda, 2, s, hq, hkv, 80, dtype, seed=s + hq), window=window)
+
+
+def _mamba2_operands(dev, b, h, t, dk, dv, seed=0):
+    """The recurrence's operands as ``mamba2_apply`` builds them: float32
+    q = C broadcast over the heads (head stride 0), k = B·dt (B,H,T,K), v
+    the (B,H,T,hd) view of a (B,T,H·hd) tensor, and the scalar log decay
+    dt·A made contiguous over K."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    c, bb = (torch.randn(b, t, dk, generator=g).to(dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(b, t, h, generator=g)
+                                      ).to(dev)
+    a = -torch.exp(torch.randn(h, generator=g) * 0.5).to(dev)
+    xi = torch.randn(b, t, h * dv, generator=g).to(dev)
+    q = c[:, None].expand(b, h, t, dk)
+    k = bb[:, None] * dt.transpose(1, 2)[..., None]
+    v = xi.view(b, t, h, dv).transpose(1, 2)
+    ld = (dt * a).transpose(1, 2)[..., None].expand(b, h, t, dk).contiguous()
+    return q, k, v, ld
+
+
+@pytest.mark.parametrize("b,t", [(4, 2048), (2, 256)])
+def test_rwkv6_mamba2_call_matches_plain(cuda, b, t):
+    """The served path's call: inclusive mask, no bonus, float32, B·H 160
+    (40 heads), K 64, V 128, chunk 16, from the head-broadcast views; out
+    and final S within 1e-4 of the plain version, read in place (the ring
+    takes the zero head stride)."""
+    q, k, v, ld = _mamba2_operands(cuda, b, 40, t, 64, 128, seed=t)
+    assert q.stride(1) == 0 and not v.is_contiguous()
+    plan = _check_rwkv(q, k, v, ld, None, 16)
+    assert plan["loads"] == "ring"
+
+
+def test_hybrid_generate_launches_each_kernel_per_block(cuda):
+    """Reduced zamba2 (4 Mamba2 blocks, the shared block every 2) in
+    float32 through ``generate``: the recurrence once per Mamba2 block and
+    attention once per application point in prefill, neither in decode;
+    tokens equal and logits within 1e-4 of the CPU's."""
+    from repro_torch.launch.serve import generate
+    cfg = configs.reduced(configs.get_config("zamba2-2.7b"), dtype="float32",
+                          num_layers=4)
+    lm_cpu = LM.init(cfg, seed=2, device="cpu")
+    lm_gpu = LM(cfg, lm_cpu.params).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    fa.launches = kr.launches = pm.launches = 0
+    res = generate(lm_gpu, toks.to(cuda), 6)
+    torch.cuda.synchronize()
+    assert kr.launches == cfg.num_layers
+    assert fa.launches == cfg.num_layers // cfg.attn_every
+    assert pm.launches == 0
     ref = generate(lm_cpu, toks, 6)
     assert torch.equal(res.tokens.cpu(), ref.tokens)
     torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,

@@ -25,6 +25,7 @@ import repro_torch  # noqa: E402
 from repro_torch import bridge, configs  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
 from repro_torch.kernels import rwkv6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -139,6 +140,20 @@ def test_moe_entry_points_default_to_cuda_and_raise(no_card, entry):
     cfg = configs.reduced(configs.get_config("deepseek-moe-16b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(cfg)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: transformer.init_lm(cfg),
+    lambda cfg: transformer.LM.init(cfg),
+    lambda cfg: kv_cache.init_decode_state(cfg, 1, 8),
+    lambda cfg: serve.main(["--arch", "zamba2-2.7b", "--reduced"]),
+], ids=["init_lm", "LM.init", "init_decode_state", "serve.main"])
+def test_hybrid_entry_points_default_to_cuda_and_raise(no_card, entry):
+    cfg = configs.reduced(configs.get_config("zamba2-2.7b"), num_layers=4)
+    before = (fa.launches, rwkv6.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg)
+    assert (fa.launches, rwkv6.launches) == before
 
 
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])

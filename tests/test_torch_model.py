@@ -60,11 +60,14 @@ def _tokens(cfg, b=2, s=24, seed=1):
     lambda m: m.reduced(m.get_config("deepseek-moe-16b"), dtype="float32"),
     lambda m: m.get_config("mixtral-8x22b"),
     lambda m: m.reduced(m.get_config("mixtral-8x22b"), dtype="float32"),
+    lambda m: m.get_config("zamba2-2.7b"),
+    lambda m: m.reduced(m.get_config("zamba2-2.7b"), dtype="float32",
+                        num_layers=4),
 ], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
         "rwkv6-reduced-f32", "olmo-full", "olmo-reduced-f32", "qwen-full",
         "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32",
         "deepseek-full", "deepseek-reduced-f32", "mixtral-full",
-        "mixtral-reduced-f32"])
+        "mixtral-reduced-f32", "zamba2-full", "zamba2-reduced-f32"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -142,11 +145,12 @@ def test_compute_params_keep_norms_f32_and_cast_matrices():
     assert lm.compute_params() is cp          # made once
 
 
-UNPORTED = (r"dense family \(slice 1\), the ssm family \(slice 3\) and "
-            r"the moe family \(slice 5a\)")
+UNPORTED = (r"dense family \(slice 1\), the ssm family \(slice 3\), "
+            r"the moe family \(slice 5a\) and the hybrid family "
+            r"\(slice 5b\)")
 
 
-@pytest.mark.parametrize("arch_family", ["vlm", "hybrid", "audio"])
+@pytest.mark.parametrize("arch_family", ["vlm", "audio"])
 def test_unported_families_raise(arch_family):
     cfg = dataclasses.replace(
         tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family=arch_family,
@@ -166,6 +170,21 @@ def test_ssm_family_runs():
     assert tuple(logits.shape) == (2, 7, tc.vocab_size)
     assert logits.dtype == torch.bfloat16 and aux.item() == 0.0
     assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_hybrid_family_runs():
+    """The hybrid family, which slice 5b ports, inits and runs forward; a
+    depth that is not a multiple of ``attn_every`` is refused, as the
+    reference's reshape into groups refuses it."""
+    tc = tcfg.reduced(tcfg.get_config("zamba2-2.7b"), num_layers=4)
+    lm = TT.LM.init(tc, seed=0, device="cpu")
+    logits, aux = TT.forward(lm.compute_params(), tc,
+                             torch.zeros(2, 7, dtype=torch.long))
+    assert tuple(logits.shape) == (2, 7, tc.vocab_size)
+    assert logits.dtype == torch.bfloat16 and aux.item() == 0.0
+    assert bool(torch.isfinite(logits.float()).all())
+    with pytest.raises(ValueError, match="multiple of attn_every"):
+        TT.init_lm(dataclasses.replace(tc, num_layers=5), device="cpu")
 
 
 @pytest.mark.parametrize("s", [24, 13], ids=["chunk-8", "chunk-13"])
@@ -214,8 +233,8 @@ def _olmo():
 
 def test_port_registers_the_dense_family():
     assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b", "nemotron-4-340b",
-            "rwkv6-3b", "deepseek-moe-16b",
-            "mixtral-8x22b"} == set(tcfg.list_configs())
+            "rwkv6-3b", "deepseek-moe-16b", "mixtral-8x22b",
+            "zamba2-2.7b"} == set(tcfg.list_configs())
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",

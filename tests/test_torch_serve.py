@@ -122,7 +122,7 @@ def test_serve_main_rejects_zero_gen():
 
 def test_unknown_arch_is_refused():
     with pytest.raises(KeyError, match="tinyllama"):
-        tserve.main(["--arch", "zamba2-2.7b", "--reduced", "--device",
+        tserve.main(["--arch", "whisper-base", "--reduced", "--device",
                      "cpu"])
 
 
