@@ -20,6 +20,11 @@ Phases, in order; any failure exits non-zero before the result line:
                head-dim cases,
                at the wgmma kernel's tile edges (S 1, 127, 129, 300 with
                windows 48 and 200) and on views of a fused qkv projection,
+               non-causal with Sq != Skv at whisper-base's encoder (B 16,
+               1500 x 1500, 8 / 8 heads of 64) and cross (224 x 1500)
+               shapes and at (Sq, Skv) (224, 1500), (1500, 224), (1,
+               1500), (129, 63), (300, 1) for bf16 head_dim 64 / 128 / 80
+               and float32, with GQA cases,
                on both kernels of the source (bf16 within one bf16 ulp of the
                output, float32 1e-4); the segment
                max at the lane engine's dispatch shapes, empty segments and
@@ -98,7 +103,20 @@ Phases, in order; any failure exits non-zero before the result line:
                (mma_sync) and the recurrence 54 times, decode neither, the
                segment max never; teacher forcing within 0.15 / 0.05.  Logs
                the bounds by part (``hybrid_prefill_parts``,
-               ``hybrid_decode_bytes``).  The model is freed before phase 5.
+               ``hybrid_decode_bytes``).  The model is freed before phase 4f.
+  4f. serve-audio — the same for full-width, full-depth whisper-base (6
+               encoder + 6 decoder layers, d_model 512, 8 / 8 heads of 64,
+               gelu d_ff 2048, vocab 51865; 97 M parameters, float32
+               masters, bf16 compute, seed 0) at 16 requests of 1500 frame
+               embeddings (seeded normals, handed over in bf16) and a
+               224-token prompt, 32 greedy decode steps, caches of 1536
+               rows.  A prefill and the teacher-forced forward must launch
+               flash attention 18 times (6 encoder, 6 self, 6 cross, every
+               launch wgmma_tma), decode never, the other kernels never;
+               teacher forcing within 0.15 / 0.05 in bf16, float32 compute
+               recorded beside it.  Logs the bounds by part
+               (``audio_prefill_parts``, ``audio_decode_bytes``).  The model
+               is freed before phase 5.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -119,7 +137,8 @@ Phases, in order; any failure exits non-zero before the result line:
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
                events), flash attention at deepseek-moe-16b's and
-               zamba2-2.7b's too; the
+               zamba2-2.7b's too, and at whisper-base's encoder and cross
+               shapes (non-causal, SDPA with is_causal=False); the
                attention variant the path took and the ptxas
                report (registers, spills, wgmma serialisation) of each
                attention variant; the segment max at the grid's p50 / p90 /
@@ -140,7 +159,6 @@ The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 
-import copy
 import json
 import re
 import subprocess
@@ -172,6 +190,14 @@ RWKV_PATH, RWKV_CHUNK = (BATCH, 40, PROMPT, 64, 64), 16
 MAMBA_PATH = (BATCH, 40, PROMPT, 64, 128)
 # zamba2-2.7b's shared attention: 32 / 32 heads of 80
 ZAMBA_ATTN = (BATCH, PROMPT, 32, 32, 80)
+# whisper-base served (phase 4f): 16 requests of 1500 frame embeddings
+# (n_audio_ctx) and a 224-token prompt (n_text_ctx // 2), caches of 1536
+# rows so that no frame is trimmed; its attention shapes, (B, Sq, Hq, Hkv,
+# hd, Skv): the encoder's (non-causal) and the cross attention's
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT = 16, 1500, 224
+WHISPER_MAX_LEN = 1536
+WHISPER_ENC = (WHISPER_BATCH, WHISPER_FRAMES, 8, 8, 64, WHISPER_FRAMES)
+WHISPER_CROSS = (WHISPER_BATCH, WHISPER_PROMPT, 8, 8, 64, WHISPER_FRAMES)
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12
@@ -290,7 +316,7 @@ def rwkv6_bound(bh: int, t: int, dk: int, dv: int, chunk: int,
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def serve_bounds(cfg, batch: int, prompt: int, steps: int):
+def serve_bounds(cfg, batch: int, prompt: int, steps: int, frames: int = 0):
     """Least time of the served path on the card, from its shapes.
 
     Prefill: the bf16 products of every layer matrix over all prompt tokens,
@@ -301,7 +327,9 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
     cache (its mean over the steps) or the float32 recurrent state (read and
     written), over the memory rate.  The moe family: ``moe_prefill_parts``
     and ``moe_decode_bytes``; the hybrid family: ``hybrid_prefill_parts``
-    and ``hybrid_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
+    and ``hybrid_decode_bytes``; the audio family (``frames`` frame
+    embeddings a request): ``audio_prefill_parts`` and
+    ``audio_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
     recurrence's share of prefill_ms).
     """
     d, L = cfg.d_model, cfg.num_layers
@@ -331,6 +359,10 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int):
         return (sum(parts.values()),
                 hybrid_decode_bytes(cfg, batch, prompt, steps) / PEAK_BYTES
                 * 1e3, parts["recurrence"])
+    if cfg.family == "audio":
+        return (sum(audio_prefill_parts(cfg, batch, prompt, frames).values()),
+                audio_decode_bytes(cfg, batch, prompt, frames, steps)
+                / PEAK_BYTES * 1e3, 0.0)
     hd = cfg.head_dim_
     per_layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
                  + 3 * d * cfg.d_ff)
@@ -429,6 +461,52 @@ def hybrid_decode_bytes(cfg, batch: int, prompt: int, steps: int) -> float:
     return 2 * (mats + kv) + ssm + conv
 
 
+def audio_matrices(cfg):
+    """(weights of one encoder layer's products: q / k / v / o and the gelu
+    MLP; of one decoder layer's: its self-attention's q / k / v / o, the
+    MLP, and its cross attention's q / o; of one cross attention's k / v,
+    which project the encoder's output)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    mlp = 2 * d * cfg.d_ff
+    return (attn + mlp, attn + mlp + 2 * d * cfg.num_heads * hd,
+            2 * d * cfg.num_kv_heads * hd)
+
+
+def audio_prefill_parts(cfg, batch: int, prompt: int, frames: int) -> dict:
+    """Least time of each part of an audio prefill on the card, ms, all bf16
+    products at 989 TFLOP/s: the encoder's matrices over every frame, the
+    cross K/V projections of the encoder's output (every decoder layer),
+    the decoder's matrices over every prompt token, the lm_head at the last
+    position, and attention's live pairs: the encoder's frames x frames,
+    the decoder's causal prompt pairs and the cross prompt x frames."""
+    enc, dec, cross = audio_matrices(cfg)
+    hd, hq, L = cfg.head_dim_, cfg.num_heads, cfg.num_layers
+    pairs = (cfg.encoder_layers * live_pairs(frames, frames, False, None)
+             + L * live_pairs(prompt, prompt, True, None)
+             + L * prompt * frames)
+    flops = {
+        "encoder products": 2 * enc * batch * frames * cfg.encoder_layers,
+        "cross K/V projections": 2 * cross * batch * frames * L,
+        "decoder products": 2 * dec * batch * prompt * L,
+        "attention": 4 * hd * hq * batch * pairs,
+        "lm_head": 2 * cfg.d_model * cfg.vocab_size * batch,
+    }
+    return {k: v / PEAK_BF16_FLOPS * 1e3 for k, v in flops.items()}
+
+
+def audio_decode_bytes(cfg, batch: int, prompt: int, frames: int,
+                       steps: int) -> float:
+    """Bytes an audio decode step must read, bf16: the decoder's matrices
+    (the cross K/V projections are not run in decode), the lm_head, the
+    valid self K/V (its mean over the steps) and the valid cross K/V."""
+    _, dec, _ = audio_matrices(cfg)
+    L, kvw = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim_
+    mats = L * dec + cfg.d_model * cfg.vocab_size
+    kv = L * 2 * batch * (prompt + steps / 2 + frames) * kvw
+    return 2 * (mats + kv)
+
+
 def moe_decode_bytes(cfg, batch: int, prompt: int, steps: int) -> float:
     """Bytes a moe decode step must read: every matrix in bf16, every
     expert's too (the dense dispatch runs them all at capacity 8), the
@@ -517,16 +595,20 @@ def allclose_margin(out, ref, atol: float, rtol: float) -> float:
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
-def profile_serve(lm, prompts, tokens, kinds=KERNEL_KINDS) -> None:
-    """Profile one prefill and 8 decode steps of the served model."""
+def profile_serve(lm, prompts, tokens, kinds=KERNEL_KINDS, frames=None,
+                  max_len=None) -> None:
+    """Profile one prefill and 8 decode steps of the served model (the
+    audio family: on ``frames``, with caches of ``max_len`` rows)."""
     import torch
     from repro_torch.serve.decode import decode_step, prefill
     cfg, params = lm.cfg, lm.compute_params()
-    max_len = prompts.shape[1] + 9
+    max_len = max_len or prompts.shape[1] + 9
+    enc_params = lm.params if frames is not None else None
     with torch.inference_mode():
         box = {}
         device_profile("prefill", lambda: box.update(
-            st=prefill(params, cfg, prompts, max_len)[1]), kinds=kinds)
+            st=prefill(params, cfg, prompts, max_len, frame_embeds=frames,
+                       encoder_params=enc_params)[1]), kinds=kinds)
 
         def decode8():
             st = box["st"]
@@ -857,17 +939,48 @@ def counted(expect: dict, fn):
     return out, got, got == {name: expect.get(name, 0) for name in mods}
 
 
+def greedy_decode(params, cfg, prompts, max_len: int, frames=None):
+    """Prefill and DECODE_STEPS greedy decode steps of ``cfg`` on
+    ``params`` (the audio family: on ``frames``): (the last decode logits
+    (B, V), prompt + the tokens the steps were fed, over which a
+    teacher-forced forward must give those logits at its last position)."""
+    import torch
+    from repro_torch.serve.decode import decode_step, prefill
+    with torch.inference_mode():
+        logits, state = prefill(params, cfg, prompts, max_len,
+                                frame_embeds=frames)
+        toks = [logits.argmax(dim=-1)]
+        for _ in range(DECODE_STEPS):
+            logits, state = decode_step(params, cfg, toks[-1], state)
+            toks.append(logits.argmax(dim=-1))
+    return logits[:, 0], torch.cat([prompts, *toks[:-1]], dim=1)
+
+
+def forward_last_logits(params, cfg, tokens, expect: dict, frames=None,
+                        sink=None):
+    """A teacher-forced forward over ``tokens`` (the audio family: on
+    ``frames``), its launches counted by ``counted``: (the last position's
+    logits (B, V), each kernel's launches, whether they are ``expect``'s)."""
+    import torch
+    from repro_torch.models.transformer import (hidden_states,
+                                                logits_from_hidden)
+    with torch.inference_mode():
+        x, launched, ok = counted(expect, lambda: hidden_states(
+            params, cfg, tokens, sink=sink, frame_embeds=frames)[0])
+        return logits_from_hidden(params, cfg, x[:, -1:])[:, 0], launched, ok
+
+
 def teacher_forcing(lm, prompts, res, expect: dict,
-                    gate: bool = True) -> None:
+                    gate: bool = True, frames=None) -> None:
     """The last decode logits of ``res`` against a forward over prompt +
-    generated tokens, bf16, at atol SERVE_ATOL / rtol SERVE_RTOL; the
-    forward must launch each kernel as often as a prefill does
-    (``expect``), the others never."""
+    generated tokens (the audio family: on the same ``frames``), bf16, at
+    atol SERVE_ATOL / rtol SERVE_RTOL; the forward must launch each kernel
+    as often as a prefill does (``expect``), the others never."""
     import torch
     cfg = lm.cfg
     with torch.inference_mode():
         full, tf_launches, as_expected = counted(expect, lambda: lm(
-            torch.cat([prompts, res.tokens[:, :-1]], dim=1))[:, -1])
+            torch.cat([prompts, res.tokens[:, :-1]], dim=1), frames)[:, -1])
     dec = res.last_logits[:, 0].float()
     err = (full.float() - dec).abs().max().item()
     agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
@@ -902,9 +1015,6 @@ def moe_teacher_forcing(lm, prompts, expect: dict) -> None:
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import generate
-    from repro_torch.models.transformer import (hidden_states,
-                                                logits_from_hidden)
-    from repro_torch.serve.decode import decode_step, prefill
     cfg = lm.cfg
     lm.cfg = dataclasses.replace(cfg, moe_capacity_factor=TF_CAPACITY_FACTOR)
     calls, restore = route_recorder(prompts.shape[0])
@@ -927,19 +1037,10 @@ def moe_teacher_forcing(lm, prompts, expect: dict) -> None:
                                 moe_capacity_factor=TF_CAPACITY_FACTOR)
     params = lm.params
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        logits, state = prefill(params, cfg32, prompts,
+    dec, tokens = greedy_decode(params, cfg32, prompts,
                                 prompts.shape[1] + DECODE_STEPS + 1)
-        toks = [logits.argmax(dim=-1)]
-        for _ in range(DECODE_STEPS):
-            logits, state = decode_step(params, cfg32, toks[-1], state)
-            toks.append(logits.argmax(dim=-1))
-        del state
-        x, tf_launches, as_expected = counted(expect, lambda: hidden_states(
-            params, cfg32, torch.cat([prompts, *toks[:-1]], dim=1))[0])
-        full = logits_from_hidden(params, cfg32, x[:, -1:])[:, 0]
-        del x
-    dec = logits[:, 0]
+    full, tf_launches, as_expected = forward_last_logits(params, cfg32,
+                                                         tokens, expect)
     err = (full - dec).abs().max().item()
     log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
         f"compute from the bf16 weights, capacity factor "
@@ -955,7 +1056,7 @@ def moe_teacher_forcing(lm, prompts, expect: dict) -> None:
                           rtol=MOE_TF_F32_TOL):
         fail(f"{cfg.name} decode logits disagree with the teacher-forced "
              f"forward in float32")
-    del full, logits
+    del full, dec
     torch.cuda.empty_cache()
 
 
@@ -975,38 +1076,27 @@ def hybrid_teacher_forcing(lm, prompts, res, expect: dict) -> None:
     ``expect`` says.  The gate is (b)."""
     import dataclasses
     import torch
-    from repro_torch.models.transformer import (hidden_states,
-                                                logits_from_hidden)
-    from repro_torch.serve.decode import decode_step, prefill
     cfg = lm.cfg
     teacher_forcing(lm, prompts, res, expect, gate=False)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = lm.params
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        logits, state = prefill(params, cfg32, prompts,
+    dec, tokens = greedy_decode(params, cfg32, prompts,
                                 prompts.shape[1] + DECODE_STEPS + 1)
-        toks = [logits.argmax(dim=-1)]
-        for _ in range(DECODE_STEPS):
-            logits, state = decode_step(params, cfg32, toks[-1], state)
-            toks.append(logits.argmax(dim=-1))
-        del state
-        tokens = torch.cat([prompts, *toks[:-1]], dim=1)
-        sinks = {}
+    sinks = {}
 
-        def last_logits(p, c, name):
-            sinks[name] = []
-            x, launched, ok = counted(expect, lambda: hidden_states(
-                p, c, tokens, sink=sinks[name])[0])
-            sinks[name] = [k[:, -1].float() for k, v in sinks[name]
-                           if v.dim() == 4]       # (k, v), not (S, conv)
-            if not ok:
-                fail(f"the {name} forward launched {launched}, expected "
-                     f"{expect}")
-            return logits_from_hidden(p, c, x[:, -1:])[:, 0].float()
-        full = last_logits(params, cfg32, "float32")
-        full16 = last_logits(lm.compute_params(), cfg, "bf16")
-    dec = logits[:, 0]
+    def last_logits(p, c, name):
+        sinks[name] = []
+        out, launched, ok = forward_last_logits(p, c, tokens, expect,
+                                                sink=sinks[name])
+        sinks[name] = [k[:, -1].float() for k, v in sinks[name]
+                       if v.dim() == 4]       # (k, v), not (S, conv)
+        if not ok:
+            fail(f"the {name} forward launched {launched}, expected "
+                 f"{expect}")
+        return out.float()
+    full = last_logits(params, cfg32, "float32")
+    full16 = last_logits(lm.compute_params(), cfg, "bf16")
     err = (full - dec).abs().max().item()
     log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
         f"compute from the float32 masters: max_abs_err {err:.3e} (tol "
@@ -1036,8 +1126,54 @@ def hybrid_teacher_forcing(lm, prompts, res, expect: dict) -> None:
                           rtol=HYBRID_TF_F32_TOL):
         fail(f"{cfg.name} decode logits disagree with the teacher-forced "
              f"forward in float32")
-    del full, logits
+    del full, dec
     torch.cuda.empty_cache()
+
+
+def audio_f32_teacher_forcing(lm, prompts, frames, expect: dict,
+                              max_len: int) -> None:
+    """Recorded beside the bf16 gate: float32 compute from the float32
+    masters on the same frames in float32, prefill and greedy decode steps
+    against the forward over prompt + generated tokens (the forward must
+    launch as ``expect`` says)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cfg = lm.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params, frames32 = lm.params, frames.float()
+    t0 = time.perf_counter()
+    dec, tokens = greedy_decode(params, cfg32, prompts, max_len, frames32)
+    full, launched, ok = forward_last_logits(params, cfg32, tokens, expect,
+                                             frames32)
+    log(f"{cfg.name} teacher-forced forward vs last decode logits, float32 "
+        f"compute from the float32 masters (recorded): max_abs_err "
+        f"{(full - dec).abs().max().item():.3e}; argmax agreement "
+        f"{(full.argmax(-1) == dec.argmax(-1)).float().mean().item():.2f}; "
+        f"kernel launches {launched} ({fa.last_variant}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        fail(f"the float32 forward launched {launched}, expected {expect}")
+    del full, dec
+    torch.cuda.empty_cache()
+
+
+def attention_variants(fn):
+    """Run ``fn`` with ``ops.flash_attention`` wrapped here (for this call
+    only) to record the variant of every attention launch; returns (its
+    result, the variants in launch order)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    launch, seen = ops.flash_attention, []
+
+    def recording(*args, **kwargs):
+        out = launch(*args, **kwargs)
+        seen.append(fa.last_variant)
+        return out
+    ops.flash_attention = recording
+    out = fn()
+    ops.flash_attention = launch
+    return out, seen
 
 
 def mamba2_rounding(lm, prompts) -> list:
@@ -1126,6 +1262,11 @@ def describe(cfg, param_dtype: str) -> str:
                f"{cfg.attn_every} ({cfg.num_layers // cfg.attn_every} "
                f"points): {cfg.num_heads} heads, {cfg.num_kv_heads} kv heads "
                f"of {cfg.head_dim_}, {cfg.act} d_ff {cfg.d_ff}")
+    elif cfg.family == "audio":
+        mix = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+               f"layers (each decoder layer with a cross attention), "
+               f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
+               f"{cfg.head_dim_}, {cfg.act} d_ff {cfg.d_ff}")
     elif cfg.family == "moe":
         mix = (f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads of "
                f"{cfg.head_dim_}, {cfg.moe_first_dense} dense layer(s) of "
@@ -1140,16 +1281,22 @@ def describe(cfg, param_dtype: str) -> str:
             f"params held in {param_dtype}, {cfg.dtype} compute")
 
 
-def serve_phase(dev, arch: str, expect: dict,
-                param_dtype: str = "float32") -> dict:
-    """Phases 4, 4b, 4d and 4e: full-width ``arch`` (seeded random weights,
-    held in ``param_dtype``) through ``generate``.  ``expect`` gives each
-    kernel's launches in a prefill: the main run (prefill and decode) and
-    the teacher-forced forward must launch each exactly that often, every
-    other kernel never.  The moe family also logs the share of pairs
+def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
+                batch: int = BATCH, prompt: int = PROMPT, frames: int = 0,
+                max_len=None) -> dict:
+    """Phases 4, 4b, 4d, 4e and 4f: full-width ``arch`` (seeded random
+    weights, held in ``param_dtype``) through ``generate``, ``batch``
+    prompts of ``prompt`` tokens (the audio family: with ``frames`` frame
+    embeddings each, seeded normals from numpy handed over in bf16 as a
+    bf16 frontend would, and caches of ``max_len`` rows).  ``expect`` gives
+    each kernel's launches in a prefill: the main run (prefill and decode)
+    and the teacher-forced forward must launch each exactly that often,
+    every other kernel never.  The moe family also logs the share of pairs
     dropped at capacity, and is held against teacher forcing at
-    TF_CAPACITY_FACTOR on the same weights.  Returns each kernel's launches
-    in the main run."""
+    TF_CAPACITY_FACTOR on the same weights; every attention launch of the
+    audio family's main run must take the wgmma variant.  Returns each
+    kernel's launches in the main run."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, make_prompts
@@ -1161,23 +1308,31 @@ def serve_phase(dev, arch: str, expect: dict,
     lm = LM.init(cfg, seed=0, device=dev, dtype=getattr(torch, param_dtype))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = make_prompts(cfg, BATCH, PROMPT, seed=0, device=dev)
+    prompts = make_prompts(cfg, batch, prompt, seed=0, device=dev)
+    fe = None
+    if frames:
+        fe = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (batch, frames, cfg.d_model), dtype=np.float32)).to(
+            dev, torch.bfloat16)
     log(f"{describe(cfg, param_dtype)}; init {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held, init peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    generate(lm, prompts, 2)          # warm-up: allocator, cuBLAS, kernel
-    _, per_prefill, prefill_ok = counted(
-        expect, lambda: generate(lm, prompts, 1))      # a prefill alone
+
+    def serve(n):
+        return generate(lm, prompts, n, fe, max_len)
+    serve(2)                          # warm-up: allocator, cuBLAS, kernel
+    _, per_prefill, prefill_ok = counted(expect, lambda: serve(1))
     torch.cuda.reset_peak_memory_stats()
-    res, launches, run_ok = counted(
-        expect, lambda: generate(lm, prompts, DECODE_STEPS + 1))
+    (res, variants), launches, run_ok = counted(
+        expect, lambda: attention_variants(lambda: serve(DECODE_STEPS + 1)))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"{cfg.name} prefill {BATCH}x{PROMPT}: {res.prefill_s * 1e3:.2f} ms; "
+    shape = f"{batch}x{prompt}" + (f" on {frames} frames" if frames else "")
+    log(f"{cfg.name} prefill {shape}: {res.prefill_s * 1e3:.2f} ms; "
         f"decode {res.decode_s / DECODE_STEPS * 1e3:.3f} ms/step, "
-        f"{DECODE_STEPS * BATCH / res.decode_s:.1f} tok/s; "
-        f"peak memory {peak_gb:.2f} GiB")
-    pre_bound, dec_bound, rec_ms = serve_bounds(cfg, BATCH, PROMPT,
-                                                DECODE_STEPS)
+        f"{DECODE_STEPS * batch / res.decode_s:.1f} tok/s; "
+        f"peak memory {peak_gb:.2f} GiB; {nvidia_smi()}")
+    pre_bound, dec_bound, rec_ms = serve_bounds(cfg, batch, prompt,
+                                                DECODE_STEPS, frames)
     if cfg.family == "moe":
         pre_how = "; ".join(f"{k} {v:.3f}" for k, v in moe_prefill_parts(
             cfg, BATCH, PROMPT).items()) + " ms"
@@ -1189,6 +1344,10 @@ def serve_phase(dev, arch: str, expect: dict,
             cfg, BATCH, PROMPT).items()) + (
             f" ms: bf16 products at 989 TFLOP/s, {cfg.num_layers} recurrence "
             f"calls at their bound")
+    elif cfg.family == "audio":
+        pre_how = "; ".join(f"{k} {v:.4f}" for k, v in audio_prefill_parts(
+            cfg, batch, prompt, frames).items()) + (
+            " ms: bf16 products at 989 TFLOP/s")
     elif rec_ms:
         pre_how = (f"{pre_bound - rec_ms:.3f} ms of bf16 products at 989 "
                    f"TFLOP/s + {rec_ms:.3f} ms for {cfg.num_layers} "
@@ -1201,12 +1360,16 @@ def serve_phase(dev, arch: str, expect: dict,
         f"{res.decode_s / DECODE_STEPS * 1e3 / dec_bound:.1f}x")
     log(f"kernel launches on the {cfg.name} path: {per_prefill} per prefill"
         f" alone, {launches} in prefill + {DECODE_STEPS} decode steps; "
-        f"expected {expect} in both, the others 0")
+        f"expected {expect} in both, the others 0; attention variants of "
+        f"the main run: {dict((v, variants.count(v)) for v in set(variants))}")
     if not (prefill_ok and run_ok):
         fail(f"{cfg.name} launches: {per_prefill} per prefill and "
              f"{launches} with decode, expected {expect} in both (none in "
              f"decode)")
-    if tuple(res.tokens.shape) != (BATCH, DECODE_STEPS + 1):
+    if cfg.family == "audio" and set(variants) != {"wgmma_tma"}:
+        fail(f"{cfg.name}'s attention launches took {variants}, not only "
+             f"wgmma_tma")
+    if tuple(res.tokens.shape) != (batch, DECODE_STEPS + 1):
         fail(f"{cfg.name} generated tokens of shape "
              f"{tuple(res.tokens.shape)}")
     if not bool(torch.isfinite(res.last_logits.float()).all()):
@@ -1217,10 +1380,13 @@ def serve_phase(dev, arch: str, expect: dict,
     elif cfg.family == "hybrid":
         hybrid_teacher_forcing(lm, prompts, res, expect)
     else:
-        teacher_forcing(lm, prompts, res, expect)
+        teacher_forcing(lm, prompts, res, expect, frames=fe)
+    if cfg.family == "audio":
+        audio_f32_teacher_forcing(lm, prompts, fe, expect, max_len)
     profile_serve(lm, prompts, res.tokens,
-                  MOE_KINDS if cfg.family == "moe" else KERNEL_KINDS)
-    del lm, res, prompts
+                  MOE_KINDS if cfg.family == "moe" else KERNEL_KINDS, fe,
+                  max_len)
+    del lm, res, prompts, fe
     torch.cuda.empty_cache()
     return launches
 
@@ -2011,17 +2177,19 @@ def main() -> None:
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(b, s, hq, hkv, hd, dtype, fused=False):
+    def qkv(b, s, hq, hkv, hd, dtype, fused=False, skv=None):
+        """q (b, s, hq, hd), k / v (b, skv or s, hkv, hd)."""
         if fused:   # views of one (B, S, (Hq + 2 Hkv) * hd) projection
             x = torch.randn((b, s, (hq + 2 * hkv) * hd), generator=gen,
                             device=dev).to(dtype).view(b, s, hq + 2 * hkv, hd)
             return x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
-        return [torch.randn((b, s, h, hd), generator=gen, device=dev,
+        return [torch.randn((b, n, h, hd), generator=gen, device=dev,
                             dtype=torch.float32).to(dtype)
-                for h in (hq, hkv, hkv)]
+                for n, h in ((s, hq), (skv or s, hkv), (skv or s, hkv))]
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, (B, S, Hq, Hkv, hd), dtype, causal, window[, fused]
+    cases = [  # name, (B, Sq, Hq, Hkv, hd[, Skv]), dtype, causal, window[,
+        # fused]
         ("path-bf16", (BATCH, PROMPT, 32, 4, 64), bf16, True, None),
         ("path-f32", (BATCH, PROMPT, 32, 4, 64), f32, True, None),
         ("deepseek-bf16", (BATCH, PROMPT, 16, 16, 128), bf16, True, None),
@@ -2062,10 +2230,28 @@ def main() -> None:
         ("hd80-window-48", (2, 300, 8, 8, 80), bf16, True, 48),
         ("hd80-w48-f32", (2, 300, 8, 2, 80), f32, True, 48),
         ("fused-hd80", (2, 257, 8, 2, 80), bf16, True, None, True),
+        # whisper-base: non-causal with Sq != Skv (its encoder over 1500
+        # frames, its cross attention from a 224-token prompt to them):
+        # ragged tiles on both sides, one q row, one key, fewer keys than a
+        # tile, q rows of a whole consumer warpgroup past Sq; both kernels
+        ("whisper-enc", WHISPER_ENC, bf16, False, None),
+        ("whisper-cross", WHISPER_CROSS, bf16, False, None),
+        ("whisper-enc-f32", WHISPER_ENC, f32, False, None),
+        ("whisper-cross-f32", WHISPER_CROSS, f32, False, None),
+        *((f"nc-{sq}x{skv}-{tag}", (2, sq, 4, 4, hd, skv), dt, False, None)
+          for sq, skv in ((224, 1500), (1500, 224), (1, 1500), (129, 63),
+                          (300, 1))
+          for tag, hd, dt in (("hd64", 64, bf16), ("hd128", 128, bf16),
+                              ("hd80", 80, bf16), ("f32", 64, f32))),
+        ("nc-gqa-224x1500", (2, 224, 8, 2, 64, 1500), bf16, False, None),
+        ("nc-gqa-129x63-hd80", (2, 129, 8, 2, 80, 63), bf16, False, None),
+        ("nc-gqa-129x63-f32", (2, 129, 8, 2, 64, 63), f32, False, None),
     ]
     path_err = moe_err = zamba_err = None
+    whisper_err = {}
     for name, shape, dtype, causal, window, *fused in cases:
-        q, k, v = qkv(*shape, dtype, fused=bool(fused))
+        q, k, v = qkv(*shape[:5], dtype, fused=bool(fused),
+                      skv=shape[5] if len(shape) > 5 else None)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, causal, window)
@@ -2096,6 +2282,10 @@ def main() -> None:
             zamba_err = err
             if fa.last_variant != "mma_sync":
                 fail(f"zamba2's attention shape ran {fa.last_variant}")
+        if name in ("whisper-enc", "whisper-cross"):
+            whisper_err[name] = err
+            if fa.last_variant != "wgmma_tma":
+                fail(f"whisper's {name} shape ran {fa.last_variant}")
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     pm_err = check_phase_max(dev)
@@ -2133,6 +2323,12 @@ def main() -> None:
     if hybrid_variant != "mma_sync":
         fail(f"zamba2 prefill ran the {hybrid_variant} attention variant, "
              f"not mma_sync")
+
+    # 4f. the audio family: full-width whisper-base on 1500 frames ----------
+    audio_launches = serve_phase(
+        dev, "whisper-base", {"flash_attention": 18}, batch=WHISPER_BATCH,
+        prompt=WHISPER_PROMPT, frames=WHISPER_FRAMES,
+        max_len=WHISPER_MAX_LEN)
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
@@ -2194,6 +2390,31 @@ def main() -> None:
         f"{zamba_library_ms:.4f} ms, bound {zamba_bound_ms:.4f} ms "
         f"({zamba_bound_by}); {smi}")
     del zq, zk, zv, zqh, zkh, zvh
+    # whisper-base's encoder (1500 x 1500) and cross (224 x 1500) attention,
+    # non-causal, 8 / 8 heads of 64
+    audio_rows = {}
+    for name, case, shape in (("encoder", "whisper-enc", WHISPER_ENC),
+                              ("cross", "whisper-cross", WHISPER_CROSS)):
+        wq, wk, wv = qkv(*shape[:5], torch.bfloat16, skv=shape[5])
+        row = {"ms": time_ms(lambda: fa.flash_attention(wq, wk, wv,
+                                                        causal=False)),
+               "variant": fa.last_variant,
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+                   wq, wk, wv, False), iters=5)}
+        wqh, wkh, wvh = (t.transpose(1, 2).contiguous() for t in (wq, wk, wv))
+        row["library_ms"] = time_ms(lambda: sdpa(wqh, wkh, wvh,
+                                                 is_causal=False))
+        row["bound_ms"], row["bound_by"] = bound(wq, wk, wv, False, None)
+        row["max_abs_err"] = whisper_err[case]
+        row["shape"] = (f"B {shape[0]}, Sq {shape[1]}, Skv {shape[5]}, "
+                        f"{shape[2]} / {shape[3]} heads of {shape[4]}, bf16, "
+                        f"non-causal")
+        audio_rows[name] = row
+        log(f"flash_attention at whisper-base's {name} shape ({row['shape']},"
+            f" {row['variant']}): kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
+        del wq, wk, wv, wqh, wkh, wvh
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), iters=5)
     f32_bound, f32_by = bound(qf, kf, vf, True, None)
@@ -2278,6 +2499,10 @@ def main() -> None:
             "max_abs_err": zamba_err, "ms": zamba_ms,
             "plain_ms": zamba_plain_ms, "bound_ms": zamba_bound_ms,
             "bound_by": zamba_bound_by, "library_ms": zamba_library_ms},
+        "audio_path": {
+            "arch": "whisper-base",
+            "launches": audio_launches["flash_attention"],
+            **audio_rows["encoder"], "cross": audio_rows["cross"]},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",

@@ -8,8 +8,10 @@ w_down}}``; ssm ``layers/{ln1,ln2,tmix/{w_r,w_k,w_v,w_g,w_o,w_decay_a,
 w_decay_b,decay_base,bonus_u,mix_x,ln_x},cmix/{w_k,w_v,mix}}``; moe
 ``layers/moe/...`` and ``dense_layers``; hybrid ``layers/{ln,mamba/{w_in,
 w_bc,w_dt,a_log,d_skip,dt_bias,conv,w_out,norm}}`` with the unstacked
-``shared_block`` (a dense layer) and ``shared_proj``; stacked ``L`` axis,
-``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
+``shared_block`` (a dense layer) and ``shared_proj``; audio (enc-dec) the
+dense decoder ``layers`` plus ``encoder_layers`` (dense layers), the
+decoder's stacked ``cross_attn/{ln,attn}`` and ``ln_enc``; stacked ``L``
+axis, ``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
 packages compute the same function on the same numbers.
 
 Optimizer state crosses the same way: the reference's ``AdamWState(step,

@@ -53,7 +53,7 @@ class _FlashAttention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
-    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd)."""
+    """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
     _check_device("attention", q)
     return _FlashAttention.apply(q, k, v, causal, window)
 

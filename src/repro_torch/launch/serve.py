@@ -1,16 +1,22 @@
 """Serving launcher: batched greedy decoding with a KV cache (dense, moe),
-a recurrent state (ssm) or both (hybrid).
+a recurrent state (ssm), both (hybrid), or a KV cache and the encoder's
+cross K/V (audio).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --param-dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--param-dtype`` is the held weights' dtype (``RunConfig.param_dtype`` in
 the reference, float32 by default); deepseek-moe-16b's 16.4 B parameters
 fit one 80 GB card only as bf16.
+
+The audio family gets the reference's stub frames (``repro.launch.serve``):
+(batch, prompt-len, d_model) filled with 0.01 in float32, so its encoder
+runs in float32.
 
 Runs on the card unless ``--device cpu`` is given.  The first generated
 token comes from prefill, the other ``gen - 1`` from decode steps, as in
@@ -56,14 +62,23 @@ class ServeResult:
     decode_s: float             # all gen - 1 decode steps
 
 
-def generate(lm: LM, prompts: torch.Tensor, gen: int) -> ServeResult:
-    """Greedy decoding: prefill the prompts, then ``gen - 1`` decode steps."""
+def generate(lm: LM, prompts: torch.Tensor, gen: int,
+             frame_embeds: Optional[torch.Tensor] = None,
+             max_len: Optional[int] = None) -> ServeResult:
+    """Greedy decoding: prefill the prompts, then ``gen - 1`` decode steps.
+
+    ``max_len`` (default prompt + ``gen``) is the caches' capacity, which
+    for the audio family also bounds the cross K/V (``frame_embeds``
+    (B, S_enc, D), encoded in their own dtype from the held weights, as the
+    reference's prefill encodes them from its params)."""
     cfg, params = lm.cfg, lm.compute_params()
     with torch.inference_mode():
         _sync(prompts.device)
         t0 = time.perf_counter()
-        logits, state = prefill(params, cfg, prompts,
-                                max_len=prompts.shape[1] + gen)
+        logits, state = prefill(
+            params, cfg, prompts, max_len=max_len or prompts.shape[1] + gen,
+            frame_embeds=frame_embeds,
+            encoder_params=lm.params if cfg.is_encoder_decoder else None)
         tok = logits.argmax(dim=-1)
         _sync(prompts.device)
         t1 = time.perf_counter()
@@ -98,8 +113,12 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
                  dtype=getattr(torch, args.param_dtype))
     prompts = make_prompts(cfg, args.batch, args.prompt_len, seed=0,
                            device=args.device)
+    frames = None
+    if cfg.frontend == "frames":      # the reference's stub frames
+        frames = torch.full((args.batch, args.prompt_len, cfg.d_model), 0.01,
+                            dtype=torch.float32, device=prompts.device)
     fa.launches = rwkv6.launches = 0
-    res = generate(lm, prompts, args.gen)
+    res = generate(lm, prompts, args.gen, frames)
     print(f"[serve] {cfg.name} on {prompts.device}, {args.param_dtype} "
           f"weights: prefill {args.batch}x{args.prompt_len} tokens in "
           f"{res.prefill_s * 1e3:.1f} ms")

@@ -50,21 +50,35 @@ def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
     return p
 
 
+def _project(params: Params, x: torch.Tensor, name: str, heads: int,
+             head_dim: int) -> torch.Tensor:
+    """x (B, S, D) @ w{name} (+ b{name}) -> (B, S, heads, head_dim)."""
+    b, s, _ = x.shape
+    y = x @ params["w" + name].to(x.dtype)
+    if "b" + name in params:
+        y = y + params["b" + name].to(x.dtype)
+    return y.reshape(b, s, heads, head_dim)
+
+
 def qkv_project(params: Params, x: torch.Tensor, num_heads: int,
                 num_kv_heads: int, head_dim: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
-    b, s, _ = x.shape
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
-    if "bq" in params:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
-    return (q.reshape(b, s, num_heads, head_dim),
-            k.reshape(b, s, num_kv_heads, head_dim),
-            v.reshape(b, s, num_kv_heads, head_dim))
+    return (q_project(params, x, num_heads, head_dim),
+            *kv_project(params, x, num_kv_heads, head_dim))
+
+
+def q_project(params: Params, x: torch.Tensor, num_heads: int,
+              head_dim: int) -> torch.Tensor:
+    """x: (B, S, D) -> q (B,S,Hq,hd), the first part of ``qkv_project``."""
+    return _project(params, x, "q", num_heads, head_dim)
+
+
+def kv_project(params: Params, x: torch.Tensor, num_kv_heads: int,
+               head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> k/v (B,S,Hkv,hd), the rest of ``qkv_project``."""
+    return (_project(params, x, "k", num_kv_heads, head_dim),
+            _project(params, x, "v", num_kv_heads, head_dim))
 
 
 def out_project(params: Params, o: torch.Tensor) -> torch.Tensor:
@@ -201,17 +215,31 @@ def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):
 # ---------------------------------------------------------------------------
 
 def attention_block(params: Params, x: torch.Tensor, cfg,
-                    positions: torch.Tensor,
-                    kv_sink: Optional[List] = None) -> torch.Tensor:
-    """Project → rope → causal attention kernel → out-project.
+                    positions: Optional[torch.Tensor] = None,
+                    kv_sink: Optional[List] = None, *, causal: bool = True,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Project → rope → attention kernel → out-project (the reference's
+    ``attention.py:204-232``).
 
+    ``positions`` (1 or B, S): RoPE's positions, ``arange(S)`` when None.
     ``kv_sink``, when given, receives this layer's post-RoPE ``(k, v)``:
-    one-pass prefill fills the KV cache from it."""
+    one-pass prefill fills the KV cache from it.  ``kv_override``: external
+    k / v (B, Skv, Hkv, hd), cross attention: only q is projected, without
+    RoPE, and attends non-causally to all Skv keys."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if kv_override is not None:
+        q = q_project(params, x, hq, hd)
+        o = ops.attention(q, *kv_override, causal=False)
+        return out_project(params, o)
     q, k, v = qkv_project(params, x, hq, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if kv_sink is not None:
         kv_sink.append((k, v))
-    o = ops.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = ops.attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_project(params, o)

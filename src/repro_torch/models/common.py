@@ -1,4 +1,5 @@
-"""Shared model components: norms, activations, RoPE, initializers.
+"""Shared model components: norms, activations, RoPE, sinusoidal
+positions, initializers.
 
 Functional style, as in the reference: every layer is an ``init`` that
 returns a dict of tensors and an ``apply(params, x, ...)``.  Norms and RoPE
@@ -107,6 +108,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, *, device="cpu") -> torch.Tensor:
+    """(seq, d) float32: sin at the even channels, cos at the odd ones, the
+    encoder's absolute positions (the reference's ``common.py:101-108``)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

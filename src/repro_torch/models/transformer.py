@@ -1,5 +1,5 @@
-"""Decoder-LM assembly: the dense, ssm (RWKV6), moe and hybrid (zamba2)
-families.
+"""LM assembly: the dense, ssm (RWKV6), moe, hybrid (zamba2) and audio
+(whisper) families.
 
 Same parameter layout as the reference (``repro/models/transformer.py``):
 nested dicts with a stacked leading ``L`` axis on every layer leaf and
@@ -14,8 +14,11 @@ dispatch ``moe_apply_dense``, its ``moe_first_dense`` leading layers in
 ``dense_layers`` as in the reference; the hybrid family (slice 5b):
 stacked Mamba2 ``layers`` and one ``shared_block`` (an attention + MLP
 block, unstacked) applied after every ``attn_every`` of them on
-``concat(h, x0) @ shared_proj``.  The audio and vlm families raise
-``NotImplementedError``.
+``concat(h, x0) @ shared_proj``; the audio family (slice 5c), an
+encoder-decoder: a non-causal encoder over frame embeddings (the stub
+frontend) with sinusoidal positions, then decoder layers that each add a
+cross attention to the encoder's output after their MLP.  The vlm family
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .attention import attention_block, attn_init
+from .attention import attention_block, attn_init, kv_project
 from .common import (Params, compute_dtype, dense_init, embed_init,
-                     norm_apply, norm_init)
+                     norm_apply, norm_init, sinusoidal_positions)
 from .context import NULL_CTX, ModelContext
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply_dense, moe_init
@@ -37,13 +40,17 @@ from .ssm import (mamba2_apply, mamba2_init, rwkv6_channel_mix,
 
 
 def check_ported(cfg) -> None:
-    if (cfg.family not in ("dense", "ssm", "moe", "hybrid")
-            or cfg.is_encoder_decoder or cfg.frontend is not None):
+    audio = cfg.family == "audio"
+    if (cfg.family not in ("dense", "ssm", "moe", "hybrid", "audio")
+            or cfg.is_encoder_decoder != audio
+            or cfg.frontend != ("frames" if audio else None)):
         raise NotImplementedError(
-            f"{cfg.name}: family '{cfg.family}' is not ported yet; the port "
-            f"covers the dense family (slice 1), the ssm family (slice 3), "
-            f"the moe family (slice 5a) and the hybrid family (slice 5b), "
-            f"the others are queued in ROADMAP.md")
+            f"{cfg.name}: family '{cfg.family}' (encoder-decoder "
+            f"{cfg.is_encoder_decoder}, frontend {cfg.frontend}) is not "
+            f"ported yet; the port covers the dense family (slice 1), the ssm "
+            f"family (slice 3), the moe family (slice 5a), the hybrid family "
+            f"(slice 5b) and the audio family (slice 5c: an encoder-decoder "
+            f"on frame embeddings), the others are queued in ROADMAP.md")
     if cfg.family == "hybrid" and (cfg.attn_every < 1
                                    or cfg.num_layers % cfg.attn_every):
         raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} must be "
@@ -116,6 +123,15 @@ def init_lm(cfg, seed: int = 0, *, device="cuda",
         return p
     for key, n, moe in attention_stacks(cfg):
         p[key] = _block_init(gen, cfg, (n,), moe=moe, dtype=dtype, dev=dev)
+    if cfg.is_encoder_decoder:  # whisper (transformer.py:116-130)
+        p["encoder_layers"] = _block_init(gen, cfg, (cfg.encoder_layers,),
+                                          moe=False, dtype=dtype, dev=dev)
+        p["cross_attn"] = {
+            "ln": norm_init(cfg.norm, d, lead=L, device=dev),
+            "attn": attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim_, cfg.qkv_bias, lead=L,
+                              dtype=dtype)}
+        p["ln_enc"] = norm_init(cfg.norm, d, device=dev)
     return p
 
 
@@ -166,21 +182,37 @@ def _fit_chunk(t: int, chunk: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _attention_half(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
-                    positions: torch.Tensor, kv_sink
+                    positions: Optional[torch.Tensor], kv_sink,
+                    causal: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual after attention, and its norm (the FFN's input)."""
     h = norm_apply(cfg.norm, lp["ln1"], x)
     h = ctx.shard(h, "dp", None, None)
-    x = x + attention_block(lp["attn"], h, cfg, positions, kv_sink)
+    x = x + attention_block(lp["attn"], h, cfg, positions, kv_sink,
+                            causal=causal)
     x = ctx.shard(x, "dp", "sp", None)
     h = norm_apply(cfg.norm, lp["ln2"], x)
     return x, ctx.shard(h, "dp", None, None)
 
 
 def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
-                 positions: torch.Tensor, kv_sink=None) -> torch.Tensor:
-    x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink)
+                 positions: Optional[torch.Tensor], kv_sink=None,
+                 causal: bool = True) -> torch.Tensor:
+    x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink, causal)
     return ctx.shard(x + mlp_apply(lp["mlp"], h, cfg.act), "dp", "sp", None)
+
+
+def _decoder_block(lp: Params, xl: Params, x: torch.Tensor, cfg,
+                   ctx: ModelContext, positions: torch.Tensor,
+                   cross: Tuple[torch.Tensor, torch.Tensor],
+                   kv_sink=None) -> torch.Tensor:
+    """An enc-dec decoder layer (``transformer.py:312-322``): the dense
+    block, then ``cross_attn``'s norm and cross attention to ``cross``, the
+    encoder's k / v of this layer."""
+    x = _dense_block(lp, x, cfg, ctx, positions, kv_sink)
+    h = norm_apply(cfg.norm, xl["ln"], x)
+    x = x + attention_block(xl["attn"], h, cfg, kv_override=cross)
+    return ctx.shard(x, "dp", "sp", None)
 
 
 def _moe_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -235,22 +267,56 @@ def _hybrid_stack(params: Params, x: torch.Tensor, cfg, ctx: ModelContext,
     return x
 
 
+def encode(params: Params, cfg, frames: torch.Tensor, *,
+           ctx: ModelContext = NULL_CTX) -> torch.Tensor:
+    """The encoder (``transformer.py:297-307``): frame embeddings (B, S_enc,
+    D) plus sinusoidal positions, ``encoder_layers`` non-causal dense
+    blocks, ``ln_enc``.  Runs in the frames' dtype (``forward`` hands it
+    frames cast to the compute dtype, ``prefill`` the frames as given).  As
+    in the reference, its self-attention also applies RoPE at
+    ``arange(S_enc)``."""
+    enc = frames + sinusoidal_positions(
+        frames.shape[1], cfg.d_model, device=frames.device).to(frames.dtype)
+    enc = ctx.shard(enc, "dp", "sp", None)
+    block = ctx.maybe_remat(_dense_block)
+    for lp in unstack(params["encoder_layers"], cfg.encoder_layers):
+        enc = block(lp, enc, cfg, ctx, None, causal=False)
+    return norm_apply(cfg.norm, params["ln_enc"], enc)
+
+
+def cross_kv(params: Params, cfg, enc: torch.Tensor
+             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each decoder layer's cross-attention k / v (B, S_enc, Hkv, hd) of the
+    encoder's output, without RoPE."""
+    return [kv_project(xl["attn"], enc, cfg.num_kv_heads, cfg.head_dim_)
+            for xl in unstack(params["cross_attn"], cfg.num_layers)]
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill / teacher forcing)
 # ---------------------------------------------------------------------------
 
 def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
-                  ctx: ModelContext = NULL_CTX, sink: Optional[List] = None
+                  ctx: ModelContext = NULL_CTX, sink: Optional[List] = None,
+                  frame_embeds: Optional[torch.Tensor] = None,
+                  cross: Optional[Sequence[Tuple[torch.Tensor,
+                                                 torch.Tensor]]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S), positions 0..S-1 -> (final-norm hidden states
     (B, S, D) in the compute dtype, aux loss).  ``sink`` collects each
     layer's decode state in order: attention layers (moe: the dense layers,
-    then the MoE layers), their post-RoPE (k, v); ssm, the recurrence's
-    final S and the last position of the normed time-mix and channel-mix
-    inputs; hybrid, per group each Mamba2 block's (final S, conv tail),
-    then the shared block's post-RoPE (k, v).  The aux loss is a float32 scalar, the sum over the MoE layers
+    then the MoE layers; audio: the decoder's self-attention), their
+    post-RoPE (k, v); ssm, the recurrence's final S and the last position
+    of the normed time-mix and channel-mix inputs; hybrid, per group each
+    Mamba2 block's (final S, conv tail), then the shared block's post-RoPE
+    (k, v).  The aux loss is a float32 scalar, the sum over the MoE layers
     in order (``transformer.py:284-295``), 0 for the other families.  Each
-    layer's block runs under ``ctx.maybe_remat``."""
+    layer's block runs under ``ctx.maybe_remat``.
+
+    The audio family needs ``frame_embeds`` (B, S_enc, D): they are cast to
+    the compute dtype and encoded, and each decoder layer cross-attends to
+    its k / v of the encoder's output; or ``cross``, each decoder layer's
+    (k, v) as given (``prefill`` passes the cached ones)."""
     check_ported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(compute_dtype(cfg))
@@ -265,6 +331,19 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     if cfg.family == "hybrid":
         x = _hybrid_stack(params, x, cfg, ctx, positions,
                           _fit_chunk(s, ctx.ssm_chunk), sink)
+        return norm_apply(cfg.norm, params["ln_f"], x), aux
+    if cfg.is_encoder_decoder:
+        if cross is None:
+            if frame_embeds is None:
+                raise ValueError(f"{cfg.name}: the audio family needs "
+                                 f"frame_embeds (B, S_enc, d_model)")
+            enc = encode(params, cfg, frame_embeds.to(x.dtype), ctx=ctx)
+            cross = cross_kv(params, cfg, enc)
+        block = ctx.maybe_remat(_decoder_block)
+        for lp, xl, kv in zip(unstack(params["layers"], cfg.num_layers),
+                              unstack(params["cross_attn"], cfg.num_layers),
+                              cross):
+            x = block(lp, xl, x, cfg, ctx, positions, kv, sink)
         return norm_apply(cfg.norm, params["ln_f"], x), aux
     for key, n, moe in attention_stacks(cfg):
         block = ctx.maybe_remat(_moe_block if moe else _dense_block)
@@ -284,18 +363,22 @@ def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *,
-            ctx: ModelContext = NULL_CTX
+            ctx: ModelContext = NULL_CTX,
+            frame_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss).
+    """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss);
+    the audio family also takes ``frame_embeds`` (B, S_enc, D).
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
-    ssm and hybrid families (only MoE layers add to it)."""
-    x, aux = hidden_states(params, cfg, tokens, ctx=ctx)
+    ssm, hybrid and audio families (only MoE layers add to it)."""
+    x, aux = hidden_states(params, cfg, tokens, ctx=ctx,
+                           frame_embeds=frame_embeds)
     return logits_from_hidden(params, cfg, x, ctx), aux
 
 
 def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
-            *, ctx: ModelContext = NULL_CTX, aux_weight: float = 0.01
+            *, ctx: ModelContext = NULL_CTX, aux_weight: float = 0.01,
+            frame_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy in float32 plus ``aux_weight`` x the
     aux loss (``transformer.py:340-349``): (loss, {"nll", "aux"}).
@@ -304,7 +387,8 @@ def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     ``LM.compute_params()`` (detached): the blocks cast each weight to the
     compute dtype inside the graph, so grads reach the masters in float32,
     as the reference's do."""
-    logits, aux = forward(params, cfg, tokens, ctx=ctx)
+    logits, aux = forward(params, cfg, tokens, ctx=ctx,
+                          frame_embeds=frame_embeds)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
@@ -400,6 +484,9 @@ class LM(nn.Module):
         self._compute = None          # .to() / .cuda(): the copy is remade
         return super()._apply(fn, *args, **kwargs)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V); the aux loss is dropped."""
-        return forward(self.compute_params(), self.cfg, tokens)[0]
+    def forward(self, tokens: torch.Tensor,
+                frame_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V); the aux loss is dropped.  The
+        audio family also takes ``frame_embeds`` (B, S_enc, D)."""
+        return forward(self.compute_params(), self.cfg, tokens,
+                       frame_embeds=frame_embeds)[0]

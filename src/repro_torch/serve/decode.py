@@ -1,5 +1,5 @@
-"""Serving, dense, ssm, moe and hybrid families: one-pass prefill and
-one-token decode steps.
+"""Serving, dense, ssm, moe, hybrid and audio families: one-pass prefill
+and one-token decode steps.
 
 ``prefill`` runs the prompt through one full-sequence pass and fills the
 decode state from it: for the attention families every layer's post-RoPE
@@ -9,8 +9,13 @@ kernel on the card, once per layer) and the last position of its normed
 time-mix and channel-mix inputs; for the hybrid family every Mamba2 block
 leaves its final S (the recurrence kernel on the card, once per block) and
 its conv's trailing context, and every application point of the shared
-block its post-RoPE K/V (the attention kernel, once per point).  For the
-dense, ssm and hybrid families it returns the same last-position logits
+block its post-RoPE K/V (the attention kernel, once per point); the audio
+family first runs the encoder once (``_encode_cross``: the attention
+kernel once per encoder layer) and caches each decoder layer's cross K/V,
+then every decoder layer's self-attention K/V goes into the cache and its
+cross attention attends the prompt to the cached cross K/V (the kernel,
+non-causal, Sq = the prompt, Skv = the cached frames).  For the dense,
+ssm, hybrid and audio families it returns the same last-position logits
 and decode state as the reference's token-by-token
 ``repro.serve.decode.prefill``.  For the moe family the one
 pass routes all B·S prompt tokens against one capacity, as the reference's
@@ -21,25 +26,28 @@ reference's ``forward`` (ROADMAP.md, deliberate differences).
 ``decode_step`` moves one token on: attention layers attend it against the
 cache with ``decode_attention`` (MoE layers then dispatch the B tokens with
 ``moe_apply_dense``), ssm and the hybrid's Mamba2 blocks step the
-recurrence with ``linear_attention_step``, and each application point of
-the hybrid's shared block attends against its own cache.
+recurrence with ``linear_attention_step``, each application point of
+the hybrid's shared block attends against its own cache, and each audio
+decoder layer then attends the token to its cross K/V with
+``decode_attention``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.attention import decode_attention, out_project, qkv_project
+from ..models.attention import (decode_attention, out_project, q_project,
+                                qkv_project)
 from ..models.common import apply_rope, compute_dtype, norm_apply
 from ..models.context import NULL_CTX, ModelContext
 from ..models.mlp import mlp_apply
 from ..models.moe import moe_apply_dense
 from ..models.ssm import mamba2_apply, rwkv6_channel_mix, rwkv6_time_mix
-from ..models.transformer import (attention_stacks, check_ported,
-                                  hidden_states, layer, logits_from_hidden,
-                                  ssm_heads)
+from ..models.transformer import (attention_stacks, check_ported, cross_kv,
+                                  encode, hidden_states, layer,
+                                  logits_from_hidden, ssm_heads)
 from .kv_cache import cache_names, cache_write, init_decode_state
 
 
@@ -104,6 +112,18 @@ def _hybrid_decode(params: Dict, x: torch.Tensor, cfg, state: Dict,
     return x
 
 
+def _cross_decode(xl: Dict, x: torch.Tensor, cfg, state: Dict,
+                  i: int) -> torch.Tensor:
+    """x: (B,1,D); decoder layer ``i``'s cross attention (``decode.py:
+    164-167``): norm, q without RoPE, the token against the cached cross K/V
+    (``enc_len`` of them valid), out-project."""
+    h = norm_apply(cfg.norm, xl["ln"], x)
+    q = q_project(xl["attn"], h, cfg.num_heads, cfg.head_dim_)
+    o = decode_attention(q, state["cross_k"][i], state["cross_v"][i],
+                         state["enc_len"])
+    return out_project(xl["attn"], o.to(x.dtype))
+
+
 def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
                 ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int -> (logits (B, 1, V), new state).
@@ -129,13 +149,19 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
                 h = norm_apply(cfg.norm, lp["ln2"], x)
                 x = x + (moe_apply_dense(lp["moe"], h, cfg)[0] if moe
                          else mlp_apply(lp["mlp"], h, cfg.act))
+                if cfg.is_encoder_decoder:
+                    x = x + _cross_decode(layer(params["cross_attn"], i), x,
+                                          cfg, state, i)
     x = norm_apply(cfg.norm, params["ln_f"], x)
     return logits_from_hidden(params, cfg, x, ctx), {**state,
                                                      "cache_len": pos + 1}
 
 
 def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
-            ctx: ModelContext = NULL_CTX) -> Tuple[torch.Tensor, Dict]:
+            ctx: ModelContext = NULL_CTX,
+            frame_embeds: Optional[torch.Tensor] = None,
+            encoder_params: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, S) -> (last-position logits (B, 1, V), decode state).
 
     One ``hidden_states`` pass over the prompt.  Attention families: each
@@ -144,12 +170,22 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
     S and last normed inputs go into the state.  Hybrid: each Mamba2
     block's final S and conv context, and each application point's K/V
     into its own cache.  MoE layers route the whole prompt against one
-    capacity (see the module docstring)."""
+    capacity (see the module docstring).  Audio: ``_encode_cross`` on
+    ``frame_embeds`` (B, S_enc, D) first, with ``encoder_params`` (default
+    ``params``) for the encoder and the cross K/V projections; then the
+    pass over the prompt, each decoder layer cross-attending to its cached
+    cross K/V."""
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
                               device=tokens.device)
+    cross = None
+    if cfg.is_encoder_decoder:
+        cross = _encode_cross(
+            params if encoder_params is None else encoder_params, cfg,
+            frame_embeds, state, ctx)
     sink: list = []
-    x, _ = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink)
+    x, _ = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink,
+                         cross=cross)
     if cfg.family == "ssm":
         for i, (S, tmix_last, cmix_last) in enumerate(sink):
             state["rwkv_S"][i] = S
@@ -170,6 +206,30 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
                 _fill_cache(kc[i], vc[i], *next(kv))
     state["cache_len"] = s
     return logits_from_hidden(params, cfg, x[:, -1:], ctx), state
+
+
+def _encode_cross(params: Dict, cfg, frame_embeds: Optional[torch.Tensor],
+                  state: Dict, ctx: ModelContext
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's ``_encode_cross`` (``decode.py:208-238``), writing
+    ``state`` in place: (a) the encoder runs in the dtype of
+    ``frame_embeds`` as given (not cast to the compute dtype, as
+    ``forward`` does); (b) each layer's cross K/V goes into ``cross_k`` /
+    ``cross_v`` in the state's dtype, the first ``max_len`` frames of it
+    (the rest zero); (c) ``enc_len`` is S_enc, not clamped to ``max_len``.
+    Returns each decoder layer's cached cross K/V cut to the
+    min(S_enc, max_len) rows that decode attends to."""
+    if frame_embeds is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frame_embeds "
+                         f"(B, S_enc, d_model)")
+    enc = encode(params, cfg, frame_embeds, ctx=ctx)
+    n = min(enc.shape[1], state["cross_k"].shape[2])
+    ck, cv = state["cross_k"], state["cross_v"]
+    for i, (k, v) in enumerate(cross_kv(params, cfg, enc)):
+        ck[i, :, :n] = k[:, :n]
+        cv[i, :, :n] = v[:, :n]
+    state["enc_len"] = enc.shape[1]
+    return [(ck[i, :, :n], cv[i, :, :n]) for i in range(cfg.num_layers)]
 
 
 def _fill_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Decode state: per-layer KV caches (dense, moe), recurrent states (ssm,
-hybrid).
+"""Decode state: per-layer KV caches (dense, moe, audio), recurrent states
+(ssm, hybrid), cross-attention caches (audio).
 
 Layouts as the reference's:
   dense   k/v ``(L, B, cap, Hkv, hd)``, ``cap = min(max_len, window or inf)``;
@@ -15,6 +15,11 @@ Layouts as the reference's:
           dtype, per Mamba2 block; ``k_cache`` / ``v_cache`` (L /
           attn_every, B, cap, Hkv, hd), one per application point of the
           shared block
+  audio   the decoder's self-attention k/v as dense, and ``cross_k`` /
+          ``cross_v`` ``(L, B, max_len, Hkv, hd)``, the encoder's output
+          projected by each layer's cross attention (trimmed or zero-padded
+          to ``max_len`` rows), in the same dtype; ``enc_len``, an int, the
+          encoder's length, not clamped to ``max_len``
 ``cache_len`` is a Python int, the number of tokens already written.  Unlike
 the reference's functional updates, the port writes the state in place.
 """
@@ -65,6 +70,12 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
                  cfg.head_dim_)
         for name in cache_names(key):
             state[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.is_encoder_decoder:
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        state["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        state["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        state["enc_len"] = 0
     return state
 
 

@@ -7,6 +7,9 @@ shapes and masks of ``tests/test_kernels.py``, with its tolerances: float32
 2e-5, bf16 2e-2.  ``decode_attention`` is held against the reference's at
 float32 2e-5.
 
+Non-causal attention with Sq != Skv (whisper's cross attention) is held
+against the Pallas kernel the same way, forward and grads.
+
 Training: the port's ``blocked_attention`` (the backward's recompute)
 against the reference's, forward 2e-5 (bf16 2e-2) and grads 1e-4; the
 autograd Function around the kernel passes ``gradcheck`` in float64 and its
@@ -31,13 +34,14 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
 
-def _inputs(seed, b, s, hq, hkv, hd, dtype):
-    """Same values for both frameworks: numpy normals rounded to `dtype`."""
+def _inputs(seed, b, s, hq, hkv, hd, dtype, skv=None):
+    """Same values for both frameworks: numpy normals rounded to `dtype`;
+    k / v have ``skv`` rows (default ``s``)."""
     jdt, tdt, _ = DTYPES[dtype]
     rng = np.random.default_rng(seed)
     out = []
-    for h in (hq, hkv, hkv):
-        x = jnp.asarray(rng.normal(size=(b, s, h, hd)), jdt)
+    for n, h in ((s, hq), (skv or s, hkv), (skv or s, hkv)):
+        x = jnp.asarray(rng.normal(size=(b, n, h, hd)), jdt)
         out.append((x, torch.from_numpy(np.array(x, np.float32)).to(tdt)))
     return out
 
@@ -72,6 +76,24 @@ def test_attention_masks_match_pallas(causal, window):
                         implementation="pallas", block_q=32, block_k=32)
     out = ops.attention(tq, tk, tv, causal=causal, window=window)
     _close(out, ref, 2e-5)
+
+
+SQ_SKV = [(12, 40), (40, 12), (1, 33), (17, 5), (33, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv", SQ_SKV,
+                         ids=[f"{a}x{b}" for a, b in SQ_SKV])
+def test_cross_attention_matches_pallas(sq, skv, dtype):
+    """Non-causal with Sq != Skv (whisper's cross attention): ragged q and
+    k tiles, a single q row, a single key."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(sq + skv, 2, sq, 4, 2, 16, dtype,
+                                           skv=skv)
+    ref = jax_attention(jq, jk, jv, causal=False, implementation="pallas",
+                        block_q=16, block_k=16)
+    out = ops.attention(tq, tk, tv, causal=False)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(out, ref, DTYPES[dtype][2])
 
 
 def _bf16_ulp_bound(ref):
@@ -302,6 +324,28 @@ def test_flash_attention_grads_match_pallas_vjp(causal, window):
     for x, g in zip(ins, jg):
         assert x.grad.shape == x.shape
         _close(x.grad, g, 1e-4)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("sq,skv", [(12, 40), (17, 5)])
+def test_cross_attention_grads_match_pallas_vjp(sq, skv):
+    """Non-causal with Sq != Skv: the grads through the port's Function
+    against ``jax.grad`` through the reference's ``custom_vjp``, 1e-4; and
+    ``gradcheck`` of the Function in float64."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(2, 1, sq, 4, 2, 16, "float32",
+                                           skv=skv)
+    jg = jax.grad(lambda *x: jax_attention(
+        *x, causal=False, implementation="pallas", block_q=16,
+        block_k=16).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    ins = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    ops.attention(*ins, causal=False).sum().backward()
+    for x, g in zip(ins, jg):
+        assert x.grad.shape == x.shape
+        _close(x.grad, g, 1e-4)
+    small = [x.detach()[:, :n].double().requires_grad_()
+             for x, n in zip(ins, (6, 4, 4))]      # 6 q rows, 4 keys
+    assert torch.autograd.gradcheck(
+        lambda *x: ops.attention(*x, causal=False), small)
 
 
 def test_kernel_wrapper_refuses_inputs_that_require_grad():

@@ -32,7 +32,12 @@ it once per layer and matches ``device="cpu"``.  The hybrid family:
 attention at zamba2's head_dim 80 (MHA 32 / 32, GQA, windows, ragged S),
 the recurrence as ``mamba2_apply`` calls it (float32, inclusive, K 64 /
 V 128, q broadcast over the heads), and reduced zamba2's ``generate``
-against the CPU with its launches counted.
+against the CPU with its launches counted.  The audio family: attention
+non-causal with Sq != Skv on both kernels ((224, 1500), (1500, 224),
+(1, 1500), (129, 63), (300, 1); GQA), at whisper-base's encoder, cross
+and decoder shapes, on a cross cache's row view, the Function's grads at
+Sq != Skv, and reduced whisper's ``generate`` against the CPU with
+3 launches a layer in prefill.
 """
 
 import numpy as np
@@ -70,10 +75,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(dev, b, s, hq, hkv, hd, dtype, seed=0):
+def _qkv(dev, b, s, hq, hkv, hd, dtype, seed=0, skv=None):
+    """q (b, s, hq, hd) and k / v (b, skv or s, hkv, hd)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(b, s, h, hd, generator=g).to(dev, dtype)
-            for h in (hq, hkv, hkv)]
+    return [torch.randn(b, n, h, hd, generator=g).to(dev, dtype)
+            for n, h in ((s, hq), (skv or s, hkv), (skv or s, hkv))]
 
 
 def _check(q, k, v, variant=None, **kw):
@@ -942,6 +948,111 @@ def test_hybrid_generate_launches_each_kernel_per_block(cuda):
     assert fa.launches == cfg.num_layers // cfg.attn_every
     assert pm.launches == 0
     ref = generate(lm_cpu, toks, 6)
+    assert torch.equal(res.tokens.cpu(), ref.tokens)
+    torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the audio family: non-causal attention with Sq != Skv (whisper's encoder
+# and cross attention)
+# ---------------------------------------------------------------------------
+
+SQ_SKV = [(224, 1500), (1500, 224), (1, 1500), (129, 63), (300, 1)]
+
+
+@pytest.mark.parametrize("dtype,hd,variant", [
+    (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
+    (torch.bfloat16, 80, "mma_sync"), (torch.float32, 64, "mma_fma")],
+    ids=["bf16-hd64", "bf16-hd128", "bf16-hd80", "f32-hd64"])
+@pytest.mark.parametrize("sq,skv", SQ_SKV,
+                         ids=[f"{a}x{b}" for a, b in SQ_SKV])
+def test_kernel_non_causal_sq_ne_skv(cuda, sq, skv, dtype, hd, variant):
+    """Ragged tiles on both sides (1500 = 23 x 64 + 28 keys, 224 = 1.75 of
+    the wgmma kernel's 128 rows), a single q row, a single key, fewer keys
+    than one tile, and q rows of the second consumer warpgroup that all lie
+    past Sq."""
+    _check(*_qkv(cuda, 2, sq, 4, 4, hd, dtype, seed=sq + skv, skv=skv),
+           variant, causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("sq,skv", [(224, 1500), (129, 63)])
+def test_kernel_non_causal_sq_ne_skv_gqa(cuda, sq, skv, hd, dtype):
+    _check(*_qkv(cuda, 2, sq, 8, 2, hd, dtype, seed=hd, skv=skv),
+           causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,sq,skv,causal", [
+    ("encoder", 1500, 1500, False), ("cross", 224, 1500, False),
+    ("decoder", 224, 224, True)])
+def test_kernel_at_the_whisper_shapes(cuda, name, sq, skv, causal, dtype):
+    """whisper-base served at B 16: 8 / 8 heads of 64; the encoder over
+    1500 frames, the cross attention of a 224-token prompt to them and the
+    decoder's causal self-attention (bf16: the wgmma kernel)."""
+    variant = "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma"
+    _check(*_qkv(cuda, 16, sq, 8, 8, 64, dtype, seed=sq, skv=skv), variant,
+           causal=causal)
+
+
+def test_kernel_reads_cross_cache_views(cuda):
+    """The cross K/V as prefill hands them over: rows [:n] of the
+    (B, max_len, Hkv, hd) cache, so the batch stride spans max_len rows."""
+    kc, vc = (torch.randn(2, 1536, 8, 64, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(2, 224, 8, 64, device=cuda).to(torch.bfloat16)
+    k, v = kc[:, :1500], vc[:, :1500]
+    assert not k.is_contiguous()
+    _check(q, k, v, "wgmma_tma", causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv,hd", [(224, 1500, 64), (129, 63, 64),
+                                       (300, 100, 80)])
+def test_attention_function_grads_at_sq_ne_skv(cuda, sq, skv, hd, dtype):
+    """Cross attention through the Function: one launch forward, grads
+    equal autograd through ``blocked_attention`` (float32 1e-4; bf16 one
+    bf16 ulp of the reference grad, 8e-3 where |g| < 2)."""
+    from repro_torch.models.attention import blocked_attention
+    q, k, v = _qkv(cuda, 2, sq, 8, 2, hd, dtype, seed=sq, skv=skv)
+    w = torch.randn(q.shape, device=cuda)
+    before = fa.launches
+    _, got = _grads(lambda *x: ops.attention(*x, causal=False), (q, k, v),
+                    (w,))
+    assert fa.launches == before + 1
+    _, want = _grads(lambda *x: blocked_attention(*x, causal=False),
+                     (q, k, v), (w,))
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all()
+        if dtype == torch.bfloat16:
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= bf16_bound(r.float())).all()), err.max()
+        else:
+            torch.testing.assert_close(g, r, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_audio_generate_launches_attention_three_times_per_layer(cuda):
+    """Reduced whisper (2 encoder + 2 decoder layers) in float32 through
+    ``generate`` with 20 float32 frames: attention once per encoder layer
+    and twice per decoder layer (self, cross) in prefill, never in decode;
+    tokens equal and logits within 1e-4 of the CPU's."""
+    from repro_torch.launch.serve import generate
+    cfg = configs.reduced(configs.get_config("whisper-base"),
+                          dtype="float32")
+    lm_cpu = LM.init(cfg, seed=2, device="cpu")
+    lm_gpu = LM(cfg, lm_cpu.params).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)))
+    frames = torch.as_tensor(rng.normal(size=(2, 20, cfg.d_model)),
+                             dtype=torch.float32)
+    fa.launches = kr.launches = pm.launches = 0
+    res = generate(lm_gpu, toks.to(cuda), 6, frames.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.launches == cfg.encoder_layers + 2 * cfg.num_layers
+    assert kr.launches == pm.launches == 0
+    ref = generate(lm_cpu, toks, 6, frames)
     assert torch.equal(res.tokens.cpu(), ref.tokens)
     torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,
                                atol=F32_TOL, rtol=F32_TOL)

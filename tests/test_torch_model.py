@@ -63,11 +63,14 @@ def _tokens(cfg, b=2, s=24, seed=1):
     lambda m: m.get_config("zamba2-2.7b"),
     lambda m: m.reduced(m.get_config("zamba2-2.7b"), dtype="float32",
                         num_layers=4),
+    lambda m: m.get_config("whisper-base"),
+    lambda m: m.reduced(m.get_config("whisper-base"), dtype="float32"),
 ], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
         "rwkv6-reduced-f32", "olmo-full", "olmo-reduced-f32", "qwen-full",
         "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32",
         "deepseek-full", "deepseek-reduced-f32", "mixtral-full",
-        "mixtral-reduced-f32", "zamba2-full", "zamba2-reduced-f32"])
+        "mixtral-reduced-f32", "zamba2-full", "zamba2-reduced-f32",
+        "whisper-full", "whisper-reduced-f32"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -146,19 +149,37 @@ def test_compute_params_keep_norms_f32_and_cast_matrices():
 
 
 UNPORTED = (r"dense family \(slice 1\), the ssm family \(slice 3\), "
-            r"the moe family \(slice 5a\) and the hybrid family "
-            r"\(slice 5b\)")
+            r"the moe family \(slice 5a\), the hybrid family "
+            r"\(slice 5b\) and the audio family \(slice 5c")
 
 
 @pytest.mark.parametrize("arch_family", ["vlm", "audio"])
 def test_unported_families_raise(arch_family):
-    cfg = dataclasses.replace(
-        tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family=arch_family,
-        is_encoder_decoder=arch_family == "audio")
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        TT.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=UNPORTED):
-        TT.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+    """The vlm family (a "patch" frontend) is refused; the audio family,
+    which slice 5c ports, inits and runs forward on frame embeddings, and
+    only as an encoder-decoder on frames."""
+    if arch_family == "vlm":
+        cfg = dataclasses.replace(
+            tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family="vlm",
+            frontend="patch")
+        with pytest.raises(NotImplementedError, match=UNPORTED):
+            TT.init_lm(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=UNPORTED):
+            TT.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+        return
+    cfg = tcfg.reduced(tcfg.get_config("whisper-base"))
+    lm = TT.LM.init(cfg, seed=0, device="cpu")
+    logits, aux = TT.forward(lm.compute_params(), cfg,
+                             torch.zeros(2, 7, dtype=torch.long),
+                             frame_embeds=torch.full((2, 9, cfg.d_model),
+                                                     0.01))
+    assert tuple(logits.shape) == (2, 7, cfg.vocab_size)
+    assert logits.dtype == torch.bfloat16 and aux.item() == 0.0
+    assert bool(torch.isfinite(logits.float()).all())
+    for bad in (dict(frontend=None), dict(frontend="patch"),
+                dict(is_encoder_decoder=False)):
+        with pytest.raises(NotImplementedError, match=UNPORTED):
+            TT.init_lm(dataclasses.replace(cfg, **bad), device="cpu")
 
 
 def test_ssm_family_runs():
@@ -234,7 +255,7 @@ def _olmo():
 def test_port_registers_the_dense_family():
     assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b", "nemotron-4-340b",
             "rwkv6-3b", "deepseek-moe-16b", "mixtral-8x22b",
-            "zamba2-2.7b"} == set(tcfg.list_configs())
+            "zamba2-2.7b", "whisper-base"} == set(tcfg.list_configs())
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",

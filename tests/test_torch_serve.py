@@ -122,7 +122,7 @@ def test_serve_main_rejects_zero_gen():
 
 def test_unknown_arch_is_refused():
     with pytest.raises(KeyError, match="tinyllama"):
-        tserve.main(["--arch", "whisper-base", "--reduced", "--device",
+        tserve.main(["--arch", "phi-3-vision-4.2b", "--reduced", "--device",
                      "cpu"])
 
 
