@@ -298,6 +298,7 @@ def cross_kv(params: Params, cfg, enc: torch.Tensor
 
 def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
                   ctx: ModelContext = NULL_CTX, sink: Optional[List] = None,
+                  patch_embeds: Optional[torch.Tensor] = None,
                   frame_embeds: Optional[torch.Tensor] = None,
                   cross: Optional[Sequence[Tuple[torch.Tensor,
                                                  torch.Tensor]]] = None
@@ -316,10 +317,17 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     The audio family needs ``frame_embeds`` (B, S_enc, D): they are cast to
     the compute dtype and encoded, and each decoder layer cross-attends to
     its k / v of the encoder's output; or ``cross``, each decoder layer's
-    (k, v) as given (``prefill`` passes the cached ones)."""
+    (k, v) as given (``prefill`` passes the cached ones).  A "patch"
+    frontend (the vlm family) takes ``patch_embeds`` (B, P, D), P <= S:
+    ``merge_patches`` puts them in place of the first P token embeddings;
+    without them the tokens run alone, as the reference's serving path
+    does.  Other frontends ignore ``patch_embeds``, as the reference's
+    ``forward`` does."""
     check_ported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(compute_dtype(cfg))
+    if cfg.frontend == "patch" and patch_embeds is not None:
+        x = merge_patches(params, x, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None]
     x = ctx.shard(x, "dp", "sp", None)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -356,6 +364,22 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     return norm_apply(cfg.norm, params["ln_f"], x), aux
 
 
+def merge_patches(params: Params, x: torch.Tensor,
+                  patch_embeds: torch.Tensor) -> torch.Tensor:
+    """The vlm stub frontend (``transformer.py:228-232``): patch embeddings
+    (B, P, D) cast to the compute dtype of ``x`` (B, S, D) and projected by
+    ``patch_proj`` replace the first P token embeddings.  P > S is refused:
+    there the reference's merged sequence is P long against S positions,
+    which its RoPE cannot broadcast (ROADMAP.md, deliberate differences)."""
+    n = patch_embeds.shape[1]
+    if n > x.shape[1]:
+        raise ValueError(f"{n} patch embeddings do not fit a sequence of "
+                         f"{x.shape[1]} tokens; they replace the first P "
+                         f"token embeddings, so P <= S")
+    pe = patch_embeds.to(x.dtype) @ params["patch_proj"].to(x.dtype)
+    return torch.cat([pe, x[:, n:]], dim=1)
+
+
 def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
                        ctx: ModelContext = NULL_CTX) -> torch.Tensor:
     logits = x @ _lm_head(params, cfg).to(x.dtype)
@@ -364,20 +388,24 @@ def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *,
             ctx: ModelContext = NULL_CTX,
+            patch_embeds: Optional[torch.Tensor] = None,
             frame_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) in the compute dtype, aux loss);
-    the audio family also takes ``frame_embeds`` (B, S_enc, D).
+    the vlm family also takes ``patch_embeds`` (B, P, D), the audio family
+    ``frame_embeds`` (B, S_enc, D).
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
-    ssm, hybrid and audio families (only MoE layers add to it)."""
+    ssm, hybrid, audio and vlm families (only MoE layers add to it)."""
     x, aux = hidden_states(params, cfg, tokens, ctx=ctx,
+                           patch_embeds=patch_embeds,
                            frame_embeds=frame_embeds)
     return logits_from_hidden(params, cfg, x, ctx), aux
 
 
 def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
             *, ctx: ModelContext = NULL_CTX, aux_weight: float = 0.01,
+            patch_embeds: Optional[torch.Tensor] = None,
             frame_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy in float32 plus ``aux_weight`` x the
@@ -388,6 +416,7 @@ def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     compute dtype inside the graph, so grads reach the masters in float32,
     as the reference's do."""
     logits, aux = forward(params, cfg, tokens, ctx=ctx,
+                          patch_embeds=patch_embeds,
                           frame_embeds=frame_embeds)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -485,8 +514,11 @@ class LM(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def forward(self, tokens: torch.Tensor,
-                frame_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frame_embeds: Optional[torch.Tensor] = None, *,
+                patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V); the aux loss is dropped.  The
-        audio family also takes ``frame_embeds`` (B, S_enc, D)."""
+        audio family also takes ``frame_embeds`` (B, S_enc, D), the vlm
+        family ``patch_embeds`` (B, P, D)."""
         return forward(self.compute_params(), self.cfg, tokens,
+                       patch_embeds=patch_embeds,
                        frame_embeds=frame_embeds)[0]

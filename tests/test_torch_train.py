@@ -363,6 +363,70 @@ def test_train_step_matches_reference(micro, compress):
     assert (te2 is None) == (not compress)
 
 
+def _frontend_extras(cfg, b, s, fill):
+    """The reference's batch extras (``tests/test_models_smoke.py:21-29``):
+    patch embeddings (B, num_patches, D) for a "patch" frontend, frame
+    embeddings (B, S, D) for "frames"; ``fill`` "0.01" as there, or
+    "normal", seeded normals."""
+    shape = {"patch": (b, cfg.num_patches, cfg.d_model),
+             "frames": (b, s, cfg.d_model)}[cfg.frontend]
+    name = "patch_embeds" if cfg.frontend == "patch" else "frame_embeds"
+    if fill == "0.01":
+        return {name: np.full(shape, 0.01, np.float32)}
+    return {name: np.random.default_rng(3).normal(size=shape).astype(
+        np.float32)}
+
+
+def _close_step(port, ref, ref_grads, lr, tol=1e-5, eps=1e-8):
+    """Params after one AdamW step, port against reference, at ``tol`` on
+    every element whose reference grad is 0 or at least 100 x ``eps``.
+    The first step moves a param by lr · g / (|g| + eps) (plus the same
+    weight decay in both): where |g| is near eps, a float32 summation-order
+    difference of 1e-9 in the grad moves the update by up to a few percent
+    of lr (reduced whisper-base on normal frames: a grad of 1.51e-8 in the
+    reference, 1.24e-8 in the port).  Those elements, at most 1% of a leaf,
+    are held at 2 · lr, the most two updates of size <= lr can differ."""
+    p, r = _t_flat(port), _np_flat(ref)
+    g = _np_flat(ref_grads)
+    assert sorted(p) == sorted(r) == sorted(g)
+    for k in r:
+        sharp = (np.abs(g[k]) >= 100 * eps) | (g[k] == 0)
+        assert sharp.mean() >= 0.99, (k, sharp.mean())
+        np.testing.assert_allclose(p[k][sharp], r[k][sharp], atol=tol,
+                                   rtol=tol, err_msg=k)
+        assert (np.abs(p[k] - r[k])[~sharp] <= 2 * lr + tol).all(), k
+
+
+@pytest.mark.parametrize("fill", ["0.01", "normal"])
+@pytest.mark.parametrize("micro", [1, 2], ids=["plain", "microbatches-2"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
+def test_train_step_matches_reference_with_batch_extras(arch, micro, fill):
+    """The batch's frontend inputs reach the loss, split with the tokens
+    into microbatches, as the reference's ``_batch_extras`` /
+    ``accum_grads`` pass them (``train_step.py:28-34, 71-73``); the
+    tolerances of ``test_train_step_matches_reference``."""
+    jc, tc = _cfgs(arch)
+    npp = _jax_params(jc)
+    kw = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+    jo, to = jopt.OptimizerConfig(**kw), topt.OptimizerConfig(**kw)
+    batch = {**_batch(jc, s=32, seed=2),
+             **_frontend_extras(jc, 4, 32, fill)}
+    jp = _jnp(npp)
+    jp2, _, _, jm = jax.jit(j_make_step(jc, jo, microbatches=micro))(
+        jp, jopt.adamw_init(jp, jo), None, batch)
+    params = bridge.params_from_numpy(npp, device="cpu")
+    tp2, _, _, tm = make_train_step(tc, to, microbatches=micro)(
+        params, topt.adamw_init(params, to), None, batch)
+    assert abs(tm["loss"].item() - float(jm["loss"])) <= 1e-5
+    assert abs(tm["grad_norm"].item() - float(jm["grad_norm"])) <= 1e-4
+    extras = {n: jnp.asarray(batch[n]) for n in batch
+              if n.endswith("_embeds")}
+    jg = jax.grad(lambda p: JT.lm_loss(
+        p, jc, jnp.asarray(batch["tokens"]), jnp.asarray(batch["labels"]),
+        **extras)[0])(jp)
+    _close_step(tp2, jp2, jg, float(jm["lr"]))
+
+
 def test_grad_accumulation_matches_full_batch():
     _, tc = _cfgs("tinyllama-1.1b")
     params = TT.init_lm(tc, 0, device="cpu")
