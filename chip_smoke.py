@@ -24,7 +24,13 @@ Phases, in order; any failure exits non-zero before the result line:
                1500 x 1500, 8 / 8 heads of 64) and cross (224 x 1500)
                shapes and at (Sq, Skv) (224, 1500), (1500, 224), (1,
                1500), (129, 63), (300, 1) for bf16 head_dim 64 / 128 / 80
-               and float32, with GQA cases,
+               and float32, with GQA cases, at phi-3-vision-4.2b's shape
+               (B 4, S 2048, MHA 32 / 32, head_dim 96) and nemotron-4-340b's
+               heads (B 1, S 2048, 96 / 8 of 192), and at head_dim 96 and
+               192 with S 1, 127, 129, 300 (GQA 4), a window of 48, Sq x
+               Skv 224 x 1500 and 1 x 1500 non-causal and fused-projection
+               views, in bf16 and float32, each on the mma kernel (the
+               built library's dispatch is held to name it too),
                on both kernels of the source (bf16 within one bf16 ulp of the
                output, float32 1e-4); the segment
                max at the lane engine's dispatch shapes, empty segments and
@@ -116,7 +122,22 @@ Phases, in order; any failure exits non-zero before the result line:
                teacher forcing within 0.15 / 0.05 in bf16, float32 compute
                recorded beside it.  Logs the bounds by part
                (``audio_prefill_parts``, ``audio_decode_bytes``).  The model
-               is freed before phase 5.
+               is freed before phase 4g.
+  4g. serve-vlm — the same for full-width, full-depth phi-3-vision-4.2b
+               (32 layers, d_model 3072, 32 / 32 heads of 96, gated silu
+               d_ff 8192, vocab 32064; 3.83 B parameters with patch_proj,
+               float32 masters, bf16 compute, seed 0): 4 x 2048 prompt, 32
+               greedy decode steps, served on tokens alone as the reference
+               serves it.  A prefill alone, the main run and the
+               teacher-forced forward must launch flash attention 32 times,
+               every launch mma_sync, decode never, the other kernels
+               never; teacher forcing within 0.15 / 0.05 in bf16.  Then the
+               patch path (``patch_path``): a forward with 256 bf16 patch
+               embeddings (seeded normals) must launch 32 times (mma_sync),
+               give finite logits and move every position's logits past
+               the patches against the patch-free forward; timed.  Logs the
+               bounds by part (``dense_prefill_parts``).  The model is
+               freed before phase 5.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -136,9 +157,10 @@ Phases, in order; any failure exits non-zero before the result line:
                host).
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
-               events), flash attention at deepseek-moe-16b's and
-               zamba2-2.7b's too, and at whisper-base's encoder and cross
-               shapes (non-causal, SDPA with is_causal=False); the
+               events), flash attention at deepseek-moe-16b's,
+               zamba2-2.7b's and phi-3-vision-4.2b's shapes and
+               nemotron-4-340b's heads too, and at whisper-base's encoder
+               and cross shapes (non-causal, SDPA with is_causal=False); the
                attention variant the path took and the ptxas
                report (registers, spills, wgmma serialisation) of each
                attention variant; the segment max at the grid's p50 / p90 /
@@ -198,6 +220,12 @@ WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT = 16, 1500, 224
 WHISPER_MAX_LEN = 1536
 WHISPER_ENC = (WHISPER_BATCH, WHISPER_FRAMES, 8, 8, 64, WHISPER_FRAMES)
 WHISPER_CROSS = (WHISPER_BATCH, WHISPER_PROMPT, 8, 8, 64, WHISPER_FRAMES)
+# phi-3-vision-4.2b served (phase 4g): MHA 32 / 32 heads of 96, and its
+# stub frontend's 256 patch embeddings; nemotron-4-340b's attention heads,
+# 96 / 8 of 192 (GQA 12), at one sequence
+PHI3_ATTN = (BATCH, PROMPT, 32, 32, 96)
+PHI3_PATCHES = 256
+NEMOTRON_ATTN = (1, PROMPT, 96, 8, 192)
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12
@@ -329,7 +357,8 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int, frames: int = 0):
     and ``moe_decode_bytes``; the hybrid family: ``hybrid_prefill_parts``
     and ``hybrid_decode_bytes``; the audio family (``frames`` frame
     embeddings a request): ``audio_prefill_parts`` and
-    ``audio_decode_bytes``.  Returns (prefill_ms, decode_ms_per_step, the
+    ``audio_decode_bytes``; the dense and vlm families:
+    ``dense_prefill_parts``.  Returns (prefill_ms, decode_ms_per_step, the
     recurrence's share of prefill_ms).
     """
     d, L = cfg.d_model, cfg.num_layers
@@ -364,17 +393,33 @@ def serve_bounds(cfg, batch: int, prompt: int, steps: int, frames: int = 0):
                 audio_decode_bytes(cfg, batch, prompt, frames, steps)
                 / PEAK_BYTES * 1e3, 0.0)
     hd = cfg.head_dim_
-    per_layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
-                 + 3 * d * cfg.d_ff)
-    mats = L * per_layer
-    head = d * cfg.vocab_size
-    attn = (cfg.num_layers * 4 * hd * cfg.num_heads * batch
-            * live_pairs(prompt, prompt, True, None))
-    prefill = (2 * mats * batch * prompt + attn + 2 * head * batch)
     kv = cfg.num_layers * 2 * batch * (prompt + steps / 2) \
         * cfg.num_kv_heads * hd
-    decode = 2 * (mats + head + kv)
-    return prefill / PEAK_BF16_FLOPS * 1e3, decode / PEAK_BYTES * 1e3, 0.0
+    decode = 2 * (dense_matrices(cfg) + d * cfg.vocab_size + kv)
+    return (sum(dense_prefill_parts(cfg, batch, prompt).values()),
+            decode / PEAK_BYTES * 1e3, 0.0)
+
+
+def dense_matrices(cfg) -> int:
+    """Weights of the layers' products: q / k / v / o and the gated MLP."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    return cfg.num_layers * (2 * d * cfg.num_heads * hd
+                             + 2 * d * cfg.num_kv_heads * hd
+                             + 3 * d * cfg.d_ff)
+
+
+def dense_prefill_parts(cfg, batch: int, prompt: int) -> dict:
+    """Least time of each part of a dense (or vlm) prefill on the card, ms,
+    all bf16 products at 989 TFLOP/s: the layers' matrices over every
+    prompt token, attention's live causal pairs, the lm_head at the last
+    position."""
+    flops = {
+        "layer products": 2 * dense_matrices(cfg) * batch * prompt,
+        "attention": cfg.num_layers * 4 * cfg.head_dim_ * cfg.num_heads
+        * batch * live_pairs(prompt, prompt, True, None),
+        "lm_head": 2 * cfg.d_model * cfg.vocab_size * batch,
+    }
+    return {k: v / PEAK_BF16_FLOPS * 1e3 for k, v in flops.items()}
 
 
 def moe_prefill_parts(cfg, batch: int, prompt: int) -> dict:
@@ -971,16 +1016,19 @@ def forward_last_logits(params, cfg, tokens, expect: dict, frames=None,
 
 
 def teacher_forcing(lm, prompts, res, expect: dict,
-                    gate: bool = True, frames=None) -> None:
+                    gate: bool = True, frames=None, variant=None) -> None:
     """The last decode logits of ``res`` against a forward over prompt +
     generated tokens (the audio family: on the same ``frames``), bf16, at
     atol SERVE_ATOL / rtol SERVE_RTOL; the forward must launch each kernel
-    as often as a prefill does (``expect``), the others never."""
+    as often as a prefill does (``expect``), the others never, and every
+    attention launch take ``variant`` where one is named."""
     import torch
     cfg = lm.cfg
     with torch.inference_mode():
-        full, tf_launches, as_expected = counted(expect, lambda: lm(
-            torch.cat([prompts, res.tokens[:, :-1]], dim=1), frames)[:, -1])
+        (full, variants), tf_launches, as_expected = counted(
+            expect, lambda: attention_variants(lambda: lm(
+                torch.cat([prompts, res.tokens[:, :-1]], dim=1),
+                frames)[:, -1]))
     dec = res.last_logits[:, 0].float()
     err = (full.float() - dec).abs().max().item()
     agree = (full.argmax(-1) == dec.argmax(-1)).float().mean().item()
@@ -990,10 +1038,14 @@ def teacher_forcing(lm, prompts, res, expect: dict,
     log(f"{cfg.name} teacher-forced forward vs last decode logits, bf16{at}:"
         f" max_abs_err {err:.4f} (atol {SERVE_ATOL}, rtol {SERVE_RTOL}; "
         f"worst error / tolerance {margin:.3f}); argmax agreement "
-        f"{agree:.2f}; kernel launches {tf_launches}")
+        f"{agree:.2f}; kernel launches {tf_launches}, attention variants "
+        f"{sorted(set(variants))}")
     if not as_expected:
         fail(f"teacher-forced forward launched {tf_launches}, expected "
              f"{expect}")
+    if variant and set(variants) != {variant}:
+        fail(f"{cfg.name}'s teacher-forced forward took {variants}, not "
+             f"only {variant}")
     if gate and not torch.allclose(full.float(), dec, atol=SERVE_ATOL,
                                    rtol=SERVE_RTOL):
         fail(f"{cfg.name} decode logits disagree with the teacher-forced "
@@ -1281,21 +1333,65 @@ def describe(cfg, param_dtype: str) -> str:
             f"params held in {param_dtype}, {cfg.dtype} compute")
 
 
+def patch_path(lm, prompts, expect: dict, variant, prefill_ms: float
+               ) -> None:
+    """Phase 4g's patch path: ``LM.forward`` over the prompts with
+    PHI3_PATCHES patch embeddings (seeded normals from numpy, handed over
+    in bf16 as a bf16 frontend would) must launch as a prefill does
+    (``expect``, every attention launch ``variant``), give finite logits,
+    and move the logits of every position past the patches against the
+    patch-free forward's (the patches reach them through attention).
+    Logs its time (CUDA events) beside the prefill's."""
+    import numpy as np
+    import torch
+    cfg = lm.cfg
+    b, n = prompts.shape[0], PHI3_PATCHES
+    pe = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (b, n, cfg.d_model), dtype=np.float32)).to(prompts.device,
+                                                   torch.bfloat16)
+    with torch.inference_mode():
+        (logits, variants), launched, ok = counted(
+            expect, lambda: attention_variants(
+                lambda: lm(prompts, patch_embeds=pe)))
+        moved = (logits[:, n:].float() - lm(prompts)[:, n:].float()
+                 ).abs().amax(dim=-1)
+        ms = time_ms(lambda: lm(prompts, patch_embeds=pe), iters=3)
+    finite = bool(torch.isfinite(logits.float()).all())
+    log(f"{cfg.name} patch path, {b} x {prompts.shape[1]} tokens with {n} "
+        f"bf16 patch embeddings: forward {ms:.2f} ms (CUDA events; a "
+        f"prefill {prefill_ms:.2f} ms); kernel launches {launched}, "
+        f"attention variants {sorted(set(variants))}; finite {finite}; "
+        f"least change of a position's logits past the patches "
+        f"{moved.min().item():.4f}, mean {moved.mean().item():.4f}; "
+        f"{nvidia_smi()}")
+    if not ok or (variant and set(variants) != {variant}):
+        fail(f"the patch path launched {launched} ({variants}), expected "
+             f"{expect}, every one {variant}")
+    if not finite:
+        fail(f"{cfg.name}'s logits with patches are not finite")
+    if not bool((moved > 0).all()):
+        fail(f"{cfg.name}: patches left {(moved == 0).sum().item()} "
+             f"positions' logits unchanged")
+    del logits, moved, pe
+    torch.cuda.empty_cache()
+
+
 def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
                 batch: int = BATCH, prompt: int = PROMPT, frames: int = 0,
-                max_len=None) -> dict:
-    """Phases 4, 4b, 4d, 4e and 4f: full-width ``arch`` (seeded random
+                max_len=None, variant=None) -> dict:
+    """Phases 4, 4b, 4d, 4e, 4f and 4g: full-width ``arch`` (seeded random
     weights, held in ``param_dtype``) through ``generate``, ``batch``
     prompts of ``prompt`` tokens (the audio family: with ``frames`` frame
     embeddings each, seeded normals from numpy handed over in bf16 as a
     bf16 frontend would, and caches of ``max_len`` rows).  ``expect`` gives
-    each kernel's launches in a prefill: the main run (prefill and decode)
-    and the teacher-forced forward must launch each exactly that often,
-    every other kernel never.  The moe family also logs the share of pairs
-    dropped at capacity, and is held against teacher forcing at
-    TF_CAPACITY_FACTOR on the same weights; every attention launch of the
-    audio family's main run must take the wgmma variant.  Returns each
-    kernel's launches in the main run."""
+    each kernel's launches in a prefill: a prefill alone, the main run
+    (prefill and decode) and the teacher-forced forward must launch each
+    exactly that often, every other kernel never, and where ``variant`` is
+    named every attention launch of the three must take it.  The moe family
+    also logs the share of pairs dropped at capacity, and is held against
+    teacher forcing at TF_CAPACITY_FACTOR on the same weights; the vlm
+    family then runs ``patch_path``.  Returns each kernel's launches in the
+    main run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1321,7 +1417,8 @@ def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
     def serve(n):
         return generate(lm, prompts, n, fe, max_len)
     serve(2)                          # warm-up: allocator, cuBLAS, kernel
-    _, per_prefill, prefill_ok = counted(expect, lambda: serve(1))
+    (_, prefill_variants), per_prefill, prefill_ok = counted(
+        expect, lambda: attention_variants(lambda: serve(1)))
     torch.cuda.reset_peak_memory_stats()
     (res, variants), launches, run_ok = counted(
         expect, lambda: attention_variants(lambda: serve(DECODE_STEPS + 1)))
@@ -1353,7 +1450,8 @@ def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
                    f"TFLOP/s + {rec_ms:.3f} ms for {cfg.num_layers} "
                    f"recurrence calls at their bound")
     else:
-        pre_how = "operations"
+        pre_how = "; ".join(f"{k} {v:.3f}" for k, v in dense_prefill_parts(
+            cfg, batch, prompt).items()) + " ms: bf16 products at 989 TFLOP/s"
     log(f"{cfg.name} serve bounds on the card: prefill {pre_bound:.3f} ms "
         f"({pre_how}), decode {dec_bound:.4f} ms/step (bytes); measured / "
         f"bound: prefill {res.prefill_s * 1e3 / pre_bound:.2f}x, decode "
@@ -1366,9 +1464,9 @@ def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
         fail(f"{cfg.name} launches: {per_prefill} per prefill and "
              f"{launches} with decode, expected {expect} in both (none in "
              f"decode)")
-    if cfg.family == "audio" and set(variants) != {"wgmma_tma"}:
-        fail(f"{cfg.name}'s attention launches took {variants}, not only "
-             f"wgmma_tma")
+    if variant and set(variants) | set(prefill_variants) != {variant}:
+        fail(f"{cfg.name}'s attention launches took {variants} (prefill "
+             f"alone {prefill_variants}), not only {variant}")
     if tuple(res.tokens.shape) != (batch, DECODE_STEPS + 1):
         fail(f"{cfg.name} generated tokens of shape "
              f"{tuple(res.tokens.shape)}")
@@ -1380,9 +1478,11 @@ def serve_phase(dev, arch: str, expect: dict, param_dtype: str = "float32",
     elif cfg.family == "hybrid":
         hybrid_teacher_forcing(lm, prompts, res, expect)
     else:
-        teacher_forcing(lm, prompts, res, expect, frames=fe)
+        teacher_forcing(lm, prompts, res, expect, frames=fe, variant=variant)
     if cfg.family == "audio":
         audio_f32_teacher_forcing(lm, prompts, fe, expect, max_len)
+    if cfg.frontend == "patch":
+        patch_path(lm, prompts, expect, variant, res.prefill_s * 1e3)
     profile_serve(lm, prompts, res.tokens,
                   MOE_KINDS if cfg.family == "moe" else KERNEL_KINDS, fe,
                   max_len)
@@ -2173,6 +2273,15 @@ def main() -> None:
         sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per CTA "
             f"(bytes, by head_dim): {sizes}")
+    # head_dim 96 (phi-3-vision) and 192 (nemotron-4-340b) on the mma
+    # kernel, as the wrapper's check_layout names it
+    for dtype, want in ((torch.bfloat16, "mma_sync"),
+                        (torch.float32, "mma_fma")):
+        for hd in (96, 192):
+            if fa.built_variant(dtype, hd) != want:
+                fail(f"the built library launches "
+                     f"{fa.built_variant(dtype, hd)} for {dtype} head_dim "
+                     f"{hd}, not {want}")
 
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2246,8 +2355,26 @@ def main() -> None:
         ("nc-gqa-224x1500", (2, 224, 8, 2, 64, 1500), bf16, False, None),
         ("nc-gqa-129x63-hd80", (2, 129, 8, 2, 80, 63), bf16, False, None),
         ("nc-gqa-129x63-f32", (2, 129, 8, 2, 64, 63), f32, False, None),
+        # phi-3-vision-4.2b's attention (MHA 32 / 32, head_dim 96) and
+        # nemotron-4-340b's heads (96 / 8 of 192), both on the mma kernel:
+        # at their shapes, ragged S, a window, GQA, non-causal Sq != Skv
+        ("phi3-bf16", PHI3_ATTN, bf16, True, None),
+        ("phi3-f32", PHI3_ATTN, f32, True, None),
+        ("nemotron-bf16", NEMOTRON_ATTN, bf16, True, None),
+        ("nemotron-f32", NEMOTRON_ATTN, f32, True, None),
+        *((f"hd{hd}-s{sq}{tag}", (2, sq, 8, 2, hd), dt, True, None)
+          for hd in (96, 192) for sq in (1, 127, 129, 300)
+          for tag, dt in (("", bf16), ("-f32", f32))),
+        *((f"hd{hd}-window-48{tag}", (2, 300, 8, 8, hd), dt, True, 48)
+          for hd in (96, 192) for tag, dt in (("", bf16), ("-f32", f32))),
+        *((f"nc-{sq}x1500-hd{hd}{tag}", (2, sq, 4, 4, hd, 1500), dt, False,
+           None)
+          for hd in (96, 192) for sq in (224, 1)
+          for tag, dt in (("", bf16), ("-f32", f32))),
+        ("fused-hd96", (2, 257, 8, 2, 96), bf16, True, None, True),
+        ("fused-hd192-w100", (2, 257, 8, 2, 192), bf16, True, 100, True),
     ]
-    path_err = moe_err = zamba_err = None
+    path_err = moe_err = zamba_err = phi3_err = nemotron_err = None
     whisper_err = {}
     for name, shape, dtype, causal, window, *fused in cases:
         q, k, v = qkv(*shape[:5], dtype, fused=bool(fused),
@@ -2286,6 +2413,13 @@ def main() -> None:
             whisper_err[name] = err
             if fa.last_variant != "wgmma_tma":
                 fail(f"whisper's {name} shape ran {fa.last_variant}")
+        if shape[4] in (96, 192) and fa.last_variant != (
+                "mma_sync" if dtype == bf16 else "mma_fma"):
+            fail(f"{name} (head_dim {shape[4]}) ran {fa.last_variant}")
+        if name == "phi3-bf16":
+            phi3_err = err
+        if name == "nemotron-bf16":
+            nemotron_err = err
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     pm_err = check_phase_max(dev)
@@ -2328,7 +2462,11 @@ def main() -> None:
     audio_launches = serve_phase(
         dev, "whisper-base", {"flash_attention": 18}, batch=WHISPER_BATCH,
         prompt=WHISPER_PROMPT, frames=WHISPER_FRAMES,
-        max_len=WHISPER_MAX_LEN)
+        max_len=WHISPER_MAX_LEN, variant="wgmma_tma")
+
+    # 4g. the vlm family: full-width phi-3-vision-4.2b, head_dim 96 --------
+    vlm_launches = serve_phase(dev, "phi-3-vision-4.2b",
+                               {"flash_attention": 32}, variant="mma_sync")
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
@@ -2361,60 +2499,45 @@ def main() -> None:
     log(f"flash_attention variant on the tinyllama path: {path_variant} "
         f"({fa.last_variant} at the timed shape)")
     log_ptxas("flash_attention", report["flash_attention"])
-    # deepseek-moe-16b's shape: MHA 16 / 16, head_dim 128
-    mq, mk, mv = qkv(BATCH, PROMPT, 16, 16, 128, torch.bfloat16)
-    moe_ms = time_ms(lambda: fa.flash_attention(mq, mk, mv))
-    moe_plain_ms = time_ms(lambda: fa.flash_attention_plain(mq, mk, mv),
-                           iters=5)
-    mqh, mkh, mvh = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
-    moe_library_ms = time_ms(lambda: sdpa(mqh, mkh, mvh, is_causal=True))
-    moe_bound_ms, moe_bound_by = bound(mq, mk, mv, True, None)
-    log(f"flash_attention at deepseek-moe-16b's shape (B {BATCH}, S {PROMPT},"
-        f" 16 / 16 heads of 128, bf16, causal, {fa.last_variant}): kernel "
-        f"{moe_ms:.4f} ms, plain {moe_plain_ms:.4f} ms, library "
-        f"{moe_library_ms:.4f} ms, bound {moe_bound_ms:.4f} ms "
-        f"({moe_bound_by}); {smi}")
-    del mq, mk, mv, mqh, mkh, mvh
-    # zamba2-2.7b's shared attention: MHA 32 / 32, head_dim 80
-    zq, zk, zv = qkv(*ZAMBA_ATTN, torch.bfloat16)
-    zamba_ms = time_ms(lambda: fa.flash_attention(zq, zk, zv))
-    zamba_variant = fa.last_variant
-    zamba_plain_ms = time_ms(lambda: fa.flash_attention_plain(zq, zk, zv),
-                             iters=5)
-    zqh, zkh, zvh = (t.transpose(1, 2).contiguous() for t in (zq, zk, zv))
-    zamba_library_ms = time_ms(lambda: sdpa(zqh, zkh, zvh, is_causal=True))
-    zamba_bound_ms, zamba_bound_by = bound(zq, zk, zv, True, None)
-    log(f"flash_attention at zamba2-2.7b's shape (B {BATCH}, S {PROMPT}, "
-        f"32 / 32 heads of 80, bf16, causal, {zamba_variant}): kernel "
-        f"{zamba_ms:.4f} ms, plain {zamba_plain_ms:.4f} ms, library "
-        f"{zamba_library_ms:.4f} ms, bound {zamba_bound_ms:.4f} ms "
-        f"({zamba_bound_by}); {smi}")
-    del zq, zk, zv, zqh, zkh, zvh
-    # whisper-base's encoder (1500 x 1500) and cross (224 x 1500) attention,
-    # non-causal, 8 / 8 heads of 64
-    audio_rows = {}
-    for name, case, shape in (("encoder", "whisper-enc", WHISPER_ENC),
-                              ("cross", "whisper-cross", WHISPER_CROSS)):
-        wq, wk, wv = qkv(*shape[:5], torch.bfloat16, skv=shape[5])
-        row = {"ms": time_ms(lambda: fa.flash_attention(wq, wk, wv,
-                                                        causal=False)),
+    def attention_row(label, shape, causal, err):
+        """Kernel, plain and SDPA (kv heads expanded) ms at ``shape`` (B,
+        Sq, Hq, Hkv, hd[, Skv]), bf16, with its bound; logged."""
+        aq, ak, av = qkv(*shape[:5], torch.bfloat16,
+                         skv=shape[5] if len(shape) > 5 else None)
+        row = {"ms": time_ms(lambda: fa.flash_attention(aq, ak, av,
+                                                        causal=causal)),
                "variant": fa.last_variant,
                "plain_ms": time_ms(lambda: fa.flash_attention_plain(
-                   wq, wk, wv, False), iters=5)}
-        wqh, wkh, wvh = (t.transpose(1, 2).contiguous() for t in (wq, wk, wv))
-        row["library_ms"] = time_ms(lambda: sdpa(wqh, wkh, wvh,
-                                                 is_causal=False))
-        row["bound_ms"], row["bound_by"] = bound(wq, wk, wv, False, None)
-        row["max_abs_err"] = whisper_err[case]
-        row["shape"] = (f"B {shape[0]}, Sq {shape[1]}, Skv {shape[5]}, "
-                        f"{shape[2]} / {shape[3]} heads of {shape[4]}, bf16, "
-                        f"non-causal")
-        audio_rows[name] = row
-        log(f"flash_attention at whisper-base's {name} shape ({row['shape']},"
-            f" {row['variant']}): kernel {row['ms']:.4f} ms, plain "
+                   aq, ak, av, causal), iters=5)}
+        rep = aq.shape[2] // ak.shape[2]
+        aqh = aq.transpose(1, 2).contiguous()
+        akh, avh = (t.repeat_interleave(rep, dim=2).transpose(1, 2)
+                    .contiguous() for t in (ak, av))
+        row["library_ms"] = time_ms(lambda: sdpa(aqh, akh, avh,
+                                                 is_causal=causal))
+        row["bound_ms"], row["bound_by"] = bound(aq, ak, av, causal, None)
+        row["max_abs_err"] = err
+        row["shape"] = (f"B {shape[0]}, Sq {shape[1]}"
+                        + (f", Skv {shape[5]}" if len(shape) > 5 else "")
+                        + f", {shape[2]} / {shape[3]} heads of {shape[4]}, "
+                        f"bf16, {'causal' if causal else 'non-causal'}")
+        log(f"flash_attention at {label}'s shape ({row['shape']}, "
+            f"{row['variant']}): kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
-        del wq, wk, wv, wqh, wkh, wvh
+        return row
+
+    moe_row = attention_row("deepseek-moe-16b", (BATCH, PROMPT, 16, 16, 128),
+                            True, moe_err)
+    zamba_row = attention_row("zamba2-2.7b", ZAMBA_ATTN, True, zamba_err)
+    audio_rows = {
+        "encoder": attention_row("whisper-base's encoder", WHISPER_ENC,
+                                 False, whisper_err["whisper-enc"]),
+        "cross": attention_row("whisper-base's cross", WHISPER_CROSS, False,
+                               whisper_err["whisper-cross"])}
+    phi3_row = attention_row("phi-3-vision-4.2b", PHI3_ATTN, True, phi3_err)
+    nemotron_row = attention_row("nemotron-4-340b's heads", NEMOTRON_ATTN,
+                                 True, nemotron_err)
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), iters=5)
     f32_bound, f32_by = bound(qf, kf, vf, True, None)
@@ -2485,24 +2608,21 @@ def main() -> None:
         "train_launches_per_step": train["launches_per_step"],
         "train_grad_max_abs_err": grad_errs["flash_attention"],
         "moe_path": {
-            "arch": "deepseek-moe-16b", "variant": moe_variant,
-            "shape": f"B {BATCH}, S {PROMPT}, 16 / 16 heads of 128, bf16",
-            "launches": moe_launches["flash_attention"],
-            "max_abs_err": moe_err,
-            "ms": moe_ms, "plain_ms": moe_plain_ms,
-            "bound_ms": moe_bound_ms, "bound_by": moe_bound_by,
-            "library_ms": moe_library_ms},
+            "arch": "deepseek-moe-16b",
+            "launches": moe_launches["flash_attention"], **moe_row,
+            "variant": moe_variant},
         "hybrid_path": {
-            "arch": "zamba2-2.7b", "variant": hybrid_variant,
-            "shape": f"B {BATCH}, S {PROMPT}, 32 / 32 heads of 80, bf16",
-            "launches": hybrid_launches["flash_attention"],
-            "max_abs_err": zamba_err, "ms": zamba_ms,
-            "plain_ms": zamba_plain_ms, "bound_ms": zamba_bound_ms,
-            "bound_by": zamba_bound_by, "library_ms": zamba_library_ms},
+            "arch": "zamba2-2.7b",
+            "launches": hybrid_launches["flash_attention"], **zamba_row,
+            "variant": hybrid_variant},
         "audio_path": {
             "arch": "whisper-base",
             "launches": audio_launches["flash_attention"],
             **audio_rows["encoder"], "cross": audio_rows["cross"]},
+        "vlm_path": {
+            "arch": "phi-3-vision-4.2b",
+            "launches": vlm_launches["flash_attention"], **phi3_row},
+        "nemotron_head_shape": {"arch": "nemotron-4-340b", **nemotron_row},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",

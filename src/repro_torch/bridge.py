@@ -10,8 +10,9 @@ w_decay_b,decay_base,bonus_u,mix_x,ln_x},cmix/{w_k,w_v,mix}}``; moe
 w_bc,w_dt,a_log,d_skip,dt_bias,conv,w_out,norm}}`` with the unstacked
 ``shared_block`` (a dense layer) and ``shared_proj``; audio (enc-dec) the
 dense decoder ``layers`` plus ``encoder_layers`` (dense layers), the
-decoder's stacked ``cross_attn/{ln,attn}`` and ``ln_enc``; stacked ``L``
-axis, ``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
+decoder's stacked ``cross_attn/{ln,attn}`` and ``ln_enc``; vlm the dense
+``layers`` plus the unstacked ``patch_proj`` (d_model, d_model); stacked
+``L`` axis, ``(d_in, d_out)`` matrices) as nested dicts of tensors, so both
 packages compute the same function on the same numbers.
 
 Optimizer state crosses the same way: the reference's ``AdamWState(step,

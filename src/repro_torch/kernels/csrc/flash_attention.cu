@@ -56,16 +56,23 @@
 //     Tiles the masks leave dead are never loaded, and only tiles
 //     that a mask cuts are masked element by element.  Longest causal rows
 //     first.
-//   attn_fwd_mma_kernel — bf16 head_dim 16, 32 and 80 (mma.sync m16n8k16, P
-//     as P_hi + P_lo from registers, V transposed into shared memory), and
-//     all of float32 (plain FMAs, no TF32, P through shared memory): 64 q
-//     rows a CTA of 4 warps, 64-row K/V tiles loaded synchronously.  Every
-//     loop runs over HD / 16 k-steps and HD / 8 n-tiles and every tile row
-//     is HD / 8 (bf16) or HD / 4 (float32) 16-byte chunks, so any multiple
-//     of 16 works; 80 (zamba2's heads) is 5 k-steps and 10 n-tiles.  Its
-//     padded rows (88 bf16, 84 float32 elements) keep a warp's fragment
-//     reads on distinct banks.  The wgmma kernel's TMA boxes are 64 columns
-//     with a 128-byte swizzle, which 80 does not fill.
+//   attn_fwd_mma_kernel — bf16 head_dim 16, 32, 80, 96 and 192 (mma.sync
+//     m16n8k16, P as P_hi + P_lo from registers, V transposed into shared
+//     memory), and all of float32 (plain FMAs, no TF32, P through shared
+//     memory): 64 q rows a CTA of 4 warps, 64-row K/V tiles loaded
+//     synchronously.  Every loop runs over HD / 16 k-steps and HD / 8
+//     n-tiles and every tile row is HD / 8 (bf16) or HD / 4 (float32) 16-byte
+//     chunks, so any multiple of 16 works; 80 (zamba2's heads) is 5 k-steps
+//     and 10 n-tiles, 96 (phi-3-vision's) 6 and 12, 192 (nemotron-4-340b's)
+//     12 and 24.  The padded rows (HD + 8 bf16, HD + 4 float32 elements)
+//     keep a warp's fragment reads on distinct banks.  At 192 a thread holds
+//     48 registers of Q fragments and 96 float32 O accumulators before S and
+//     P (CUDA 12.8's ptxas fits the bf16 instance in 254 registers without
+//     a spill; the build's -Xptxas -v report says for each build); the
+//     shared memory is 53,248 bytes in bf16 and 167,936 in float32, both
+//     above the 48 KB default, which launch() opts into.  The wgmma kernel's
+//     TMA boxes are 64 columns with a 128-byte swizzle, which 80 and 96 do
+//     not fill.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -105,7 +112,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
 }
 
 // ---------------------------------------------------------------------------
-// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 / 80 and float32
+// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 / 80 / 96 / 192 and float32
 // ---------------------------------------------------------------------------
 
 namespace mma {
@@ -945,10 +952,12 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace wg
 
 // The variant that takes (dtype, head_dim): 0 attn_fwd_mma_kernel with FMAs
-// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32 / 80),
-// 2 attn_fwd_wgmma_kernel (bf16 hd 64 / 128); -1 none.
+// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32 / 80 / 96
+// / 192), 2 attn_fwd_wgmma_kernel (bf16 hd 64 / 128); -1 none.
 int variant(int dtype, int hd) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 128) return -1;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 96 && hd != 128 &&
+      hd != 192)
+    return -1;
   if (dtype == 0) return 0;
   if (dtype == 1) return hd == 64 || hd == 128 ? 2 : 1;
   return -1;
@@ -960,10 +969,14 @@ cudaError_t dispatch_hd(const Params& p, int dtype, int hd, int batch, cudaStrea
     case 32: return mma::launch<float, 32>(p, batch, stream);
     case 64: return mma::launch<float, 64>(p, batch, stream);
     case 80: return mma::launch<float, 80>(p, batch, stream);
+    case 96: return mma::launch<float, 96>(p, batch, stream);
     case 128: return mma::launch<float, 128>(p, batch, stream);
+    case 192: return mma::launch<float, 192>(p, batch, stream);
     case 1016: return mma::launch<__nv_bfloat16, 16>(p, batch, stream);
     case 1032: return mma::launch<__nv_bfloat16, 32>(p, batch, stream);
     case 1080: return mma::launch<__nv_bfloat16, 80>(p, batch, stream);
+    case 1096: return mma::launch<__nv_bfloat16, 96>(p, batch, stream);
+    case 1192: return mma::launch<__nv_bfloat16, 192>(p, batch, stream);
     case 2064: return wg::launch<64>(p, batch, stream);
     case 2128: return wg::launch<128>(p, batch, stream);
     default: return cudaErrorInvalidValue;
@@ -976,10 +989,14 @@ int smem_bytes(int dtype, int hd) {
     case 32: return (int)mma::Plan<float, 32>::kBytes;
     case 64: return (int)mma::Plan<float, 64>::kBytes;
     case 80: return (int)mma::Plan<float, 80>::kBytes;
+    case 96: return (int)mma::Plan<float, 96>::kBytes;
     case 128: return (int)mma::Plan<float, 128>::kBytes;
+    case 192: return (int)mma::Plan<float, 192>::kBytes;
     case 1016: return (int)mma::Plan<__nv_bfloat16, 16>::kBytes;
     case 1032: return (int)mma::Plan<__nv_bfloat16, 32>::kBytes;
     case 1080: return (int)mma::Plan<__nv_bfloat16, 80>::kBytes;
+    case 1096: return (int)mma::Plan<__nv_bfloat16, 96>::kBytes;
+    case 1192: return (int)mma::Plan<__nv_bfloat16, 192>::kBytes;
     case 2064: return (int)wg::Plan<64>::kBytes;
     case 2128: return (int)wg::Plan<128>::kBytes;
     default: return -1;
@@ -993,7 +1010,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int hd) { return smem_bytes
 
 // Which kernel variant flash_attention_fwd launches for (dtype, head_dim):
 // 0 mma kernel with FMAs, 1 mma kernel with mma.sync, 2 wgmma + TMA; -1 none.
-// head_dim is one of 16, 32, 64, 80, 128.
+// head_dim is one of 16, 32, 64, 80, 96, 128, 192.
 extern "C" int flash_attention_variant(int dtype, int hd) { return variant(dtype, hd); }
 
 // q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), o (B, Sq, Hq, hd), each with a unit

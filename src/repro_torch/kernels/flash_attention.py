@@ -6,8 +6,8 @@ its GQA wrapper ``repro/kernels/ops.py::flash_attention``.  It takes CUDA
 tensors only and raises on what the kernel does not take.  The source holds
 two kernels, chosen by dtype and head_dim (``check_layout`` names the one a
 call launches): bf16 at head_dim 64 / 128 runs ``attn_fwd_wgmma_kernel``
-(wgmma, TMA, a ring of K/V stages), bf16 at 16 / 32 / 80 and all of float32
-run ``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
+(wgmma, TMA, a ring of K/V stages), bf16 at 16 / 32 / 80 / 96 / 192 and all
+of float32 run ``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
 ``flash_attention_plain`` computes the same function in plain PyTorch, with
 the same ``-1e30`` masking sentinel, ``max(l, 1e-20)`` finalize and kv-major
 GQA grouping; the CPU path and the on-card comparisons use it.
@@ -29,7 +29,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
@@ -69,8 +69,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # The kernel variants of csrc/flash_attention.cu, by the code its
 # flash_attention_variant returns: float32 on FMAs and bf16 head_dim 16 / 32
-# / 80 on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 / 128 runs
-# attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
+# / 80 / 96 / 192 on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 /
+# 128 runs attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
 VARIANTS = ("mma_fma", "mma_sync", "wgmma_tma")
 WGMMA_HEAD_DIMS = (64, 128)
 _TMA_STRIDE_LIMIT = 2 ** 40

@@ -8,6 +8,7 @@ cross K/V (audio).
         --arch deepseek-moe-16b --param-dtype bfloat16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 ``--param-dtype`` is the held weights' dtype (``RunConfig.param_dtype`` in
@@ -16,7 +17,9 @@ fit one 80 GB card only as bf16.
 
 The audio family gets the reference's stub frames (``repro.launch.serve``):
 (batch, prompt-len, d_model) filled with 0.01 in float32, so its encoder
-runs in float32.
+runs in float32.  The vlm family is served on tokens alone, as the
+reference's launcher serves it: its ``prefill`` and ``decode_step`` take no
+patch embeddings.
 
 Runs on the card unless ``--device cpu`` is given.  The first generated
 token comes from prefill, the other ``gen - 1`` from decode steps, as in

@@ -1,5 +1,5 @@
-"""LM assembly: the dense, ssm (RWKV6), moe, hybrid (zamba2) and audio
-(whisper) families.
+"""LM assembly: the dense, ssm (RWKV6), moe, hybrid (zamba2), audio
+(whisper) and vlm (phi-3-vision) families.
 
 Same parameter layout as the reference (``repro/models/transformer.py``):
 nested dicts with a stacked leading ``L`` axis on every layer leaf and
@@ -17,8 +17,10 @@ block, unstacked) applied after every ``attn_every`` of them on
 ``concat(h, x0) @ shared_proj``; the audio family (slice 5c), an
 encoder-decoder: a non-causal encoder over frame embeddings (the stub
 frontend) with sinusoidal positions, then decoder layers that each add a
-cross attention to the encoder's output after their MLP.  The vlm family
-raises ``NotImplementedError``.
+cross attention to the encoder's output after their MLP; the vlm family
+(slice 5d), the dense stack on a sequence whose first P token embeddings
+are replaced by patch embeddings projected by ``patch_proj``
+(``merge_patches``, the stub frontend).
 """
 
 from __future__ import annotations
@@ -39,18 +41,23 @@ from .ssm import (mamba2_apply, mamba2_init, rwkv6_channel_mix,
                   rwkv6_channel_mix_init, rwkv6_init, rwkv6_time_mix)
 
 
+# each family's stub frontend; only the audio family is an encoder-decoder
+FRONTENDS = {"dense": None, "ssm": None, "moe": None, "hybrid": None,
+             "audio": "frames", "vlm": "patch"}
+
+
 def check_ported(cfg) -> None:
-    audio = cfg.family == "audio"
-    if (cfg.family not in ("dense", "ssm", "moe", "hybrid", "audio")
-            or cfg.is_encoder_decoder != audio
-            or cfg.frontend != ("frames" if audio else None)):
+    if (cfg.family not in FRONTENDS
+            or cfg.is_encoder_decoder != (cfg.family == "audio")
+            or cfg.frontend != FRONTENDS[cfg.family]):
         raise NotImplementedError(
             f"{cfg.name}: family '{cfg.family}' (encoder-decoder "
-            f"{cfg.is_encoder_decoder}, frontend {cfg.frontend}) is not "
-            f"ported yet; the port covers the dense family (slice 1), the ssm "
-            f"family (slice 3), the moe family (slice 5a), the hybrid family "
-            f"(slice 5b) and the audio family (slice 5c: an encoder-decoder "
-            f"on frame embeddings), the others are queued in ROADMAP.md")
+            f"{cfg.is_encoder_decoder}, frontend {cfg.frontend}) is not a "
+            f"model the port builds; it runs the dense family (slice 1), the "
+            f"ssm family (slice 3), the moe family (slice 5a) and the hybrid "
+            f"family (slice 5b) as decoders without a frontend, the audio "
+            f"family (slice 5c) as an encoder-decoder on frame embeddings and "
+            f"the vlm family (slice 5d) as a decoder on patch embeddings")
     if cfg.family == "hybrid" and (cfg.attn_every < 1
                                    or cfg.num_layers % cfg.attn_every):
         raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} must be "
@@ -132,14 +139,16 @@ def init_lm(cfg, seed: int = 0, *, device="cuda",
                               cfg.head_dim_, cfg.qkv_bias, lead=L,
                               dtype=dtype)}
         p["ln_enc"] = norm_init(cfg.norm, d, device=dev)
+    if cfg.frontend == "patch":  # phi-3-vision (transformer.py:131-132)
+        p["patch_proj"] = dense_init(gen, d, d, dtype=dtype)
     return p
 
 
 def attention_stacks(cfg) -> List[Tuple[str, int, bool]]:
     """The stacked layers of an attention LM in order, as (params key,
-    number of layers, MoE?): the dense family's ``layers``; the moe
-    family's ``dense_layers`` (its ``moe_first_dense`` leading dense
-    layers, where it has any), then its MoE ``layers``."""
+    number of layers, MoE?): the dense, vlm and audio families' ``layers``;
+    the moe family's ``dense_layers`` (its ``moe_first_dense`` leading
+    dense layers, where it has any), then its MoE ``layers``."""
     if cfg.family != "moe":
         return [("layers", cfg.num_layers, False)]
     n = cfg.moe_first_dense

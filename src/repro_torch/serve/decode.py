@@ -1,5 +1,5 @@
-"""Serving, dense, ssm, moe, hybrid and audio families: one-pass prefill
-and one-token decode steps.
+"""Serving, dense, ssm, moe, hybrid, audio and vlm families: one-pass
+prefill and one-token decode steps.
 
 ``prefill`` runs the prompt through one full-sequence pass and fills the
 decode state from it: for the attention families every layer's post-RoPE
@@ -14,8 +14,10 @@ family first runs the encoder once (``_encode_cross``: the attention
 kernel once per encoder layer) and caches each decoder layer's cross K/V,
 then every decoder layer's self-attention K/V goes into the cache and its
 cross attention attends the prompt to the cached cross K/V (the kernel,
-non-causal, Sq = the prompt, Skv = the cached frames).  For the dense,
-ssm, hybrid and audio families it returns the same last-position logits
+non-causal, Sq = the prompt, Skv = the cached frames).  The vlm family
+is served as the dense family, on tokens alone: the reference's
+``prefill`` and ``decode_step`` take no patch embeddings.  For the dense,
+ssm, hybrid, audio and vlm families it returns the same last-position logits
 and decode state as the reference's token-by-token
 ``repro.serve.decode.prefill``.  For the moe family the one
 pass routes all B·S prompt tokens against one capacity, as the reference's

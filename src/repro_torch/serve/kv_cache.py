@@ -1,9 +1,9 @@
-"""Decode state: per-layer KV caches (dense, moe, audio), recurrent states
-(ssm, hybrid), cross-attention caches (audio).
+"""Decode state: per-layer KV caches (dense, vlm, moe, audio), recurrent
+states (ssm, hybrid), cross-attention caches (audio).
 
 Layouts as the reference's:
   dense   k/v ``(L, B, cap, Hkv, hd)``, ``cap = min(max_len, window or inf)``;
-          SWA caches are rolling, slot = pos % cap
+          SWA caches are rolling, slot = pos % cap; the vlm family's too
   moe     the same for the MoE layers (leading axis L - moe_first_dense),
           and ``k_cache_dense`` / ``v_cache_dense`` for the leading dense
           layers (``moe_first_dense``), where there are any

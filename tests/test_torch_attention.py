@@ -58,6 +58,8 @@ def _close(out, ref, tol):
     (2, 96, 4, 1, 16),      # MQA, ragged seq
     (1, 160, 4, 4, 80),     # zamba2's head_dim, MHA
     (2, 100, 4, 2, 80),     # head_dim 80, GQA, ragged seq
+    (1, 160, 4, 4, 96),     # phi-3-vision's head_dim, MHA
+    (2, 100, 8, 2, 192),    # nemotron-4-340b's head_dim, GQA, ragged seq
 ])
 def test_attention_matches_pallas(b, s, hq, hkv, hd, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _inputs(s + hq, b, s, hq, hkv, hd, dtype)
@@ -191,8 +193,10 @@ def _layout(b=2, s=64, hq=8, hkv=2, hd=64, elt=2, fused=False):
 @pytest.mark.parametrize("elt,hd,variant", [
     (2, 64, "wgmma_tma"), (2, 128, "wgmma_tma"),
     (2, 16, "mma_sync"), (2, 32, "mma_sync"), (2, 80, "mma_sync"),
+    (2, 96, "mma_sync"), (2, 192, "mma_sync"),
     (4, 16, "mma_fma"), (4, 32, "mma_fma"), (4, 64, "mma_fma"),
-    (4, 80, "mma_fma"), (4, 128, "mma_fma"),
+    (4, 80, "mma_fma"), (4, 96, "mma_fma"), (4, 128, "mma_fma"),
+    (4, 192, "mma_fma"),
 ])
 @pytest.mark.parametrize("fused", [False, True], ids=["contiguous", "fused"])
 def test_check_layout_names_the_variant(elt, hd, variant, fused):

@@ -37,7 +37,11 @@ non-causal with Sq != Skv on both kernels ((224, 1500), (1500, 224),
 (1, 1500), (129, 63), (300, 1); GQA), at whisper-base's encoder, cross
 and decoder shapes, on a cross cache's row view, the Function's grads at
 Sq != Skv, and reduced whisper's ``generate`` against the CPU with
-3 launches a layer in prefill.
+3 launches a layer in prefill.  The vlm family: attention at head_dim 96
+(phi-3-vision, MHA 32 / 32) and 192 (nemotron-4-340b, GQA 96 / 8) on the
+mma kernel, with GQA, windows, ragged S and Sq != Skv, their shared memory
+as the kernel's plan sizes it, and reduced phi-3-vision at head_dim 96
+with patch embeddings against the CPU with one launch a layer.
 """
 
 import numpy as np
@@ -102,7 +106,7 @@ def _check(q, k, v, variant=None, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 @pytest.mark.parametrize("b,s,hq,hkv", [
     (2, 128, 4, 4),      # MHA
     (1, 256, 8, 2),      # GQA
@@ -162,7 +166,7 @@ def test_kernel_gqa_groups_and_variants(cuda, hq, hkv, hd, variant):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
 def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
     """q/k/v as strided views of one (B, S, (Hq + 2 Hkv) * hd) tensor, the
@@ -181,7 +185,7 @@ def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
     """The C side's dispatch_hd and the wrapper's check_layout name the
     same variant for every (dtype, head_dim)."""
@@ -963,8 +967,11 @@ SQ_SKV = [(224, 1500), (1500, 224), (1, 1500), (129, 63), (300, 1)]
 
 @pytest.mark.parametrize("dtype,hd,variant", [
     (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
-    (torch.bfloat16, 80, "mma_sync"), (torch.float32, 64, "mma_fma")],
-    ids=["bf16-hd64", "bf16-hd128", "bf16-hd80", "f32-hd64"])
+    (torch.bfloat16, 80, "mma_sync"), (torch.float32, 64, "mma_fma"),
+    (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 192, "mma_sync"),
+    (torch.float32, 96, "mma_fma"), (torch.float32, 192, "mma_fma")],
+    ids=["bf16-hd64", "bf16-hd128", "bf16-hd80", "f32-hd64", "bf16-hd96",
+         "bf16-hd192", "f32-hd96", "f32-hd192"])
 @pytest.mark.parametrize("sq,skv", SQ_SKV,
                          ids=[f"{a}x{b}" for a, b in SQ_SKV])
 def test_kernel_non_causal_sq_ne_skv(cuda, sq, skv, dtype, hd, variant):
@@ -1056,3 +1063,70 @@ def test_audio_generate_launches_attention_three_times_per_layer(cuda):
     assert torch.equal(res.tokens.cpu(), ref.tokens)
     torch.testing.assert_close(res.last_logits.cpu(), ref.last_logits,
                                atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the vlm family: attention at head_dim 96 (phi-3-vision) and 192
+# (nemotron-4-340b) on the mma kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s", [(4, 2048), (1, 300)])
+def test_kernel_at_the_phi3_shape(cuda, b, s, dtype):
+    """phi-3-vision-4.2b's attention: MHA 32 / 32, head_dim 96, causal."""
+    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    _check(*_qkv(cuda, b, s, 32, 32, 96, dtype, seed=s), variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [2048, 300])
+def test_kernel_at_the_nemotron_head_shape(cuda, s, dtype):
+    """nemotron-4-340b's attention heads: 96 / 8 (GQA 12) of 192, causal."""
+    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    _check(*_qkv(cuda, 1, s, 96, 8, 192, dtype, seed=s), variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [96, 192])
+@pytest.mark.parametrize("s", [1, 127, 129, 300])
+@pytest.mark.parametrize("hq,hkv,window", [(8, 2, None), (4, 4, 48),
+                                           (8, 1, 200)],
+                         ids=["gqa4", "window48", "mqa-window200"])
+def test_kernel_hd96_hd192_groups_windows_and_edges(cuda, hq, hkv, window,
+                                                    s, hd, dtype):
+    _check(*_qkv(cuda, 2, s, hq, hkv, hd, dtype, seed=s + hq + hd),
+           window=window)
+
+
+@pytest.mark.parametrize("dtype,hd,nbytes", [
+    (torch.bfloat16, 96, 27136), (torch.bfloat16, 192, 53248),
+    (torch.float32, 96, 94208), (torch.float32, 192, 167936)])
+def test_smem_bytes_at_hd96_and_hd192(cuda, dtype, hd, nbytes):
+    """The mma kernel's Plan: K (64 x (hd + pad)) and V (bf16: transposed,
+    hd x 72; float32: 64 x (hd + 4)), float32 also Q and four warps' 16 x
+    68 P rows; at 192 above the 48 KB default, which the launch opts into."""
+    assert fa.smem_bytes(dtype, hd) == nbytes
+    assert fa.built_variant(dtype, hd) == (
+        "mma_sync" if dtype == torch.bfloat16 else "mma_fma")
+
+
+def test_vlm_forward_with_patches_launches_once_per_layer(cuda):
+    """Reduced phi-3-vision at head_dim 96 (4 heads), float32, with 16
+    patch embeddings: ``forward`` on the card launches attention once per
+    layer and matches the plain path on the CPU at 1e-4."""
+    cfg = configs.reduced(configs.get_config("phi-3-vision-4.2b"),
+                          dtype="float32", head_dim=96)
+    lm_cpu = LM.init(cfg, seed=2, device="cpu")
+    lm_gpu = LM(cfg, lm_cpu.params).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+    pe = torch.as_tensor(rng.normal(size=(2, cfg.num_patches, cfg.d_model)),
+                         dtype=torch.float32)
+    fa.launches = kr.launches = pm.launches = 0
+    with torch.inference_mode():
+        out = lm_gpu(toks.to(cuda), patch_embeds=pe.to(cuda))
+        torch.cuda.synchronize()
+        assert fa.launches == cfg.num_layers
+        assert kr.launches == pm.launches == 0
+        ref = lm_cpu(toks, patch_embeds=pe)
+    torch.testing.assert_close(out.cpu(), ref, atol=F32_TOL, rtol=F32_TOL)

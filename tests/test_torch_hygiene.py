@@ -156,6 +156,19 @@ def test_hybrid_entry_points_default_to_cuda_and_raise(no_card, entry):
     assert (fa.launches, rwkv6.launches) == before
 
 
+@pytest.mark.parametrize("entry", [
+    lambda cfg: transformer.init_lm(cfg),
+    lambda cfg: transformer.LM.init(cfg),
+    lambda cfg: serve.main(["--arch", "phi-3-vision-4.2b", "--reduced"]),
+], ids=["init_lm", "LM.init", "serve.main"])
+def test_vlm_entry_points_default_to_cuda_and_raise(no_card, entry):
+    cfg = configs.reduced(configs.get_config("phi-3-vision-4.2b"))
+    before = fa.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(cfg)
+    assert fa.launches == before
+
+
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
 
 

@@ -65,12 +65,16 @@ def _tokens(cfg, b=2, s=24, seed=1):
                         num_layers=4),
     lambda m: m.get_config("whisper-base"),
     lambda m: m.reduced(m.get_config("whisper-base"), dtype="float32"),
+    lambda m: m.get_config("phi-3-vision-4.2b"),
+    lambda m: m.reduced(m.get_config("phi-3-vision-4.2b"), dtype="float32"),
+    lambda m: m.reduced(m.get_config("phi-3-vision-4.2b"), head_dim=96),
 ], ids=["full", "reduced", "reduced-f32", "rwkv6-full", "rwkv6-reduced",
         "rwkv6-reduced-f32", "olmo-full", "olmo-reduced-f32", "qwen-full",
         "qwen-reduced-f32", "nemotron-full", "nemotron-reduced-f32",
         "deepseek-full", "deepseek-reduced-f32", "mixtral-full",
         "mixtral-reduced-f32", "zamba2-full", "zamba2-reduced-f32",
-        "whisper-full", "whisper-reduced-f32"])
+        "whisper-full", "whisper-reduced-f32", "phi3-full",
+        "phi3-reduced-f32", "phi3-reduced-hd96"])
 def test_config_copy_matches_reference(make):
     ref, port = make(jcfg), make(tcfg)
     names = [f.name for f in dataclasses.fields(ref)]
@@ -148,24 +152,33 @@ def test_compute_params_keep_norms_f32_and_cast_matrices():
     assert lm.compute_params() is cp          # made once
 
 
-UNPORTED = (r"dense family \(slice 1\), the ssm family \(slice 3\), "
-            r"the moe family \(slice 5a\), the hybrid family "
-            r"\(slice 5b\) and the audio family \(slice 5c")
+UNPORTED = (r"the audio family \(slice 5c\) as an encoder-decoder on "
+            r"frame embeddings and the vlm family \(slice 5d\) as a "
+            r"decoder on patch embeddings")
 
 
 @pytest.mark.parametrize("arch_family", ["vlm", "audio"])
 def test_unported_families_raise(arch_family):
-    """The vlm family (a "patch" frontend) is refused; the audio family,
-    which slice 5c ports, inits and runs forward on frame embeddings, and
-    only as an encoder-decoder on frames."""
+    """The vlm family, which slice 5d ports, inits and runs forward on patch
+    embeddings, and only as a decoder with a "patch" frontend; the audio
+    family, which slice 5c ports, on frame embeddings, and only as an
+    encoder-decoder on frames.  Every other combination is refused."""
     if arch_family == "vlm":
-        cfg = dataclasses.replace(
-            tcfg.reduced(tcfg.get_config("tinyllama-1.1b")), family="vlm",
-            frontend="patch")
-        with pytest.raises(NotImplementedError, match=UNPORTED):
-            TT.init_lm(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=UNPORTED):
-            TT.forward({}, cfg, torch.zeros(1, 4, dtype=torch.long))
+        cfg = tcfg.reduced(tcfg.get_config("phi-3-vision-4.2b"))
+        lm = TT.LM.init(cfg, seed=0, device="cpu")
+        logits, aux = TT.forward(
+            lm.compute_params(), cfg, torch.zeros(2, 20, dtype=torch.long),
+            patch_embeds=torch.full((2, cfg.num_patches, cfg.d_model), 0.01))
+        assert tuple(logits.shape) == (2, 20, cfg.vocab_size)
+        assert logits.dtype == torch.bfloat16 and aux.item() == 0.0
+        assert bool(torch.isfinite(logits.float()).all())
+        for bad in (dict(frontend=None), dict(frontend="frames"),
+                    dict(is_encoder_decoder=True, encoder_layers=2)):
+            with pytest.raises(NotImplementedError, match=UNPORTED):
+                TT.init_lm(dataclasses.replace(cfg, **bad), device="cpu")
+            with pytest.raises(NotImplementedError, match=UNPORTED):
+                TT.forward({}, dataclasses.replace(cfg, **bad),
+                           torch.zeros(1, 4, dtype=torch.long))
         return
     cfg = tcfg.reduced(tcfg.get_config("whisper-base"))
     lm = TT.LM.init(cfg, seed=0, device="cpu")
@@ -253,9 +266,10 @@ def _olmo():
 
 
 def test_port_registers_the_dense_family():
-    assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b", "nemotron-4-340b",
-            "rwkv6-3b", "deepseek-moe-16b", "mixtral-8x22b",
-            "zamba2-2.7b", "whisper-base"} == set(tcfg.list_configs())
+    """Every config of the reference, the dense family among them."""
+    assert {"tinyllama-1.1b", "olmo-1b", "qwen1.5-32b",
+            "nemotron-4-340b"} < set(tcfg.list_configs())
+    assert tcfg.list_configs() == jcfg.list_configs()
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",

@@ -121,9 +121,9 @@ def test_serve_main_rejects_zero_gen():
 
 
 def test_unknown_arch_is_refused():
+    assert "gpt-2-xl" not in jcfg.list_configs()
     with pytest.raises(KeyError, match="tinyllama"):
-        tserve.main(["--arch", "phi-3-vision-4.2b", "--reduced", "--device",
-                     "cpu"])
+        tserve.main(["--arch", "gpt-2-xl", "--reduced", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen1.5-32b",

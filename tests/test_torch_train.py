@@ -14,7 +14,10 @@ reference on the same numpy inputs:
   differentiates ``blocked_attention`` / its jnp scan: the same float32
   formulas summed in other orders;
 * one ``make_train_step`` step (plain, 2 microbatches, int8 gradient
-  compression): params 1e-5;
+  compression): params 1e-5; with the batch's frame embeddings (reduced
+  whisper-base) or patch embeddings (reduced phi-3-vision-4.2b), plain and
+  in 2 microbatches: loss 1e-5, grad norm 1e-4, params 1e-5 wherever
+  AdamW's first step is well-conditioned (``_close_step``);
 * remat none / full / dots give the same grads, and full / dots run each
   layer's attention forward twice;
 * checkpoints cross the two packages with identical keys and bit-identical
@@ -366,8 +369,10 @@ def test_train_step_matches_reference(micro, compress):
 def _frontend_extras(cfg, b, s, fill):
     """The reference's batch extras (``tests/test_models_smoke.py:21-29``):
     patch embeddings (B, num_patches, D) for a "patch" frontend, frame
-    embeddings (B, S, D) for "frames"; ``fill`` "0.01" as there, or
-    "normal", seeded normals."""
+    embeddings (B, S, D) for "frames", none without a frontend; ``fill``
+    "0.01" as there, or "normal", seeded normals."""
+    if cfg.frontend is None:
+        return {}
     shape = {"patch": (b, cfg.num_patches, cfg.d_model),
              "frames": (b, s, cfg.d_model)}[cfg.frontend]
     name = "patch_embeds" if cfg.frontend == "patch" else "frame_embeds"
@@ -377,29 +382,54 @@ def _frontend_extras(cfg, b, s, fill):
         np.float32)}
 
 
-def _close_step(port, ref, ref_grads, lr, tol=1e-5, eps=1e-8):
-    """Params after one AdamW step, port against reference, at ``tol`` on
-    every element whose reference grad is 0 or at least 100 x ``eps``.
-    The first step moves a param by lr · g / (|g| + eps) (plus the same
-    weight decay in both): where |g| is near eps, a float32 summation-order
-    difference of 1e-9 in the grad moves the update by up to a few percent
-    of lr (reduced whisper-base on normal frames: a grad of 1.51e-8 in the
-    reference, 1.24e-8 in the port).  Those elements, at most 1% of a leaf,
-    are held at 2 · lr, the most two updates of size <= lr can differ."""
-    p, r = _t_flat(port), _np_flat(ref)
-    g = _np_flat(ref_grads)
+def _close_step(port, ref, port_grads, ref_grads, lr, tol=1e-5, eps=1e-8,
+                clip_norm=1.0):
+    """One AdamW step, port against reference: every grad at 1e-4 (the
+    port's grad tolerance, ``test_lm_loss_and_grads_match_reference``),
+    then the params after the step at ``tol`` on every element whose
+    reference grad, clipped to the global norm ``clip_norm`` as the step
+    clips it, is 0 or at least 100 x ``eps``.  The first step moves a
+    param by lr · g / (|g| + eps) (plus the same weight decay in both):
+    where |g| is near eps, a float32 summation-order difference of 1e-9 in
+    the grad moves the update by up to a few percent of lr (reduced
+    whisper-base on normal frames: a grad of 1.51e-8 in the reference,
+    1.24e-8 in the port; qwen's key bias, whose grad RoPE alone keeps from
+    0).  Those elements, at most 1% of the parameters, are held at 2 · lr,
+    the most two updates of size <= lr can differ, beside their grads."""
+    _close_trees(port_grads, ref_grads, 1e-4)
+    p, r, g = _t_flat(port), _np_flat(ref), _np_flat(ref_grads)
     assert sorted(p) == sorted(r) == sorted(g)
+    norm = np.sqrt(sum(np.sum(np.square(v, dtype=np.float64))
+                       for v in g.values()))
+    clip = min(1.0, clip_norm / (norm + 1e-9))
+    blunt = 0
     for k in r:
-        sharp = (np.abs(g[k]) >= 100 * eps) | (g[k] == 0)
-        assert sharp.mean() >= 0.99, (k, sharp.mean())
+        sharp = (np.abs(g[k]) * clip >= 100 * eps) | (g[k] == 0)
+        blunt += int((~sharp).sum())
         np.testing.assert_allclose(p[k][sharp], r[k][sharp], atol=tol,
                                    rtol=tol, err_msg=k)
         assert (np.abs(p[k] - r[k])[~sharp] <= 2 * lr + tol).all(), k
+    assert blunt <= 0.01 * sum(v.size for v in r.values()), blunt
+
+
+def _step_grads(jc, tc, npp, batch):
+    """Both packages' grads of ``lm_loss`` on the whole ``batch`` (its
+    frontend inputs too), from the same params: (port, reference)."""
+    ex = {n: batch[n] for n in batch if n.endswith("_embeds")}
+    jg = jax.grad(lambda p: JT.lm_loss(
+        p, jc, jnp.asarray(batch["tokens"]), jnp.asarray(batch["labels"]),
+        **{n: jnp.asarray(v) for n, v in ex.items()})[0])(_jnp(npp))
+    _, tg = loss_and_grads(
+        tc, bridge.params_from_numpy(npp, device="cpu"),
+        torch.as_tensor(batch["tokens"]).long(),
+        torch.as_tensor(batch["labels"]).long(),
+        **{n: torch.as_tensor(v) for n, v in ex.items()})
+    return tg, jg
 
 
 @pytest.mark.parametrize("fill", ["0.01", "normal"])
 @pytest.mark.parametrize("micro", [1, 2], ids=["plain", "microbatches-2"])
-@pytest.mark.parametrize("arch", ["whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
 def test_train_step_matches_reference_with_batch_extras(arch, micro, fill):
     """The batch's frontend inputs reach the loss, split with the tokens
     into microbatches, as the reference's ``_batch_extras`` /
@@ -419,12 +449,8 @@ def test_train_step_matches_reference_with_batch_extras(arch, micro, fill):
         params, topt.adamw_init(params, to), None, batch)
     assert abs(tm["loss"].item() - float(jm["loss"])) <= 1e-5
     assert abs(tm["grad_norm"].item() - float(jm["grad_norm"])) <= 1e-4
-    extras = {n: jnp.asarray(batch[n]) for n in batch
-              if n.endswith("_embeds")}
-    jg = jax.grad(lambda p: JT.lm_loss(
-        p, jc, jnp.asarray(batch["tokens"]), jnp.asarray(batch["labels"]),
-        **extras)[0])(jp)
-    _close_step(tp2, jp2, jg, float(jm["lr"]))
+    _close_step(tp2, jp2, *_step_grads(jc, tc, npp, batch),
+                float(jm["lr"]))
 
 
 def test_grad_accumulation_matches_full_batch():
