@@ -155,6 +155,32 @@ Phases, in order; any failure exits non-zero before the result line:
                the device's clock by CUDA events, kernel and copies and
                device idle share under torch.profiler, the rest on the
                host).
+  5c. campaign — simulation campaigns through the port's user entry point,
+               ``repro_torch.launch.sweep.campaign_main(argv)``, in this
+               process (so the launch counters can be read), every report
+               written with ``--out`` and compared with the wall-clock keys
+               (sim_seconds, wall_time, journal_seconds) dropped: (1) the
+               golden grid (CLUSTER512, ecmp / sr / best, 200 jobs,
+               max_gpus 256, seed 0) serial on cuda must give the pinned
+               average JCTs with 75 launches = 75 solves, and the cpu
+               report; (2) the fabric-heavy grid (CLUSTER2048, helios, 400
+               jobs, max_gpus 64, best / sr / ecmp x loads 15 / 30 / 60 x
+               seeds 0-1: 18 cells) four ways, serial v2 on cuda, serial
+               batched on cuda (``run_lanes``), 4 spawned workers on cuda
+               and serial v2 on cpu, all four reports identical, launches =
+               solves on the serial cuda runs; walls, solves, host time in
+               the solves and the serial cuda run's device idle share
+               (torch.profiler) logged; (3) fault tolerance on 2 spawned
+               card workers on the golden grid: ``REPRO_CHAOS=crash@1:1``
+               recovers through isolation to step 1's report, and
+               ``crash@1`` with ``--quarantine --journal`` leaves one
+               quarantined cell that ``--resume`` (no chaos) merges into
+               step 1's report (``resumed_cells`` aside, which counts the
+               journal's cells); (4) the alibaba fixture
+               (``src/repro_torch/data/alibaba_sample.csv``, 25 jobs) under
+               ``--trace-format alibaba`` on cuda and cpu and under
+               ``auto`` on cuda, identical, then windowed (``--window 10
+               --stride 5``) on cuda and cpu, identical.
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
                events), flash attention at deepseek-moe-16b's,
@@ -200,6 +226,17 @@ GOLDEN_SOLVES = {"ecmp": 39, "sr": 36, "best": 0}
 GRID_STRATEGIES, GRID_SEEDS, GRID_LOADS = ("best", "sr", "ecmp"), range(8), \
     (15.0, 30.0, 60.0)
 GRID_JOBS, GRID_MAX_GPUS, GRID_SOLVES = 400, 64, 795
+# phase 5c: the campaigns, as argv of ``sweep campaign``
+CAMPAIGN_GOLDEN = ["--cluster", "512", "--strategies", "ecmp,sr,best",
+                   "--loads", "120", "--seeds", "0", "--jobs", "200",
+                   "--max-gpus", "256"]
+CAMPAIGN_GRID = ["--cluster", "2048", "--size-mix", "helios", "--max-gpus",
+                 "64", "--jobs", "400", "--strategies", "best,sr,ecmp",
+                 "--loads", "15,30,60", "--seeds", "0,1"]
+CAMPAIGN_GRID_CELLS, CAMPAIGN_WORKERS, CHAOS_WORKERS = 18, 4, 2
+ALIBABA_TRACE = ROOT / "src" / "repro_torch" / "data" / "alibaba_sample.csv"
+ALIBABA_JOBS = 25
+WALL_KEYS = ("sim_seconds", "wall_time", "journal_seconds")
 # (nvals, nseg) at the lane engine's dispatch
 # (benchmarks/bench_fairshare.py BATCHED_DISPATCH_SHAPES)
 DISPATCH_SHAPES = (("p50", 3345, 62), ("p90", 22652, 398),
@@ -2004,6 +2041,207 @@ def simulate_grid():
     return launched, picks
 
 
+def drop_wall(obj):
+    """A campaign report without its wall-clock keys."""
+    if isinstance(obj, dict):
+        return {k: drop_wall(v) for k, v in obj.items()
+                if k not in WALL_KEYS}
+    if isinstance(obj, list):
+        return [drop_wall(v) for v in obj]
+    return obj
+
+
+def sweep_campaign(argv, out: Path, env=None) -> dict:
+    """One ``sweep campaign`` run in this process, through the port's CLI.
+    Returns the report without its wall-clock keys, the wall seconds, the
+    segment-max launches and the engines' solves counted from 0 around the
+    call, the host seconds spent inside the solves, and the printed lines.
+    ``env`` arms the chaos harness for this run only."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    from repro_torch.core import batched as cb
+    from repro_torch.core import simulator as cs
+    from repro_torch.kernels import phase_max as pm
+    from repro_torch.launch.sweep import campaign_main
+
+    spent = [0.0]
+    engines = {mod: mod.phase_worst_loads for mod in (cs, cb)}
+
+    def timed(solve):
+        def call(vals, ptr, device=None):
+            t0 = time.perf_counter()
+            res = solve(vals, ptr, device=device)
+            spent[0] += time.perf_counter() - t0
+            return res
+        return call
+
+    for mod, solve in engines.items():
+        mod.phase_worst_loads = timed(solve)
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    pm.launches = cs.solves = cb.solves = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        campaign_main([*argv, "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, solves = pm.launches, cs.solves + cb.solves
+    for key in env or {}:
+        os.environ.pop(key)
+    for mod, solve in engines.items():
+        mod.phase_worst_loads = solve
+    return {"report": drop_wall(json.loads(out.read_text())), "wall": wall,
+            "launches": launches, "solves": solves, "solve_s": spent[0],
+            "printed": buf.getvalue().splitlines()}
+
+
+def campaign_phase() -> dict:
+    """Phase 5c: the paper's simulation campaigns through ``sweep
+    campaign`` on the card (see the module docstring).  Returns the
+    launches of the gated serial cuda runs and the numbers logged."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_campaign_"))
+    runs = {}
+
+    def run(label, argv, env=None):
+        t0 = time.perf_counter()
+        runs[label] = res = sweep_campaign(argv, tmp / f"{label}.json", env)
+        log(f"campaign {label}: {res['wall']:.3f} s wall "
+            f"({time.perf_counter() - t0:.3f} s with the report), "
+            f"{res['solves']} solves, {res['launches']} "
+            f"launches in this process, {res['solve_s'] * 1e3:.1f} ms in "
+            f"the solves"
+            + (f" ({res['solve_s'] / res['solves'] * 1e6:.1f} us a solve)"
+               if res["solves"] else ""))
+        return res
+
+    def same(label, a, b, ignore=()):
+        x = {k: v for k, v in runs[a]["report"].items() if k not in ignore}
+        y = {k: v for k, v in runs[b]["report"].items() if k not in ignore}
+        log(f"campaign {label}: report of {a} identical to {b}: {x == y}")
+        if x != y:
+            fail(f"campaign {label}: the report of {a} differs from {b}")
+
+    # (1) the golden grid, serial on cuda, against cpu
+    golden = run("golden-cuda", CAMPAIGN_GOLDEN + ["--device", "cuda"])
+    jct = {row["strategy"]: round(row["jct_mean"], 1)
+           for row in golden["report"]["table"]}
+    log(f"campaign golden: avg JCT {jct} (pinned {GOLDEN})")
+    if jct != GOLDEN:
+        fail(f"campaign golden: avg JCT {jct} != {GOLDEN}")
+    want = sum(GOLDEN_SOLVES.values())
+    if not golden["launches"] == golden["solves"] == want:
+        fail(f"campaign golden: {golden['launches']} launches, "
+             f"{golden['solves']} solves, expected {want}")
+    run("golden-cpu", CAMPAIGN_GOLDEN + ["--device", "cpu"])
+    same("golden", "golden-cuda", "golden-cpu")
+
+    # (2) the fabric-heavy grid four ways
+    grid_runs = {"grid-v2-cuda": ["--device", "cuda"],
+                 "grid-batched-cuda": ["--engine", "batched", "--device",
+                                       "cuda"],
+                 "grid-workers-cuda": ["--workers", str(CAMPAIGN_WORKERS),
+                                       "--device", "cuda"],
+                 "grid-v2-cpu": ["--device", "cpu"]}
+    for label, extra in grid_runs.items():
+        run(label, CAMPAIGN_GRID + extra)
+    cells = sum(row["seeds"] for row in runs["grid-v2-cpu"]["report"]["table"])
+    if cells != CAMPAIGN_GRID_CELLS:
+        fail(f"campaign grid: {cells} cells, expected {CAMPAIGN_GRID_CELLS}")
+    for label in ("grid-batched-cuda", "grid-workers-cuda", "grid-v2-cpu"):
+        same("grid", "grid-v2-cuda", label)
+    for label in ("grid-v2-cuda", "grid-batched-cuda"):
+        res = runs[label]
+        if not res["launches"] == res["solves"] > 0:
+            fail(f"campaign {label}: {res['launches']} launches, "
+                 f"{res['solves']} solves")
+    if runs["grid-workers-cuda"]["launches"]:
+        fail("campaign grid-workers-cuda: the parent process launched the "
+             "kernel; the cells belong to the workers")
+    wall_prof, rows = device_profile(
+        "campaign grid v2 cuda, serial",
+        lambda: sweep_campaign(CAMPAIGN_GRID + ["--device", "cuda"],
+                               tmp / "profiled.json"))
+    busy_ms = sum(ms for ms, _, _ in rows)
+    idle = 1 - busy_ms / wall_prof if busy_ms else float("nan")
+
+    # (3) fault tolerance on spawned card workers, on the golden grid
+    chaos = CAMPAIGN_GOLDEN + ["--workers", str(CHAOS_WORKERS), "--device",
+                               "cuda"]
+    run("chaos-crash-once", chaos, {"REPRO_CHAOS": "crash@1:1"})
+    same("chaos crash@1:1", "chaos-crash-once", "golden-cuda")
+    journal = tmp / "chaos.jsonl"
+    quarantined = run("chaos-quarantine",
+                      chaos + ["--quarantine", "--journal", str(journal)],
+                      {"REPRO_CHAOS": "crash@1"})
+    failed = quarantined["report"]["failed_cells"]
+    log(f"campaign chaos crash@1: quarantined {failed}")
+    if len(failed) != 1 or failed[0]["kind"] != "crash":
+        fail(f"campaign chaos crash@1: expected one crashed cell in "
+             f"quarantine, got {failed}")
+    resumed = run("chaos-resumed", chaos + ["--resume", str(journal)])
+    if resumed["report"]["resumed_cells"] != 2:
+        fail(f"campaign resume: {resumed['report']['resumed_cells']} cells "
+             f"from the journal, expected 2")
+    same("resume", "chaos-resumed", "golden-cuda", ignore=("resumed_cells",))
+
+    # (4) trace replay: the alibaba fixture, eager and windowed
+    trace = ["--trace", str(ALIBABA_TRACE), "--strategies", "best,sr,ecmp"]
+    for label, extra in (("trace-cuda", ["--trace-format", "alibaba",
+                                         "--device", "cuda"]),
+                         ("trace-cpu", ["--trace-format", "alibaba",
+                                        "--device", "cpu"]),
+                         ("trace-auto-cuda", ["--device", "cuda"]),
+                         ("window-cuda", ["--trace-format", "alibaba",
+                                          "--window", "10", "--stride", "5",
+                                          "--device", "cuda"]),
+                         ("window-cpu", ["--trace-format", "alibaba",
+                                         "--window", "10", "--stride", "5",
+                                         "--device", "cpu"])):
+        run(label, trace + extra)
+    jobs = [stats["n"] for stats in runs["trace-cuda"]["report"]["trace"]
+            .values()]
+    log(f"campaign trace: {jobs} jobs from the alibaba fixture")
+    if jobs != [ALIBABA_JOBS]:
+        fail(f"campaign trace: {jobs} jobs, expected [{ALIBABA_JOBS}]")
+    same("trace", "trace-cuda", "trace-cpu")
+    same("trace auto", "trace-auto-cuda", "trace-cuda")
+    same("windowed", "window-cuda", "window-cpu")
+    for label in ("trace-cuda", "trace-auto-cuda", "window-cuda"):
+        if runs[label]["launches"] != runs[label]["solves"]:
+            fail(f"campaign {label}: {runs[label]['launches']} launches, "
+                 f"{runs[label]['solves']} solves")
+
+    gated = ("golden-cuda", "grid-v2-cuda", "grid-batched-cuda",
+             "trace-cuda", "trace-auto-cuda", "window-cuda")
+    launches = sum(runs[label]["launches"] for label in gated)
+    v2, cpu = runs["grid-v2-cuda"], runs["grid-v2-cpu"]
+    log(f"campaign grid: walls v2 cuda {v2['wall']:.3f} s, batched cuda "
+        f"{runs['grid-batched-cuda']['wall']:.3f}, {CAMPAIGN_WORKERS} "
+        f"workers cuda {runs['grid-workers-cuda']['wall']:.3f}, v2 cpu "
+        f"{cpu['wall']:.3f}; {v2['solves']} solves, "
+        f"{v2['solve_s'] / v2['solves'] * 1e6:.1f} us a solve on cuda "
+        f"against {cpu['solve_s'] / cpu['solves'] * 1e6:.1f} on cpu; device "
+        f"idle {idle:.4f} (profiled wall {wall_prof:.1f} ms)")
+    by_run = ", ".join(f"{k} {runs[k]['launches']}" for k in gated)
+    log(f"campaign launches in the gated serial cuda runs: {launches} "
+        f"({by_run})")
+    return {"launches": launches,
+            "golden_launches": golden["launches"],
+            "grid_launches": v2["launches"],
+            "grid_walls_s": {k: runs[k]["wall"] for k in grid_runs},
+            "grid_us_per_solve": {
+                k: runs[k]["solve_s"] / runs[k]["solves"] * 1e6
+                for k in ("grid-v2-cuda", "grid-batched-cuda",
+                          "grid-v2-cpu")},
+            "grid_device_idle": idle,
+            "walls_s": {k: v["wall"] for k, v in runs.items()}}
+
+
 def kernel_device_ms(fn, name: str, n: int = 50) -> float:
     """Mean device time of the kernel ``name`` over ``n`` calls of ``fn``,
     from torch.profiler (launch overhead excluded).  A trace that holds no
@@ -2479,6 +2717,14 @@ def main() -> None:
         fail(f"the simulator launched flash attention {fa.launches} and the "
              f"recurrence {kr.launches} times")
 
+    # 5c. the campaigns: sweep campaign on the card -------------------------
+    t0 = time.perf_counter()
+    campaign = campaign_phase()
+    log(f"phase 5c took {time.perf_counter() - t0:.1f} s")
+    if fa.launches or kr.launches:
+        fail(f"the campaigns launched flash attention {fa.launches} and the "
+             f"recurrence {kr.launches} times")
+
     # 6. timing at the paths' shapes ----------------------------------------
     q, k, v = qkv(BATCH, PROMPT, 32, 4, 64, torch.bfloat16)
     kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -2627,7 +2873,10 @@ def main() -> None:
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
         "replaces": "src/repro/kernels/phase_max.py:47",
-        "launches": pm_launches, "max_abs_err": pm_err,
+        "launches": pm_launches + campaign["launches"],
+        "launches_by_path": {"simulate": pm_launches,
+                             "sweep campaign": campaign["launches"]},
+        "campaign": campaign, "max_abs_err": pm_err,
         "ms": pm_row["kernel_ms"], "kernel_ms": pm_row["kernel_ms"],
         "issue_ms": pm_row["issue_ms"], "design": "zero-copy",
         "resident_kernel_ms": pm_row["resident_kernel_ms"],

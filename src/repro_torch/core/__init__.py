@@ -18,17 +18,21 @@ Layers:
   fairshare  — max-min fair water-filling (numpy + torch) and the batched
                per-phase worst-load solve (segment-max kernel)
   jobs       — DML workload profiles + dataset generators
-  workloads  — reproducible Poisson arrival traces and churn events
+  workloads  — reproducible Poisson/CSV arrival traces and churn events
+  traces     — real-trace ingestion: adapters, streaming reader, windows
   simulator  — event-driven flow-level cluster simulator (v1 / v2 engines)
   batched    — lane-batched lockstep engine (``engine="batched"``,
                ``run_lanes``)
+  runtime    — fault-tolerant cell execution: retries, timeouts, journal
+  campaign   — strategy × policy × load × seed sweeps + aggregation
   scheduler  — online scheduler facade
   metrics    — JRT / JWT / JCT / Stability (+ CDF helpers)
   rankmap    — vClos placement -> leaf-contiguous rank and device order
 
 Entry points that take ``device`` (``simulate``, ``ClusterSimulator``,
-``run_lanes``, ``phase_worst_loads``, ``maxmin_fair_torch``) run on
-``cuda`` unless given ``device="cpu"``, and raise where there is no card.
+``run_lanes``, ``run_campaign``, ``run_windowed_campaign``,
+``phase_worst_loads``, ``maxmin_fair_torch``) run on ``cuda`` unless given
+``device="cpu"``, and raise where there is no card.
 """
 
 from .topology import (CLUSTER512, CLUSTER512_OCS, CLUSTER2048,
@@ -55,13 +59,26 @@ from .jobs import (BATCHES, PROFILES, Job, ModelProfile, cluster_dataset,
                    TPUV4_SIZE_MIX)
 from .events import (EVENT_KINDS, ClusterEvent, frag_index, validate_events)
 from .workloads import (SIZE_MIXES, WorkloadSpec, generate_events,
-                        generate_trace, poisson_trace, trace_stats)
+                        generate_trace, load_trace_csv, poisson_trace,
+                        save_trace_csv, trace_stats)
 from .metrics import MetricsReport, cdf, cdf_table, job_metrics
 from .strategies import (Strategy, get_strategy, register_strategy,
                          registered_strategies, strategy_names,
                          unregister_strategy)
 from .config import ENGINES, STORES, SimConfig
+from .runtime import (CampaignError, CellJournal, CellOutcome, CellRunner,
+                      FailedCell, JournalMismatch, atomic_write_bytes,
+                      atomic_write_text, backoff_delay, classify_exception,
+                      trace_fingerprint)
 from .simulator import STRATEGIES, ClusterSimulator, simulate
 from .batched import run_lanes
+from .traces import (ADAPTERS, TRACE_FORMATS, AlibabaAdapter,
+                     GenericCSVAdapter, JobIdInterner, NativeCSVAdapter,
+                     TraceAdapter, TraceFormatError, TraceSource,
+                     TraceSummary, TraceWindow, detect_format,
+                     empirical_size_mix, fit_workload, iter_windows,
+                     iters_for_duration, stable_model_for, summarize_jobs)
+from .campaign import (AGGREGATE_COLUMNS, CampaignGrid, CampaignResult,
+                       CellResult, run_campaign, run_windowed_campaign)
 from .scheduler import (Grant, IsolatedScheduler, QUEUE_POLICIES, order_queue)
 from .rankmap import leaf_contiguous_order, mesh_device_order

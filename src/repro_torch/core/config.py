@@ -90,11 +90,14 @@ class SimConfig:
             raise ValueError(f"unknown store mode {self.store!r}; "
                              f"choose 'full' or 'stream'")
         if self.trace_format != "auto":
-            # the port has no trace adapters yet (they come with the traces
-            # slice), so no named format can be read
-            raise ValueError(
-                f"unknown trace format {self.trace_format!r}; the port "
-                f"reads no external traces yet, choose 'auto'")
+            # deferred import: traces pulls in workloads, which this
+            # module must not load at import time
+            from .traces import ADAPTERS
+            if self.trace_format not in ADAPTERS:
+                raise ValueError(
+                    f"unknown trace format {self.trace_format!r}; choose "
+                    f"'auto' or one of {sorted(ADAPTERS)} "
+                    f"(docs/traces.md)")
         for ev in self.events:
             if not isinstance(ev, ClusterEvent):
                 raise TypeError(f"SimConfig.events needs ClusterEvent "

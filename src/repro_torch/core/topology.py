@@ -27,6 +27,16 @@ import numpy as np
 Link = Tuple[str, int, int, int]  # ("up"|"down", leaf, spine, channel)
 
 
+def link_speed_error(name: str, v, link_gbps: float) -> Optional[str]:
+    """Why ``v`` cannot be the per-tier speed ``name`` of a spec whose
+    reference speed is ``link_gbps``, or None when it can.  ``ClusterSpec``
+    raises it; the sweep CLI checks with it before building a spec."""
+    if v is not None and (not isinstance(v, (int, float)) or not v > 0):
+        return (f"{name} must be a positive speed in Gbps (got {v!r}); "
+                f"leave it None for the homogeneous {link_gbps:g}G fabric")
+    return None
+
+
 @dataclass(frozen=True)
 class ClusterSpec:
     """Static description of a Leaf-Spine GPU cluster.
@@ -72,13 +82,9 @@ class ClusterSpec:
             if up % self.num_ocs or down % self.num_ocs:
                 raise ValueError("num_ocs must divide per-leaf uplinks and per-spine downlinks")
         for name in ("leaf_uplink_gbps", "server_nic_gbps"):
-            v = getattr(self, name)
-            if v is not None and (not isinstance(v, (int, float))
-                                  or not v > 0):
-                raise ValueError(
-                    f"{name} must be a positive speed in Gbps (got {v!r}); "
-                    f"leave it None for the homogeneous {self.link_gbps:g}G "
-                    f"fabric")
+            msg = link_speed_error(name, getattr(self, name), self.link_gbps)
+            if msg is not None:
+                raise ValueError(msg)
         if self.server_scale is not None:
             if len(self.server_scale) != self.num_servers:
                 raise ValueError(
@@ -199,6 +205,32 @@ TESTBED32 = ClusterSpec(num_leafs=4, num_spines=8, gpus_per_leaf=8,
                         gpus_per_server=4, channels=1, num_ocs=0)
 
 
+def gpu_mix_error(spec: ClusterSpec,
+                  mix: List[Tuple[str, float, float]]) -> Optional[str]:
+    """Why :func:`apply_gpu_mix` refuses ``mix`` on ``spec``, or None when
+    it takes it (the sweep CLI checks with it before applying a mix)."""
+    if not mix:
+        return ("gpu mix is empty; pass at least one "
+                "(name, scale, fraction) entry")
+    for name, scale, frac in mix:
+        if not isinstance(scale, (int, float)) or not scale > 0:
+            return (f"gpu mix {name!r}: compute scale must be "
+                    f"positive (got {scale!r})")
+        if not isinstance(frac, (int, float)) or not frac > 0:
+            return (f"gpu mix {name!r}: fraction must be "
+                    f"positive (got {frac!r})")
+    total = math.fsum(f for _, _, f in mix)
+    if abs(total - 1.0) > 1e-9:
+        return (f"gpu mix fractions must sum to 1 "
+                f"(got {total:g}); scale them or drop an entry")
+    n = spec.num_servers
+    if n - sum(int(f * n) for _, _, f in mix[:-1]) <= 0:
+        return (f"gpu mix leaves no servers for "
+                f"{mix[-1][0]!r} on a {n}-server cluster; use "
+                f"coarser fractions")
+    return None
+
+
 def apply_gpu_mix(spec: ClusterSpec,
                   mix: List[Tuple[str, float, float]]) -> ClusterSpec:
     """Expand a GPU-generation mix into per-server tags/scales on ``spec``.
@@ -209,27 +241,12 @@ def apply_gpu_mix(spec: ClusterSpec,
     absorbing the rounding remainder — a deterministic layout so two specs
     built from the same mix are equal (and campaign cells reproducible).
     """
-    if not mix:
-        raise ValueError("gpu mix is empty; pass at least one "
-                         "(name, scale, fraction) entry")
-    for name, scale, frac in mix:
-        if not isinstance(scale, (int, float)) or not scale > 0:
-            raise ValueError(f"gpu mix {name!r}: compute scale must be "
-                             f"positive (got {scale!r})")
-        if not isinstance(frac, (int, float)) or not frac > 0:
-            raise ValueError(f"gpu mix {name!r}: fraction must be "
-                             f"positive (got {frac!r})")
-    total = math.fsum(f for _, _, f in mix)
-    if abs(total - 1.0) > 1e-9:
-        raise ValueError(f"gpu mix fractions must sum to 1 "
-                         f"(got {total:g}); scale them or drop an entry")
+    msg = gpu_mix_error(spec, mix)
+    if msg is not None:
+        raise ValueError(msg)
     n = spec.num_servers
     counts = [int(f * n) for _, _, f in mix]
     counts[-1] += n - sum(counts)          # remainder to the last entry
-    if counts[-1] <= 0:
-        raise ValueError(f"gpu mix leaves no servers for "
-                         f"{mix[-1][0]!r} on a {n}-server cluster; use "
-                         f"coarser fractions")
     gens: List[str] = []
     scales: List[float] = []
     for (name, scale, _), cnt in zip(mix, counts):

@@ -10,6 +10,10 @@ This module makes those traces first-class objects:
     deadline slack). Same spec + same seed ⇒ bit-identical job list.
   * :func:`generate_trace` / :func:`poisson_trace` — spec → ``List[Job]``.
   * :func:`trace_stats` — arrival-rate / load sanity summary of a trace.
+  * :func:`save_trace_csv` / :func:`load_trace_csv` — external traces
+    round-trip through a plain CSV schema, so production traces (or traces
+    exported from other simulators, e.g. CASSINI-style workloads) can be
+    replayed against every strategy.
 
 The generator intentionally mirrors :func:`repro_torch.core.jobs.cluster_dataset`'s
 draw order so ``generate_trace(WorkloadSpec(...))`` reproduces the historical
@@ -18,7 +22,10 @@ datasets when given matching parameters.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import math
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -240,3 +247,133 @@ def trace_stats(jobs: Sequence[Job]) -> Dict[str, float]:
         "gpu_seconds": float(sum(j.num_gpus * j.ideal_runtime()
                                  for j in jobs)),
     }
+
+
+# ---------------------------------------------------------------------------
+# CSV trace round-trip
+# ---------------------------------------------------------------------------
+
+TRACE_FIELDS = ("job_id", "model", "num_gpus", "batch_size", "arrival",
+                "num_iters", "allreduce_algo", "deadline")
+
+_DIGITS = r"\d(?:_?\d)*"
+#: exactly the strings ``float()`` accepts once stripped: Python's
+#: ``floatvalue`` grammar (Unicode decimal digits, ``_`` between digits,
+#: ``inf`` / ``infinity`` / ``nan`` in any case, an optional sign)
+_FLOAT_LITERAL = re.compile(
+    rf"[+-]?(?:(?:(?:{_DIGITS})?\.{_DIGITS}|{_DIGITS}\.?)"
+    rf"(?:[eE][+-]?{_DIGITS})?|inf|infinity|nan)", re.IGNORECASE)
+
+
+def is_float_literal(raw: str) -> bool:
+    """Whether ``float(raw)`` parses ``raw`` (surrounding whitespace
+    allowed, as ``float`` allows it): the check the port makes before each
+    conversion of a trace cell, where the reference catches the
+    ``ValueError``."""
+    return _FLOAT_LITERAL.fullmatch(raw.strip()) is not None
+
+
+def save_trace_csv(jobs: Sequence[Job], path: str) -> None:
+    """Write an arrival trace as CSV (one row per job, schema
+    ``TRACE_FIELDS``; empty ``deadline`` means none)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(TRACE_FIELDS)
+        for j in jobs:
+            w.writerow([j.job_id, j.model, j.num_gpus, j.batch_size,
+                        repr(j.arrival), j.num_iters, j.allreduce_algo,
+                        "" if j.deadline is None else repr(j.deadline)])
+
+
+def parse_trace_time(raw: str, field: str, path: str, ln: int,
+                     allow_none: bool = False) -> Optional[float]:
+    """One timestamp cell → validated float.  Rejects ``nan``/``inf`` and
+    negative values: a non-finite arrival poisons the v2 completion heap's
+    ``(t_fin, order)`` total order (every comparison against ``nan`` is
+    False, so heap invariants silently break) and a negative one would
+    predate the simulation clock's origin.  Shared by
+    :func:`load_trace_csv` and the :mod:`repro_torch.core.traces` adapters so
+    every ingestion path enforces the same contract with the same
+    ``trace {path}:{ln}:`` error style."""
+    raw = (raw or "").strip()
+    if not raw:
+        if allow_none:
+            return None
+        raise ValueError(f"trace {path}:{ln}: empty {field}")
+    if not is_float_literal(raw):
+        raise ValueError(f"trace {path}:{ln}: {field} {raw!r} is not a "
+                         f"number")
+    val = float(raw)
+    if not math.isfinite(val):
+        raise ValueError(f"trace {path}:{ln}: {field} must be finite "
+                         f"(got {raw!r}; non-finite values break the "
+                         f"completion-heap ordering)")
+    if val < 0:
+        raise ValueError(f"trace {path}:{ln}: {field} must be >= 0 "
+                         f"(got {raw!r})")
+    return val
+
+
+def job_from_trace_row(row: Dict[str, str], path: str, ln: int,
+                       seen_ids: set) -> Job:
+    """Validate one ``TRACE_FIELDS`` CSV row into a :class:`Job`.
+
+    The single row contract behind :func:`load_trace_csv` and the
+    streaming ``csv`` adapter of :mod:`repro_torch.core.traces` — both paths
+    produce bit-identical jobs because both call exactly this."""
+    if any(row.get(f) is None for f in TRACE_FIELDS):
+        short = [f for f in TRACE_FIELDS if row.get(f) is None]
+        raise ValueError(f"trace {path}:{ln}: row is missing "
+                         f"values for {short}")
+    jid = int(row["job_id"])
+    if jid in seen_ids:
+        raise ValueError(f"trace {path}:{ln}: duplicate job_id {jid}"
+                         " (the simulator keys running jobs by id)")
+    seen_ids.add(jid)
+    model = row["model"]
+    if model not in PROFILES:
+        raise ValueError(f"trace {path}:{ln}: unknown model {model!r}")
+    algo = row["allreduce_algo"] or "ring"
+    if algo not in ALLREDUCE_ALGOS:
+        raise ValueError(f"trace {path}:{ln}: unknown allreduce "
+                         f"algorithm {algo!r}")
+    num_gpus = int(row["num_gpus"])
+    num_iters = int(row["num_iters"])
+    batch_size = int(row["batch_size"])
+    if num_gpus < 1:
+        raise ValueError(f"trace {path}:{ln}: num_gpus must be "
+                         f"positive (got {num_gpus})")
+    if num_iters < 1:
+        raise ValueError(f"trace {path}:{ln}: num_iters must be "
+                         f"positive (got {num_iters})")
+    if batch_size < 1:
+        raise ValueError(f"trace {path}:{ln}: batch_size must be "
+                         f"positive (got {batch_size}; it scales "
+                         f"per-iteration compute time)")
+    arrival = parse_trace_time(row["arrival"], "arrival", path, ln)
+    deadline = parse_trace_time(row["deadline"], "deadline", path, ln,
+                                allow_none=True)
+    return Job(jid, model, num_gpus, batch_size, arrival, num_iters,
+               allreduce_algo=algo, deadline=deadline)
+
+
+def load_trace_csv(path: str) -> List[Job]:
+    """Load an external arrival trace. Validates models/algorithms so typos
+    in hand-written traces fail loudly instead of KeyError-ing mid-run.
+
+    Jobs are returned in ``(arrival, job_id)`` order: coarse real-trace
+    timestamps (Philly-style minute granularity) produce equal arrivals,
+    and a plain arrival sort would leave their relative order to the
+    file's row order — the job-id tie-break makes replay deterministic
+    regardless of how the trace was written."""
+    jobs: List[Job] = []
+    seen_ids: set = set()
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        missing = set(TRACE_FIELDS) - set(reader.fieldnames or ())
+        if missing:
+            raise ValueError(f"trace {path}: missing columns {sorted(missing)}")
+        for ln, row in enumerate(reader, start=2):
+            jobs.append(job_from_trace_row(row, path, ln, seen_ids))
+    jobs.sort(key=lambda j: (j.arrival, j.job_id))
+    return jobs

@@ -383,6 +383,30 @@ def test_run_lanes_on_cuda_matches_cpu(cuda):
         assert (a.frag_gpu, a.frag_network) == (b.frag_gpu, b.frag_network)
 
 
+def _drop_wall(obj):
+    if isinstance(obj, dict):
+        return {k: _drop_wall(v) for k, v in obj.items()
+                if k not in ("sim_seconds", "wall_time", "journal_seconds")}
+    if isinstance(obj, list):
+        return [_drop_wall(v) for v in obj]
+    return obj
+
+
+def test_campaign_on_cuda_matches_cpu(cuda):
+    """A 6-cell campaign on cuda, serial and with 2 spawned workers, gives
+    the cpu report; the serial run launches once per solve."""
+    grid = core.CampaignGrid(strategies=("best", "sr", "ecmp"),
+                             loads=(120.0,), seeds=(0, 1))
+    wl = core.WorkloadSpec(num_jobs=60, max_gpus=64)
+    ref = core.run_campaign(core.CLUSTER512, grid, workload=wl, device="cpu")
+    pm.launches = cs.solves = cb.solves = 0
+    ser = core.run_campaign(core.CLUSTER512, grid, workload=wl)
+    assert cs.solves > 0 and pm.launches == cs.solves + cb.solves
+    par = core.run_campaign(core.CLUSTER512, grid, workload=wl, workers=2)
+    assert _drop_wall(ser.to_json()) == _drop_wall(ref.to_json())
+    assert _drop_wall(par.to_json()) == _drop_wall(ref.to_json())
+
+
 def test_maxmin_torch_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(5)
     flows = [rng.choice(64, size=3, replace=False).tolist()

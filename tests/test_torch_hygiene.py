@@ -29,6 +29,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
 from repro_torch.kernels import rwkv6  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import sweep  # noqa: E402
 from repro_torch.launch import train as ltrain  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
@@ -77,7 +78,10 @@ def test_every_module_imports_without_a_card():
                  "repro_torch.core.rankmap", "repro_torch.data.pipeline",
                  "repro_torch.train.optimizer", "repro_torch.train.loop",
                  "repro_torch.train.checkpoint", "repro_torch.launch.train",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.core.traces",
+                 "repro_torch.core.runtime", "repro_torch.core.campaign",
+                 "repro_torch.testing", "repro_torch.testing.chaos",
+                 "repro_torch.launch.sweep"):
         assert need in names
     for name in names:
         importlib.import_module(name)
@@ -170,6 +174,7 @@ def test_vlm_entry_points_default_to_cuda_and_raise(no_card, entry):
 
 
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
+_ALIBABA = str(PKG / "data" / "alibaba_sample.csv")
 
 
 @pytest.mark.parametrize("entry", [
@@ -179,8 +184,20 @@ _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
     lambda: core.phase_worst_loads(_VALS, _PTR),
     lambda: core.maxmin_fair_torch([["a"], ["a", "b"]]),
     lambda: core.maxmin_fair([["a"]], backend="torch"),
+    lambda: core.run_campaign(core.CLUSTER512,
+                              core.CampaignGrid(strategies=("ecmp",)),
+                              workload=core.WorkloadSpec(num_jobs=3,
+                                                         max_gpus=8)),
+    lambda: core.run_windowed_campaign(
+        core.CLUSTER512, core.CampaignGrid(strategies=("ecmp",)), _ALIBABA,
+        window_jobs=5),
+    lambda: sweep.campaign_main(["--jobs", "3", "--max-gpus", "8",
+                                 "--strategies", "ecmp"]),
+    lambda: sweep.campaign_main(["--trace", _ALIBABA, "--window", "5",
+                                 "--strategies", "ecmp", "--workers", "2"]),
 ], ids=["simulate", "ClusterSimulator", "run_lanes", "phase_worst_loads",
-        "maxmin_fair_torch", "maxmin_fair[torch]"])
+        "maxmin_fair_torch", "maxmin_fair[torch]", "run_campaign",
+        "run_windowed_campaign", "campaign_main", "campaign_main[windowed]"])
 def test_simulator_entry_points_default_to_cuda_and_raise(no_card, entry):
     before = pm.launches
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -136,8 +136,13 @@ def test_traces_and_events_match_reference(seed):
 
 
 def test_config_refuses_what_the_port_does_not_have():
-    with pytest.raises(ValueError, match="trace format"):
-        T.SimConfig(trace_format="csv")
+    # the trace formats came with the traces slice: the port now refuses
+    # what the reference refuses, with its message
+    with pytest.raises(ValueError, match="trace format") as ei:
+        T.SimConfig(trace_format="philly")
+    with pytest.raises(ValueError) as ref:
+        R.SimConfig(trace_format="philly")
+    assert str(ei.value) == str(ref.value)
     with pytest.raises(ValueError, match="unknown strategy"):
         T.SimConfig(strategy="nope")
     with pytest.raises(ValueError, match="size mix"):
