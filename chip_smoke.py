@@ -181,6 +181,40 @@ Phases, in order; any failure exits non-zero before the result line:
                ``--trace-format alibaba`` on cuda and cpu and under
                ``auto`` on cuda, identical, then windowed (``--window 10
                --stride 5``) on cuda and cpu, identical.
+  5d. figures — the paper's figures through the port's report, in this
+               process (so the launch counters can be read): (1) the six
+               smoke figures through ``repro_torch.launch.report.generate``
+               into a temporary directory, once on cuda and once on cpu:
+               every CSV byte-equal to the committed
+               ``docs/assets/<figure>.smoke.csv``, ``check_results`` empty
+               on the tables generate built, the cuda tables equal to the
+               cpu ones, launches = solves on cuda (the reference makes
+               372); without matplotlib the report skips the SVGs; (2)
+               jct-vs-load, contention-cdf, ocs-comparison, frag-timeline
+               and hetero-interleave at the paper's own sizes on cuda: each
+               CSV's sha256 equal to the reference's (``PAPER_FIGURES``),
+               ``qualitative_checks`` empty, launches = solves; wall
+               seconds and us a solve per figure, and the device idle share
+               over contention-cdf (CLUSTER2048) under torch.profiler.
+               Paper real-trace is left out.
+  5e. schedd — the scheduler service: (1) ``schedd replay --verify`` on
+               cuda over the golden trace (ecmp, sr: JCT 13417.8 / 3731.4,
+               ``verify: OK``, 78 / 72 launches = solves, as the reference
+               counts them) and over the paper's CLUSTER2048 contention
+               workload (1500 jobs, max_gpus 1024, λ 40) with an event log
+               that, reopened on cpu, lands on the cuda run's version,
+               clock and placements; (2) a daemon session
+               (``ServerThread`` over ``LiveCluster.open`` on CLUSTER512,
+               sr, quota teamA=64) through every op: stats, admit grant and
+               quota deny, placed and quota-denied submits, a what-if twice
+               (the second a memo hit), a churn event, an advance, a drain,
+               an unknown op, shutdown; the log reopened on cpu reaches the
+               same version; launches = solves; (3) request latency on
+               CLUSTER2048 under sr: the 1500-job trace's first 500 jobs
+               submitted in arrival order through one client, a what-if
+               (moe, 32 GPUs, sr and ecmp) every 25 submits at a fresh
+               version, p50 / p99 ms on cuda and on a cpu service, whose
+               final versions and placements must agree.
   6. timing  — each kernel, its plain version and a PyTorch library call
                computing the same function, at the path's shape (CUDA
                events), flash attention at deepseek-moe-16b's,
@@ -237,6 +271,41 @@ CAMPAIGN_GRID_CELLS, CAMPAIGN_WORKERS, CHAOS_WORKERS = 18, 4, 2
 ALIBABA_TRACE = ROOT / "src" / "repro_torch" / "data" / "alibaba_sample.csv"
 ALIBABA_JOBS = 25
 WALL_KEYS = ("sim_seconds", "wall_time", "journal_seconds")
+# phase 5d: the paper's figures.  The reference's v2 solves over the six
+# smoke figures, and, for the paper-scale figures run here, the sha256 of the
+# reference's CSV and its solves, computed on the reference with
+#   PYTHONPATH=src python -c 'import hashlib; from repro.core.figures import
+#   build_figure; from repro.launch.report import csv_text; print({n:
+#   hashlib.sha256(csv_text(build_figure(n, scale="paper")).encode())
+#   .hexdigest() for n in ("jct-vs-load", "contention-cdf", "ocs-comparison",
+#   "frag-timeline", "hetero-interleave")})'
+# (paper real-trace, five windows of a generated 5000-job trace, is left out)
+FIGURE_SMOKE_SOLVES = 372
+PAPER_FIGURES = {
+    "jct-vs-load": (
+        "efdcdea674d88ef8d35a4eaa23307c2599b78cb9014e8efc0f9cc1d1edf41815",
+        528),
+    "contention-cdf": (
+        "5d4dce59e55639dc2e07807be6d05f161fa42b13fa814ef544572b27618cc921",
+        756),
+    "ocs-comparison": (
+        "831af4bf80916d6145eb469ccc131497c6e24faf354385a56666c38042564491",
+        184),
+    "frag-timeline": (
+        "93e3e005ce9131b371b34172a5ff57ec173be2917d968ba2c025616ac09af291",
+        349),
+    "hetero-interleave": (
+        "4ed8c8f9b1c09fed3f791f295fd687aea0f13f0c9eef5cf6820a7865e22d50d9",
+        90),
+}
+# phase 5e: the scheduler service.  Replay goldens (JCT, and the v2 solves of
+# the live loop plus the offline oracle, as the reference counts them), the
+# paper's CLUSTER2048 contention workload (contention-cdf's, as WorkloadSpec
+# fields), the jobs the latency run submits and its what-if cadence
+SCHEDD_GOLDEN = {"ecmp": (13417.8, 78), "sr": (3731.4, 72)}
+SCHEDD_BIG = dict(num_jobs=1500, mean_interarrival=40.0, seed=0,
+                  max_gpus=1024)
+SCHEDD_LATENCY_JOBS, SCHEDD_WHATIF_EVERY = 500, 25
 # (nvals, nseg) at the lane engine's dispatch
 # (benchmarks/bench_fairshare.py BATCHED_DISPATCH_SHAPES)
 DISPATCH_SHAPES = (("p50", 3345, 62), ("p90", 22652, 398),
@@ -2051,21 +2120,15 @@ def drop_wall(obj):
     return obj
 
 
-def sweep_campaign(argv, out: Path, env=None) -> dict:
-    """One ``sweep campaign`` run in this process, through the port's CLI.
-    Returns the report without its wall-clock keys, the wall seconds, the
-    segment-max launches and the engines' solves counted from 0 around the
-    call, the host seconds spent inside the solves, and the printed lines.
-    ``env`` arms the chaos harness for this run only."""
-    import contextlib
-    import io
-    import os
-
+def counted_run(fn):
+    """``fn()`` with the segment-max launches and the engines' solves
+    counted from 0 around it, and the host seconds spent inside the solves
+    (on whatever thread they run) summed.  Returns ``(fn's result, {"wall",
+    "launches", "solves", "solve_s"})``."""
     import torch
     from repro_torch.core import batched as cb
     from repro_torch.core import simulator as cs
     from repro_torch.kernels import phase_max as pm
-    from repro_torch.launch.sweep import campaign_main
 
     spent = [0.0]
     engines = {mod: mod.phase_worst_loads for mod in (cs, cb)}
@@ -2080,21 +2143,42 @@ def sweep_campaign(argv, out: Path, env=None) -> dict:
 
     for mod, solve in engines.items():
         mod.phase_worst_loads = timed(solve)
-    os.environ.update(env or {})
-    buf = io.StringIO()
     pm.launches = cs.solves = cb.solves = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        campaign_main([*argv, "--out", str(out)])
+    out = fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, solves = pm.launches, cs.solves + cb.solves
-    for key in env or {}:
-        os.environ.pop(key)
+    counts = {"wall": time.perf_counter() - t0, "launches": pm.launches,
+              "solves": cs.solves + cb.solves, "solve_s": spent[0]}
     for mod, solve in engines.items():
         mod.phase_worst_loads = solve
-    return {"report": drop_wall(json.loads(out.read_text())), "wall": wall,
-            "launches": launches, "solves": solves, "solve_s": spent[0],
+    return out, counts
+
+
+def us_a_solve(counts) -> float:
+    return counts["solve_s"] / counts["solves"] * 1e6 if counts["solves"] \
+        else float("nan")
+
+
+def sweep_campaign(argv, out: Path, env=None) -> dict:
+    """One ``sweep campaign`` run in this process, through the port's CLI.
+    Returns the report without its wall-clock keys, the wall seconds, the
+    segment-max launches and the engines' solves counted from 0 around the
+    call, the host seconds spent inside the solves, and the printed lines.
+    ``env`` arms the chaos harness for this run only."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.launch.sweep import campaign_main
+
+    os.environ.update(env or {})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, counts = counted_run(
+            lambda: campaign_main([*argv, "--out", str(out)]))
+    for key in env or {}:
+        os.environ.pop(key)
+    return {"report": drop_wall(json.loads(out.read_text())), **counts,
             "printed": buf.getvalue().splitlines()}
 
 
@@ -2240,6 +2324,313 @@ def campaign_phase() -> dict:
                           "grid-v2-cpu")},
             "grid_device_idle": idle,
             "walls_s": {k: v["wall"] for k, v in runs.items()}}
+
+
+def need(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def figures_phase() -> dict:
+    """Phase 5d: the paper's figures through the port's report on the card
+    (see the module docstring).  Returns the launches of the gated cuda
+    runs and the numbers logged."""
+    import hashlib
+    import tempfile
+
+    from repro_torch.core.figures import (build_figure, figure_names,
+                                          qualitative_checks)
+    from repro_torch.launch import report
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_figures_"))
+    # (1) the six smoke figures through report.generate, on cuda and cpu;
+    # the tables generate builds are kept for check_results and for cuda
+    # against cpu
+    build, built, smoke, notes = report._build, {}, {}, []
+
+    def keep(*args, **kwargs):
+        built["tables"] = build(*args, **kwargs)
+        return built["tables"]
+
+    report._build = keep
+    for dev in ("cuda", "cpu"):
+        out_dir = tmp / f"smoke-{dev}"
+        _, counts = counted_run(lambda: report.generate(
+            "smoke", out_dir=out_dir, progress=notes.append, device=dev))
+        smoke[dev] = {"tables": built.pop("tables"), **counts}
+        for name in figure_names():
+            got = (out_dir / "assets" / f"{name}.smoke.csv").read_bytes()
+            want = (ROOT / "docs" / "assets" / f"{name}.smoke.csv") \
+                .read_bytes()
+            need(got == want, f"figures smoke {dev}: {name}.smoke.csv "
+                 f"differs from docs/assets")
+        problems = report.check_results(smoke[dev]["tables"])
+        need(not problems, f"figures smoke {dev}: check_results: {problems}")
+        log(f"figures smoke on {dev}: {counts['wall']:.3f} s, "
+            f"{counts['solves']} solves (reference {FIGURE_SMOKE_SOLVES}), "
+            f"{counts['launches']} launches, {us_a_solve(counts):.1f} us a "
+            f"solve; six CSVs byte-equal to docs/assets, check_results "
+            f"empty")
+    report._build = build
+    log("figures smoke: the report said " + "; ".join(
+        sorted({n for n in notes if n.startswith("[report]")})))
+    need(smoke["cuda"]["tables"] == smoke["cpu"]["tables"],
+         "figures smoke: the cuda tables differ from the cpu tables")
+    c = smoke["cuda"]
+    need(c["launches"] == c["solves"] > 0,
+         f"figures smoke cuda: {c['launches']} launches, {c['solves']} "
+         f"solves")
+
+    # (2) paper scale on cuda, contention-cdf under torch.profiler
+    paper, tables = {}, []
+    for name, (sha, ref_solves) in PAPER_FIGURES.items():
+        def run(name=name):
+            return counted_run(lambda: build_figure(name, scale="paper"))
+        if name == "contention-cdf":
+            held = []
+            wall_prof, rows = device_profile(
+                "figure contention-cdf, paper scale, cuda",
+                lambda: held.append(run()))
+            (table, counts), = held
+            busy_ms = sum(ms for ms, _, _ in rows)
+            idle = 1 - busy_ms / wall_prof if busy_ms else float("nan")
+        else:
+            table, counts = run()
+        digest = hashlib.sha256(report.csv_text(table).encode()).hexdigest()
+        paper[name] = counts
+        tables.append(table)
+        log(f"figure {name} paper on cuda: {counts['wall']:.3f} s"
+            + (" (under torch.profiler)" if name == "contention-cdf" else "")
+            + f", {counts['solves']} solves (reference {ref_solves}), "
+            f"{counts['launches']} launches, {us_a_solve(counts):.1f} us a "
+            f"solve, {counts['solve_s']:.3f} s in the solves; csv sha256 "
+            f"equal to the reference's: {digest == sha}")
+        need(digest == sha, f"figure {name} paper: csv sha256 {digest} != "
+             f"the reference's {sha}")
+        need(counts["launches"] == counts["solves"] > 0,
+             f"figure {name} paper: {counts['launches']} launches, "
+             f"{counts['solves']} solves")
+    problems = qualitative_checks(tables)
+    need(not problems, f"figures paper: qualitative_checks: {problems}")
+    log(f"figures paper: qualitative_checks empty; contention-cdf device "
+        f"idle {idle:.4f} (profiled wall {wall_prof:.1f} ms)")
+    launches = c["launches"] + sum(v["launches"] for v in paper.values())
+    return {"launches": launches, "smoke_launches": c["launches"],
+            "smoke_walls_s": {d: v["wall"] for d, v in smoke.items()},
+            "smoke_us_per_solve": {d: us_a_solve(v)
+                                   for d, v in smoke.items()},
+            "paper_walls_s": {k: v["wall"] for k, v in paper.items()},
+            "paper_solves": {k: v["solves"] for k, v in paper.items()},
+            "paper_us_per_solve": {k: us_a_solve(v)
+                                   for k, v in paper.items()},
+            "contention_cdf_device_idle": idle}
+
+
+def p50_p99_ms(seconds) -> list:
+    import numpy as np
+    return [float(x) for x in np.percentile(np.asarray(seconds) * 1e3,
+                                            [50, 99])]
+
+
+def percentiles_ms(seconds) -> str:
+    p50, p99 = p50_p99_ms(seconds)
+    return f"p50 {p50:.3f} ms, p99 {p99:.3f} ms ({len(seconds)} calls)"
+
+
+def service_phase() -> dict:
+    """Phase 5e: the scheduler service on the card (see the module
+    docstring).  Returns the launches of the gated cuda runs and the
+    numbers logged."""
+    import contextlib
+    import io
+    import tempfile
+
+    import repro_torch.service as service
+    from repro_torch.core import (CLUSTER512, CLUSTER2048, SimConfig,
+                                  WorkloadSpec, generate_trace,
+                                  save_trace_csv)
+    from repro_torch.launch import schedd
+    from repro_torch.service import (LiveCluster, SchedClient,
+                                     SchedulerService, ServerThread)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_schedd_"))
+    launches = {}
+
+    def cfg(strategy):
+        return SimConfig(strategy=strategy, scheduler="fifo", seed=0,
+                         engine="v2")
+
+    # (1) the differential replay through `schedd replay --verify`; the
+    # live cluster each replay drives is kept to compare the reopened log
+    golden_csv, big_csv = tmp / "golden.csv", tmp / "cluster2048.csv"
+    save_trace_csv(generate_trace(WorkloadSpec(
+        num_jobs=200, mean_interarrival=120.0, seed=0, max_gpus=256)),
+        str(golden_csv))
+    big_jobs = generate_trace(WorkloadSpec(**SCHEDD_BIG))
+    save_trace_csv(big_jobs, str(big_csv))
+    replay, replayed = service.replay_trace, []
+
+    def keep(live, jobs, **kwargs):
+        replayed.append(live)
+        return replay(live, jobs, **kwargs)
+
+    def cli(label, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, counts = counted_run(lambda: schedd.main(argv))
+        text = buf.getvalue()
+        log(f"schedd {label}: {counts['wall']:.3f} s, {counts['solves']} "
+            f"solves, {counts['launches']} launches, {us_a_solve(counts):.1f}"
+            f" us a solve; " + " | ".join(text.strip().splitlines()))
+        need("verify: OK" in text, f"schedd {label}: no verify: OK")
+        need(counts["launches"] == counts["solves"] > 0,
+             f"schedd {label}: {counts['launches']} launches, "
+             f"{counts['solves']} solves")
+        launches[label] = counts["launches"]
+        return text, counts
+
+    service.replay_trace = keep
+    for strategy, (jct, ref_solves) in SCHEDD_GOLDEN.items():
+        text, counts = cli(f"replay golden {strategy}", [
+            "replay", "--trace", str(golden_csv), "--strategy", strategy,
+            "--verify", "--device", "cuda"])
+        need(f"JCT {jct:.1f}s" in text, f"schedd golden {strategy}: JCT "
+             f"{jct} not in {text!r}")
+        need(counts["solves"] == ref_solves, f"schedd golden {strategy}: "
+             f"{counts['solves']} solves, the reference makes {ref_solves}")
+    for strategy in ("ecmp", "sr"):
+        log_path = tmp / f"cluster2048-{strategy}.log"
+        cli(f"replay CLUSTER2048 {strategy}", [
+            "replay", "--trace", str(big_csv), "--cluster", "2048",
+            "--strategy", strategy, "--verify", "--event-log",
+            str(log_path), "--device", "cuda"])
+        live = replayed[-1]
+        cpu = LiveCluster.open(str(log_path), CLUSTER2048, cfg(strategy),
+                               device="cpu")
+        same = (cpu.version, cpu.now, cpu.sim.placements) == \
+            (live.version, live.now, live.sim.placements)
+        log(f"schedd CLUSTER2048 {strategy}: the event log reopened on cpu "
+            f"replays {cpu.ingested} records to version {cpu.version}, t="
+            f"{cpu.now:g}, {len(cpu.sim.placements)} placements; same as "
+            f"the cuda run: {same}")
+        need(same, f"schedd CLUSTER2048 {strategy}: the log reopened on "
+             f"cpu differs from the cuda run")
+        cpu.close()
+    service.replay_trace = replay
+
+    # (2) one daemon session through every op, on a durable log
+    session_log = tmp / "session.log"
+
+    def session():
+        live = LiveCluster.open(str(session_log), CLUSTER512, cfg("sr"),
+                                quotas={"teamA": 64}, fsync=False)
+        server = ServerThread(SchedulerService(live))
+        host, port = server.start()
+        with SchedClient(host, port) as c:
+            s = c.stats()
+            need(s["running"] == 0 and s["version"] == 0, f"stats {s}")
+            need(c.admit("default", 128)["admit"], "admit grant")
+            denied = c.admit("teamA", 128)
+            need(not denied["admit"] and "quota" in denied["reason"],
+                 f"admit deny {denied}")
+            r = c.submit("resnet50", 16, 4000, tenant="teamA")
+            need(r["admitted"] and r["placed"], f"submit {r}")
+            d = c.submit("bert", 64, 1000, tenant="teamA")
+            need(not d["admitted"] and "quota" in d["reason"], f"quota {d}")
+            q = c.submit("vgg16", 96, 3000, t=30.0)
+            need(q["admitted"], f"submit {q}")
+            w = c.whatif("moe", 32, 2000, strategies=["sr", "ecmp"])
+            need(not w["cached"] and all(
+                w["strategies"][n]["supported"] for n in ("sr", "ecmp")),
+                f"what-if {w}")
+            need(c.whatif("moe", 32, 2000, strategies=["sr", "ecmp"])
+                 ["cached"], "the second what-if is no memo hit")
+            ev = c.event({"time": 100.0, "kind": "preempt",
+                          "job_id": r["job_id"], "restart_iters": 50.0})
+            need(ev["kind"] == "preempt", f"event {ev}")
+            need(c.advance(200.0)["t"] == 200.0, "advance")
+            need(c.drain()["completed"], "drain finished nothing")
+            # an unknown op answers ok: false and keeps the session (read
+            # off the wire: the client raises ServiceError on it)
+            c._fh.write(b'{"id": 99, "op": "frobnicate"}\n')
+            c._fh.flush()
+            err = json.loads(c._fh.readline())
+            need(not err["ok"] and "unknown op" in err["error"],
+                 f"unknown op {err}")
+            final = c.stats()
+            c.shutdown()
+        server.join()
+        return final
+
+    final, counts = counted_run(session)
+    launches["session"] = counts["launches"]
+    reopened = LiveCluster.open(str(session_log), CLUSTER512, cfg("sr"),
+                                quotas={"teamA": 64}, device="cpu")
+    log(f"schedd session (CLUSTER512, sr, quota teamA=64): "
+        f"{counts['wall']:.3f} s, {final['requests']} requests, "
+        f"{final['errors']} errors, version {final['version']}, t="
+        f"{final['now']:g}; {counts['solves']} solves, {counts['launches']} "
+        f"launches; the log reopened on cpu: version {reopened.version}, t="
+        f"{reopened.now:g}")
+    need((reopened.version, reopened.now) == (final["version"],
+                                              final["now"]),
+         "schedd session: the reopened log reaches another state")
+    need(counts["launches"] == counts["solves"] > 0,
+         f"schedd session: {counts['launches']} launches, "
+         f"{counts['solves']} solves")
+    reopened.close()
+
+    # (3) request latency on the paper's large cluster, cuda then cpu
+    first = sorted(big_jobs, key=lambda j: j.arrival)[:SCHEDD_LATENCY_JOBS]
+
+    def latency(dev):
+        live = LiveCluster(CLUSTER2048, cfg("sr"), device=dev)
+        server = ServerThread(SchedulerService(live))
+        host, port = server.start()
+        sub, wif = [], []
+        with SchedClient(host, port) as c:
+            for i, job in enumerate(first):
+                t0 = time.perf_counter()
+                c.submit(job.model, job.num_gpus, job.num_iters,
+                         batch_size=job.batch_size, t=job.arrival,
+                         allreduce_algo=job.allreduce_algo,
+                         deadline=job.deadline)
+                sub.append(time.perf_counter() - t0)
+                if i % SCHEDD_WHATIF_EVERY == SCHEDD_WHATIF_EVERY - 1:
+                    t0 = time.perf_counter()
+                    w = c.whatif("moe", 32, 2000, strategies=["sr", "ecmp"])
+                    wif.append(time.perf_counter() - t0)
+                    need(not w["cached"], "a what-if at a fresh version hit "
+                         "the memo")
+            stats = c.stats()
+            c.shutdown()
+        server.join()
+        return stats, live.sim.placements, sub, wif
+
+    lat = {}
+    for dev in ("cuda", "cpu"):
+        (stats, placements, sub, wif), counts = counted_run(
+            lambda: latency(dev))
+        lat[dev] = {"version": stats["version"], "placements": placements,
+                    "submit_s": sub, "whatif_s": wif, **counts}
+        log(f"schedd latency on {dev} (CLUSTER2048, sr, "
+            f"{len(sub)} submits, {len(wif)} what-ifs of moe x 32 under sr "
+            f"and ecmp): submit {percentiles_ms(sub)}; what-if "
+            f"{percentiles_ms(wif)}; {counts['wall']:.3f} s, "
+            f"{counts['solves']} solves, {counts['launches']} launches, "
+            f"{us_a_solve(counts):.1f} us a solve")
+    need(lat["cuda"]["launches"] == lat["cuda"]["solves"] > 0,
+         "schedd latency cuda: launches != solves")
+    need((lat["cuda"]["version"], lat["cuda"]["placements"])
+         == (lat["cpu"]["version"], lat["cpu"]["placements"]),
+         "schedd latency: the cuda and cpu services end in other states")
+    launches["latency"] = lat["cuda"]["launches"]
+    log(f"schedd launches in the gated cuda runs: {launches}")
+    return {"launches": sum(launches.values()), "by_run": launches,
+            "latency_p50_p99_ms": {
+                dev: {"submit": p50_p99_ms(v["submit_s"]),
+                      "whatif": p50_p99_ms(v["whatif_s"])}
+                for dev, v in lat.items()}}
 
 
 def kernel_device_ms(fn, name: str, n: int = 50) -> float:
@@ -2725,6 +3116,19 @@ def main() -> None:
         fail(f"the campaigns launched flash attention {fa.launches} and the "
              f"recurrence {kr.launches} times")
 
+    # 5d. the paper's figures: report.generate and the paper-scale builders -
+    t0 = time.perf_counter()
+    figures = figures_phase()
+    log(f"phase 5d took {time.perf_counter() - t0:.1f} s")
+
+    # 5e. the scheduler service: replay oracle, a daemon session, latency ---
+    t0 = time.perf_counter()
+    schedd = service_phase()
+    log(f"phase 5e took {time.perf_counter() - t0:.1f} s")
+    if fa.launches or kr.launches:
+        fail(f"the figures and the service launched flash attention "
+             f"{fa.launches} and the recurrence {kr.launches} times")
+
     # 6. timing at the paths' shapes ----------------------------------------
     q, k, v = qkv(BATCH, PROMPT, 32, 4, 64, torch.bfloat16)
     kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -2873,10 +3277,14 @@ def main() -> None:
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
         "replaces": "src/repro/kernels/phase_max.py:47",
-        "launches": pm_launches + campaign["launches"],
+        "launches": pm_launches + campaign["launches"] + figures["launches"]
+        + schedd["launches"],
         "launches_by_path": {"simulate": pm_launches,
-                             "sweep campaign": campaign["launches"]},
-        "campaign": campaign, "max_abs_err": pm_err,
+                             "sweep campaign": campaign["launches"],
+                             "report figures": figures["launches"],
+                             "schedd": schedd["launches"]},
+        "campaign": campaign, "figures": figures, "schedd": schedd,
+        "max_abs_err": pm_err,
         "ms": pm_row["kernel_ms"], "kernel_ms": pm_row["kernel_ms"],
         "issue_ms": pm_row["issue_ms"], "design": "zero-copy",
         "resident_kernel_ms": pm_row["resident_kernel_ms"],

@@ -25,13 +25,15 @@ Layers:
                ``run_lanes``)
   runtime    — fault-tolerant cell execution: retries, timeouts, journal
   campaign   — strategy × policy × load × seed sweeps + aggregation
+  figures    — the paper's figures as deterministic tables
   scheduler  — online scheduler facade
   metrics    — JRT / JWT / JCT / Stability (+ CDF helpers)
   rankmap    — vClos placement -> leaf-contiguous rank and device order
 
 Entry points that take ``device`` (``simulate``, ``ClusterSimulator``,
 ``run_lanes``, ``run_campaign``, ``run_windowed_campaign``,
-``phase_worst_loads``, ``maxmin_fair_torch``) run on ``cuda`` unless given
+``build_figure``, ``build_all``, ``phase_worst_loads``,
+``maxmin_fair_torch``) run on ``cuda`` unless given
 ``device="cpu"``, and raise where there is no card.
 """
 
@@ -80,5 +82,7 @@ from .traces import (ADAPTERS, TRACE_FORMATS, AlibabaAdapter,
                      iters_for_duration, stable_model_for, summarize_jobs)
 from .campaign import (AGGREGATE_COLUMNS, CampaignGrid, CampaignResult,
                        CellResult, run_campaign, run_windowed_campaign)
+from .figures import (FIGURES, FigureSpec, FigureTable, build_all,
+                      build_figure, figure_names, qualitative_checks)
 from .scheduler import (Grant, IsolatedScheduler, QUEUE_POLICIES, order_queue)
 from .rankmap import leaf_contiguous_order, mesh_device_order

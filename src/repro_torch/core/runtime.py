@@ -269,8 +269,8 @@ class LineJournal:
 
     This is the shared durability layer behind :class:`CellJournal`
     (campaign cells) and the scheduler daemon's event log
-    (the reference's ``service.state.ServiceLog``; the port's service is
-    not written yet).  The contract both inherit:
+    (:class:`repro_torch.service.state.ServiceLog`).  The contract both
+    inherit:
 
     * line 1 is a ``header`` record carrying a *schema* dict; resuming
       validates it so a journal can never be replayed into a run it was
@@ -473,7 +473,8 @@ class CellRunner:
     * :meth:`run_pool` — a ``ProcessPoolExecutor`` with *windowed
       submission* (at most ``workers`` cells in flight, so a submitted
       cell starts immediately and its deadline is honest).  Worker death
-      (``BrokenProcessPool``) kills every in-flight future; when more
+      (``BrokenProcessPool``) kills every in-flight future, and a
+      submission the broken pool refuses is requeued; when more
       than one cell was in flight the culprit is unknown, so the runner
       enters *isolation mode* — suspects re-run one at a time until the
       poisoned cell identifies itself (innocent cells complete and are
@@ -587,12 +588,26 @@ class CellRunner:
         pool = _spawn_pool(workers)
         ok = False
 
-        def submit(i: int) -> None:
-            fut = pool.submit(self._run_cell, self.cells[i].spec,
-                              self.cells[i].trace, self.cells[i].config,
-                              i, attempts[i])
-            inflight[fut] = (i, time.monotonic() + timeout
-                             if timeout else None)
+        def submit(i: int) -> bool:
+            """Hand cell ``i`` to the pool; ``False`` when the pool turned
+            out broken.  A worker can die after ``wait`` returned other
+            futures, and ``ProcessPoolExecutor.submit`` then raises: the
+            submission runs on the runner's own thread so that failure
+            comes back from a future.  The cell goes back to the head of
+            the queue without penalty; the in-flight futures were already
+            failed with the pool and are collected as a crash."""
+            c = self.cells[i]
+            sub = submitter.submit(pool.submit, self._run_cell, c.spec,
+                                   c.trace, c.config, i, attempts[i])
+            e = sub.exception()
+            if e is None:
+                inflight[sub.result()] = (i, time.monotonic() + timeout
+                                          if timeout else None)
+                return True
+            if not isinstance(e, BrokenProcessPool):
+                raise e
+            queue.appendleft(i)
+            return False
 
         def rebuild() -> None:
             nonlocal pool
@@ -615,6 +630,8 @@ class CellRunner:
             # outstanding futures and kill the workers so nothing leaks
             # (the journal already holds every completed cell)
             stack.callback(lambda: _shutdown_pool(pool, kill=not ok))
+            submitter = stack.enter_context(ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="campaign-submit"))
             while queue or inflight:
                 # isolation mode: one cell in flight, suspects first, so a
                 # repeat crash identifies the poisoned cell unambiguously
@@ -625,7 +642,11 @@ class CellRunner:
                             queue.remove(s)
                             queue.appendleft(s)
                 while queue and len(inflight) < cap:
-                    submit(queue.popleft())
+                    if submit(queue.popleft()):
+                        continue
+                    if inflight:
+                        break          # their crash is collected below
+                    rebuild()          # a worker died idle: nothing lost
                 now = time.monotonic()
                 deadlines = [dl for _, dl in inflight.values()
                              if dl is not None]

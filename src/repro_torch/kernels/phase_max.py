@@ -28,6 +28,7 @@ synchronises with the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import numpy as np
@@ -136,6 +137,10 @@ class _Mapped(Staging):
 
 
 _staging: Dict[int, _Mapped] = {}
+# held across a host call's pack, launch, wait, copy-out and count, so that
+# threads calling at once (the scheduler service's op thread beside a
+# simulation on another) never share a staging buffer mid-call
+_lock = threading.Lock()
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {   # C entry -> argtypes; every entry returns a cudaError_t
     "phase_max_launch": [_P, _P, _P, _LL, _LL, _P, _I],
@@ -173,26 +178,29 @@ def phase_max_host(vals: np.ndarray, ptr: np.ndarray,
     the call returns a copy of the result.  Empty work returns zeros
     unlaunched.
 
-    The staging buffers are shared by every call on the device, so the call
-    is not reentrant across threads (the engines are single-threaded).  A
-    call overwrites them only after the previous call's wait, which every
-    call makes before it returns."""
+    The staging buffers are shared by every call on the device, so a
+    module lock is held from the pack to the copy of the result (and the
+    count): calls from several threads at once run one after another, each
+    on a staging no other call touches mid-call.  The lock costs far less
+    than the call's wait."""
     global launches
     nseg = len(ptr) - 1
     if nseg == 0 or len(vals) == 0:
         return np.zeros(nseg, np.int64)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    st = _staging.get(index)
-    if st is None:
-        st = _staging[index] = _Mapped(index)
-    st.pack(vals, ptr)
-    stream = torch.cuda.current_stream(index).cuda_stream
-    _raise_on(_c("phase_max_solve")(
-        st.packed_at + 8 * len(ptr), st.packed_at, st.out_at, nseg, len(vals),
-        stream, index, st.event.cuda_event), "kernel launch or wait")
-    launches += 1
-    return st.result(nseg)
+    with _lock:
+        st = _staging.get(index)
+        if st is None:
+            st = _staging[index] = _Mapped(index)
+        st.pack(vals, ptr)
+        stream = torch.cuda.current_stream(index).cuda_stream
+        _raise_on(_c("phase_max_solve")(
+            st.packed_at + 8 * len(ptr), st.packed_at, st.out_at, nseg,
+            len(vals), stream, index, st.event.cuda_event),
+            "kernel launch or wait")
+        launches += 1
+        return st.result(nseg)
 
 
 def phase_max(vals: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
@@ -219,5 +227,6 @@ def phase_max(vals: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     _raise_on(_c("phase_max_launch")(vals.data_ptr(), ptr.data_ptr(),
                                      out.data_ptr(), nseg, vals.numel(),
                                      stream, index), "kernel launch")
-    launches += 1
+    with _lock:
+        launches += 1
     return out

@@ -17,9 +17,10 @@ tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
 against its plain version and numpy, on CUDA tensors and through the
 engines' numpy route (page-locked staging the kernel reads in place),
 through calls that grow and shrink its buffers, with no device allocation
-per call and one launch per solve.  The simulator on ``cuda`` gives
-schedules identical to ``cpu``, with one kernel launch per rate-resolution
-solve.  RWKV6 chunked recurrence
+per call and one launch per solve, and from two threads at once.  The
+simulator on ``cuda`` gives schedules identical to ``cpu``, with one kernel
+launch per rate-resolution solve; so do the smoke figures and the golden
+trace through the scheduler service's loop.  RWKV6 chunked recurrence
 (the fused kernel, from raw q / k / v / log decay): output within 1e-4
 (float32) or one bf16 ulp (bf16) of its plain version, final state within
 1e-4, on every K / V in {8, ..., 128}, chunks from 1 to 64 (powers of two
@@ -405,6 +406,69 @@ def test_campaign_on_cuda_matches_cpu(cuda):
     par = core.run_campaign(core.CLUSTER512, grid, workload=wl, workers=2)
     assert _drop_wall(ser.to_json()) == _drop_wall(ref.to_json())
     assert _drop_wall(par.to_json()) == _drop_wall(ref.to_json())
+
+
+def test_smoke_figures_on_cuda_match_cpu(cuda):
+    """The six smoke figures on cuda equal those on cpu, with one launch
+    per solve."""
+    from repro_torch.core.figures import build_all
+    ref = build_all("smoke", device="cpu")
+    pm.launches = cs.solves = cb.solves = 0
+    tabs = build_all("smoke")
+    assert cs.solves > 0 and pm.launches == cs.solves + cb.solves
+    assert tabs == ref
+
+
+def test_golden_replay_through_the_service_on_cuda(cuda):
+    """The golden trace through the service loop on cuda: the pinned JCTs,
+    the cpu service's placements and report, one launch per solve."""
+    from repro_torch.service import LiveCluster, replay_trace
+
+    def golden():
+        return core.generate_trace(core.WorkloadSpec(
+            num_jobs=200, mean_interarrival=120.0, seed=0, max_gpus=256))
+
+    for strategy, jct in (("ecmp", 13417.8), ("sr", 3731.4)):
+        cfg = core.SimConfig(strategy=strategy, engine="v2")
+        ref = LiveCluster(core.CLUSTER512, cfg, device="cpu")
+        rep_ref = replay_trace(ref, golden())
+        pm.launches = cs.solves = 0
+        live = LiveCluster(core.CLUSTER512, cfg)
+        rep = replay_trace(live, golden())
+        assert cs.solves > 0 and pm.launches == cs.solves
+        assert round(rep.avg_jct, 1) == pytest.approx(jct)
+        assert rep.to_journal() == rep_ref.to_journal()
+        assert live.sim.placements == ref.sim.placements
+
+
+def test_phase_worst_loads_from_two_threads_at_once(cuda):
+    """Two threads, 200 calls each on distinct seeded CSR inputs, through
+    the engines' route at the same time: every result bit-equal to the
+    plain version, one launch per call (the staging is held per call)."""
+    import threading
+    cases = [[_csr(1000 * t + i, 200 + 97 * i, 1 + i % 120,
+                   lo=-(2 ** 40), hi=2 ** 40) for i in range(200)]
+             for t in range(2)]
+    got = [[None] * 200 for _ in range(2)]
+    start = threading.Barrier(2)
+
+    def work(t):
+        start.wait()
+        for i, (vals, ptr) in enumerate(cases[t]):
+            got[t][i] = core.phase_worst_loads(vals, ptr)
+
+    pm.launches = 0
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert pm.launches == 400
+    for t in range(2):
+        for (vals, ptr), out in zip(cases[t], got[t]):
+            want = pm.phase_max_plain(torch.from_numpy(vals),
+                                      torch.from_numpy(ptr)).numpy()
+            np.testing.assert_array_equal(out, want)
 
 
 def test_maxmin_torch_on_cuda_matches_cpu(cuda):

@@ -28,11 +28,14 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import phase_max as pm  # noqa: E402
 from repro_torch.kernels import rwkv6  # noqa: E402
+from repro_torch.launch import report  # noqa: E402
+from repro_torch.launch import schedd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
 from repro_torch.launch import train as ltrain  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
+from repro_torch.service import LiveCluster  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -81,7 +84,11 @@ def test_every_module_imports_without_a_card():
                  "repro_torch.launch.mesh", "repro_torch.core.traces",
                  "repro_torch.core.runtime", "repro_torch.core.campaign",
                  "repro_torch.testing", "repro_torch.testing.chaos",
-                 "repro_torch.launch.sweep"):
+                 "repro_torch.launch.sweep", "repro_torch.core.figures",
+                 "repro_torch.launch.report", "repro_torch.service",
+                 "repro_torch.service.state", "repro_torch.service.twin",
+                 "repro_torch.service.server", "repro_torch.service.client",
+                 "repro_torch.launch.schedd"):
         assert need in names
     for name in names:
         importlib.import_module(name)
@@ -175,6 +182,8 @@ def test_vlm_entry_points_default_to_cuda_and_raise(no_card, entry):
 
 _VALS, _PTR = np.arange(3, dtype=np.int64), np.asarray([0, 1, 3])
 _ALIBABA = str(PKG / "data" / "alibaba_sample.csv")
+# an event log that must not be created without a card
+_UNOPENED = str(ROOT / "reports" / "torch" / "never-created.log")
 
 
 @pytest.mark.parametrize("entry", [
@@ -195,14 +204,30 @@ _ALIBABA = str(PKG / "data" / "alibaba_sample.csv")
                                  "--strategies", "ecmp"]),
     lambda: sweep.campaign_main(["--trace", _ALIBABA, "--window", "5",
                                  "--strategies", "ecmp", "--workers", "2"]),
+    lambda: core.build_figure("hetero-interleave"),
+    lambda: core.build_figure("real-trace"),
+    lambda: core.build_all(),
+    lambda: report.generate(progress=lambda _: None),
+    lambda: report.main([]),
+    lambda: report.main(["--check"]),
+    lambda: LiveCluster(core.CLUSTER512, core.SimConfig(strategy="sr")),
+    lambda: LiveCluster.open(_UNOPENED, core.CLUSTER512,
+                             core.SimConfig(strategy="sr")),
+    lambda: schedd.replay_main(["--trace", _ALIBABA]),
+    lambda: schedd.serve_main(["--port", "0"]),
 ], ids=["simulate", "ClusterSimulator", "run_lanes", "phase_worst_loads",
         "maxmin_fair_torch", "maxmin_fair[torch]", "run_campaign",
-        "run_windowed_campaign", "campaign_main", "campaign_main[windowed]"])
+        "run_windowed_campaign", "campaign_main", "campaign_main[windowed]",
+        "build_figure", "build_figure[windowed]", "build_all",
+        "report.generate", "report.main", "report.main[check]",
+        "LiveCluster", "LiveCluster.open", "schedd.replay_main",
+        "schedd.serve_main"])
 def test_simulator_entry_points_default_to_cuda_and_raise(no_card, entry):
     before = pm.launches
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
     assert pm.launches == before
+    assert not Path(_UNOPENED).exists()
 
 
 def test_simulator_runs_on_cpu_only_when_asked():

@@ -16,6 +16,7 @@ import json
 import multiprocessing
 import os
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -493,6 +494,52 @@ def test_pool_workers_are_spawned(monkeypatch):
     monkeypatch.setattr(TR, "_spawn_pool", spy)
     run(cfg=dict(workers=2))
     assert made == ["spawn"]
+
+
+class _BreaksAtSubmit(ProcessPoolExecutor):
+    """A spawn pool that breaks just before its ``at``-th submission (its
+    workers are killed, or before the first a worker is made to exit) and
+    then submits once the pool has marked itself broken: the moment a
+    worker dies between ``wait`` and the next ``submit``."""
+
+    def __init__(self, workers, at):
+        super().__init__(max_workers=workers,
+                         mp_context=multiprocessing.get_context("spawn"))
+        self.n, self.at = 0, at
+
+    def submit(self, fn, /, *args, **kwargs):
+        self.n += 1
+        if self.n == self.at:
+            if not self._processes:
+                super().submit(os._exit, 1)
+            for p in list(self._processes.values()):
+                p.kill()
+            deadline = time.monotonic() + 60.0
+            while not self._broken and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert self._broken
+        return super().submit(fn, *args, **kwargs)
+
+
+@pytest.mark.parametrize("at", [1, 3])
+def test_pool_broken_at_submit_recovers(clean, monkeypatch, at):
+    """A pool that breaks before a submission (at 1: its idle worker died;
+    at 3: cells are in flight) has its refused cell requeued and the
+    crash collected, and the campaign still ends bit-identical to a clean
+    run (the reference's runner lets that ``BrokenProcessPool`` out)."""
+    made = []
+    real = TR._spawn_pool
+
+    def first_breaks(workers):
+        pool = real(workers) if made else _BreaksAtSubmit(workers, at)
+        made.append(pool)
+        return pool
+
+    monkeypatch.setattr(TR, "_spawn_pool", first_breaks)
+    res = run(cfg=dict(workers=2))
+    assert made[0].n >= at and len(made) >= 2
+    assert cell_reports(res) == cell_reports(clean)
+    assert res.complete and not res.failed_cells
 
 
 @pytest.mark.slow
