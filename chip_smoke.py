@@ -138,6 +138,36 @@ Phases, in order; any failure exits non-zero before the result line:
                the patches against the patch-free forward; timed.  Logs the
                bounds by part (``dense_prefill_parts``).  The model is
                freed before phase 5.
+  4h. distributed — ranks spawned on the one card and joined with a
+               deadline (``repro_torch.testing.run_ranks``); any rank's
+               failure, a hang or a missed gate exits non-zero.  (1) The
+               collective probe: 4 ranks under gloo on CUDA tensors of
+               64 MB: all_reduce, all_gather_into_tensor,
+               reduce_scatter_tensor, all_to_all_single and broadcast, each
+               checked against its plain expectation and timed ("gloo,
+               host-staged, one card": these times measure host staging,
+               not NVLink or NCCL).  (2) World size 1 under NCCL: full-width
+               tinyllama-1.1b's first-step loss and grads through
+               make_context on a (1, 1) mesh, sharded_param_specs and
+               make_train_step(ctx=) equal the no-mesh step within 1e-6
+               (bit-exactness recorded), 22 attention launches.  (3) FSDP +
+               TP on (data 2, model 2), 4 gloo ranks in the rank order of a
+               4-GPU vclos grant on CLUSTER512: full-width tinyllama,
+               float32 masters drawn into their shards, bf16 compute, AdamW
+               float32, remat none, 4 x 2048: the first step's loss within
+               1e-2 and grad norm within 1% of (2)'s single rank; 22
+               attention launches a rank a step at 16 / 2 local heads;
+               finite losses; 2 warm-up and 2 timed steps (ms, tokens/s),
+               each rank's peak memory, one step profiled on rank 0 with
+               gloo's host staging as its own kind.  (4) Expert parallelism
+               on (1, 2), 2 gloo ranks: full-width deepseek-moe-16b cut to
+               its dense layer and 3 MoE layers (EP_LAYERS), bf16-held
+               weights drawn into their shards one rank at a time, one
+               prefill of 4 x 2048 at capacity factor 16 through the
+               sequence-sharded dispatch: last-position logits within 1e-2
+               of the single-rank forward in float32 compute (bf16
+               recorded), one attention launch a layer a rank, 2
+               all_to_all_single calls a MoE layer; ms, peaks, a profile.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -384,6 +414,20 @@ KERNEL_KINDS = {"recurrence": ("rwkv6_chunked",), "attention": ("attn_fwd",),
 MOE_KINDS = {**KERNEL_KINDS, "moe dispatch": (
     "TopK", "topk", "Sort", "sort", "scan", "scatter", "gather", "index",
     "compute_cuda_kernel")}
+# Phase 4h: ranks sharing the card.  The collective probe's ranks and
+# bytes; FSDP + TP tinyllama steps (the 4c batch); deepseek's EP prefill at
+# a capacity factor that drops nothing, cut to its dense layer and 3 MoE
+# layers: each MoE layer's two all-to-alls carry the E x capacity slot
+# blocks (3.2 GB a rank in float32 at factor 16) through gloo's host
+# staging
+DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 2, 2
+EP_LAYERS, EP_FACTOR = 4, 16.0
+# the distributed profiles split gloo's host staging (device <-> host
+# copies) from the other copies
+DIST_KINDS = {"attention": ("attn_fwd",),
+              "gemm": KERNEL_KINDS["gemm"],
+              "host staging (gloo)": ("DtoH", "HtoD"),
+              "copies": ("Memcpy", "Memset")}
 
 
 def log(msg: str) -> None:
@@ -1943,6 +1987,480 @@ def resume_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 4h. distributed: ranks that share the card
+# ---------------------------------------------------------------------------
+
+def dist_workdir() -> Path:
+    """Rendezvous files and each rank's stderr (gitignored ``build/``)."""
+    return ROOT / "build" / "dist"
+
+
+def quiet_dtensor() -> None:
+    """DTensor logs a warning per multi-step redistribution; the phase's log
+    keeps the measurements."""
+    import logging
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+
+
+def dist_rank_device():
+    """cuda:0 for a rank; under gloo, DTensor's gathers through the c10d
+    collectives the probe holds (``testing.gloo_cuda``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.testing import gloo_cuda
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    quiet_dtensor()
+    if dist.get_backend() == "gloo":
+        gloo_cuda.use_c10d_collectives()
+    return dev
+
+
+def probe_rank(rank: int, world: int, nbytes: int) -> dict:
+    """Step 1: each collective the slice needs, on CUDA tensors of
+    ``nbytes`` under the group's backend, checked against its plain
+    expectation and timed (host clock, after a warm-up call)."""
+    import torch
+    import torch.distributed as dist
+    dev = dist_rank_device()
+    n = nbytes // 4
+    x = torch.full((n,), float(rank + 1), device=dev)
+    times = {}
+
+    def timed(name, fn):
+        for _ in range(2):                      # warm-up, then timed
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    total = world * (world + 1) / 2
+    y = x.clone()
+    timed("all_reduce", lambda: dist.all_reduce(y.copy_(x)))
+    assert bool((y == total).all()), "all_reduce"
+    g = torch.empty(n * world, device=dev)
+    timed("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(g, x))
+    want = torch.arange(1, world + 1, device=dev,
+                        dtype=torch.float32).repeat_interleave(n)
+    assert torch.equal(g, want), "all_gather_into_tensor"
+    rs = torch.empty(n // world, device=dev)
+    timed("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(rs, x))
+    assert bool((rs == total).all()), "reduce_scatter_tensor"
+    src = torch.arange(n, device=dev, dtype=torch.float32) + rank * n
+    a2a = torch.empty_like(src)
+    timed("all_to_all_single", lambda: dist.all_to_all_single(a2a, src))
+    c = n // world
+    want = torch.cat([torch.arange(rank * c, (rank + 1) * c, device=dev,
+                                   dtype=torch.float32) + j * n
+                      for j in range(world)])
+    assert torch.equal(a2a, want), "all_to_all_single"
+    b = x.clone()
+    timed("broadcast", lambda: dist.broadcast(b.copy_(x), 0))
+    assert bool((b == 1).all()), "broadcast"
+    return times
+
+
+def first_batch(cfg, batch: int, seq: int) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    return SyntheticSource(DataConfig(cfg.vocab_size, seq, batch)).batch(0)
+
+
+def single_rank_rank(rank: int, world: int, batch: int, seq: int) -> dict:
+    """Step 2: world size 1 under NCCL.  Full-width tinyllama's first-step
+    loss and grads with no mesh, then through make_context on a (1, 1)
+    mesh, sharded_param_specs and make_train_step(ctx=)."""
+    import torch
+    from repro_torch.bridge import place_params
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import sharded_param_specs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.parallel.sharding import distribute_local, make_context
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
+                                             global_norm)
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.train.tree import flatten
+    dev = dist_rank_device()
+    cfg = get_config("tinyllama-1.1b")
+    data = first_batch(cfg, batch, seq)
+    params = init_lm(cfg, 0, device=dev)
+    toks, labels = (torch.as_tensor(data[n]).to(dev, torch.long)
+                    for n in ("tokens", "labels"))
+    loss0, g0 = loss_and_grads(cfg, params, toks, labels)
+    gnorm0 = global_norm(g0).item()
+    g0 = dict(flatten(g0))
+    mesh = make_smoke_mesh((1, 1), device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig(remat="none",
+                                            sequence_parallel=False))
+    shard = sharded_param_specs(params, cfg, ctx.mesh)
+    dparams = place_params(params, cfg, ctx.mesh)
+    del params
+    rows = ctx.placements("dp", None)
+    fa.launches = 0
+    loss1, g1 = loss_and_grads(cfg, dparams, distribute_local(
+        toks, ctx.dmesh, rows), distribute_local(labels, ctx.dmesh, rows),
+        ctx=ctx)
+    launches = fa.launches
+    loss_err = abs(loss1.full_tensor().item() - loss0.item())
+    grad_err, exact = 0.0, loss1.full_tensor().item() == loss0.item()
+    for path, g in flatten(g1):
+        local = g.full_tensor()
+        grad_err = max(grad_err, (local.float() - g0[path].float()).abs()
+                       .max().item())
+        exact = exact and torch.equal(local, g0[path])
+    del g1, g0
+    torch.cuda.empty_cache()
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, opt_cfg, ctx=ctx, grad_shardings=shard)
+    fa.launches = 0
+    _, _, _, m = step(dparams, adamw_init(dparams, opt_cfg), None, data)
+    return {"loss": loss0.item(), "grad_norm": gnorm0,
+            "step_loss": m["loss"].item(), "step_grad_norm":
+            m["grad_norm"].item(), "loss_err": loss_err,
+            "grad_err": grad_err, "bit_exact": bool(exact),
+            "launches": launches, "step_launches": fa.launches,
+            "last_shape": fa.last_shape,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def fsdp_tp_rank(rank: int, world: int, order, batch: int, seq: int,
+                 warmup: int, timed: int) -> dict:
+    """Step 3: FSDP + TP on (data 2, model 2), the rank order of a vclos
+    grant.  Full-width tinyllama, float32 masters drawn into their shards,
+    bf16 compute, AdamW float32, remat none; warm-up and timed steps, then
+    one step under torch.profiler on rank 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_sharded
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import sharded_param_specs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import abstract_params, make_context
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    dist_rank_device()
+    cfg = get_config("tinyllama-1.1b")
+    mesh = make_smoke_mesh((2, 2), ranks=order, device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig(remat="none",
+                                            sequence_parallel=False))
+    t0 = time.perf_counter()
+    params = init_sharded(cfg, ctx.mesh, seed=0)
+    init_s = time.perf_counter() - t0
+    shard = sharded_param_specs(abstract_params(cfg), cfg, ctx.mesh)
+    steps = warmup + timed
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=steps + 1,
+                              total_steps=steps + 1)
+    step = make_train_step(cfg, opt_cfg, ctx=ctx, grad_shardings=shard)
+    state = (params, adamw_init(params, opt_cfg), None)
+    source = SyntheticSource(DataConfig(cfg.vocab_size, seq, batch))
+    losses, norms, times, launches = [], [], [], []
+    for i in range(steps):
+        data = source.batch(i)
+        fa.launches = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = step(*state, data)
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        launches.append(fa.launches)
+    shape = fa.last_shape
+    data = source.batch(steps)
+    if rank == 0:
+        wall, rows = device_profile("4h fsdp+tp step (rank 0)",
+                                    lambda: step(*state, data),
+                                    kinds=DIST_KINDS)
+    else:
+        wall, rows = None, None
+        step(*state, data)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "launches": launches, "last_shape": shape, "init_s": init_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": bool(np.all(np.isfinite(losses))),
+            "profile": None if rows is None else profile_split(wall, rows)}
+
+
+def ep_rank(rank: int, world: int, layers: int, batch: int, seq: int,
+            factor: float) -> dict:
+    """Step 4: deepseek-moe-16b at full width on (1, 2): EP 2 over "a",
+    bf16-held weights drawn into their shards by one rank at a time; one
+    prefill forward's last-position logits in float32 compute and in bf16,
+    the sequence-sharded dispatch through moe_apply_a2a."""
+    import dataclasses
+
+    import torch
+    from repro_torch.bridge import init_sharded
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import distribute_local, make_context
+    dev = dist_rank_device()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=layers, moe_capacity_factor=factor)
+    mesh = make_smoke_mesh((1, 2), device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig(remat="none",
+                                            sequence_parallel=False))
+    t0 = time.perf_counter()
+    params = init_sharded(cfg, ctx.mesh, seed=0, dtype=torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    toks = distribute_local(ep_prompts(cfg, batch, seq, dev), ctx.dmesh,
+                            ctx.placements("dp", None))
+    out = {"init_s": init_s, "init_peak_gb": init_peak,
+           "ep_axis": ctx.ep_axis, "view": tuple(ctx.mesh.mesh.shape)}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        fa.launches = moe.a2a_calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = ep_last_logits(params, c, toks, ctx)
+        torch.cuda.synchronize()
+        out[dtype] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "last": last.float().cpu().numpy(),
+                      "launches": fa.launches, "a2a": moe.a2a_calls,
+                      "last_shape": fa.last_shape,
+                      "variant": fa.last_variant}
+    c = dataclasses.replace(cfg, dtype="bfloat16")
+    if rank == 0:
+        wall, rows = device_profile(
+            "4h ep prefill bf16 (rank 0)",
+            lambda: ep_last_logits(params, c, toks, ctx), kinds=DIST_KINDS)
+        out["profile"] = profile_split(wall, rows)
+    else:
+        ep_last_logits(params, c, toks, ctx)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def ep_prompts(cfg, batch: int, seq: int, dev):
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (batch, seq),
+                         generator=gen).to(dev)
+
+
+def ep_last_logits(params, cfg, tokens, ctx):
+    """Last-position logits (B, V) of a prefill, as ``prefill`` takes them:
+    the final hidden states' last row through the LM head."""
+    import torch
+    from repro_torch.models.context import NULL_CTX
+    from repro_torch.models.transformer import (hidden_states,
+                                                logits_from_hidden)
+    with torch.no_grad(), ctx.scope():
+        x, _ = hidden_states(params, cfg, tokens, ctx=ctx)
+        logits = logits_from_hidden(params, cfg, x[:, -1:], ctx)
+    if ctx is NULL_CTX:
+        return logits[:, 0]
+    return logits.full_tensor()[:, 0]
+
+
+def profile_split(wall_ms: float, rows) -> dict:
+    busy = sum(r[0] for r in rows)
+    split = dict.fromkeys([*DIST_KINDS, "other"], 0.0)
+    for ms, _, key in rows:
+        split[next((kind for kind, marks in DIST_KINDS.items()
+                    if any(m in key for m in marks)), "other")] += ms
+    return {"wall_ms": wall_ms, "kernel_ms": busy,
+            "idle": 1 - busy / wall_ms if busy else float("nan"),
+            "by_kind": split}
+
+
+def distributed_phase(smi: str) -> dict:
+    """Phase 4h: (1) the collective probe, (2) world size 1 under NCCL,
+    (3) FSDP + TP on (2, 2), (4) expert parallelism on (1, 2).  Ranks are
+    spawned on cuda:0 and joined with a deadline; a rank's failure, a hang
+    or a missed gate exits non-zero."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import core
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import vclos_device_order
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.testing import run_ranks
+    torch.cuda.empty_cache()
+    work = dist_workdir()
+    out = {}
+    label = "gloo, host-staged, one card"
+
+    # (1) the collective probe: 4 ranks, gloo, CUDA tensors, 64 MB
+    t0 = time.perf_counter()
+    probe = run_ranks(probe_rank, DIST_WORLD, (PROBE_BYTES,), workdir=work,
+                      timeout=300)
+    ms = {k: max(r[k] for r in probe) for k in probe[0]}
+    log(f"4h probe: {DIST_WORLD} ranks, gloo on CUDA tensors of "
+        f"{PROBE_BYTES >> 20} MB, each checked against its plain "
+        f"expectation: " + ", ".join(f"{k} ok {v:.1f} ms" for k, v in
+                                    ms.items())
+        + f" (slowest rank; {label}); {time.perf_counter() - t0:.1f} s")
+    out["probe_ms"] = ms
+
+    # (2) world size 1 under NCCL: the mesh path against no mesh
+    t0 = time.perf_counter()
+    one = run_ranks(single_rank_rank, 1, (TRAIN_BATCH, TRAIN_SEQ),
+                    workdir=work, timeout=600, backend="nccl")[0]
+    cfg = get_config("tinyllama-1.1b")
+    log(f"4h world 1 (nccl, (1, 1) mesh), full-width {cfg.name} at "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, first step's params and batch: loss "
+        f"{one['loss']:.6f}, |loss - no mesh| {one['loss_err']:.3e}, max "
+        f"|grad - no mesh| {one['grad_err']:.3e}, bit-exact "
+        f"{one['bit_exact']}; attention launches {one['launches']} (last "
+        f"shape {one['last_shape']}); make_train_step(ctx=) loss "
+        f"{one['step_loss']:.6f} grad norm {one['step_grad_norm']:.6f} (no "
+        f"mesh {one['grad_norm']:.6f}), {one['step_launches']} launches; "
+        f"peak {one['peak_gb']:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    if one["loss_err"] > 1e-6 or one["grad_err"] > 1e-6:
+        fail(f"4h world 1: the (1, 1) mesh's loss / grads differ from no "
+             f"mesh by {one['loss_err']:.3e} / {one['grad_err']:.3e} "
+             f"(tol 1e-6)")
+    if one["launches"] != cfg.num_layers or \
+            one["step_launches"] != cfg.num_layers:
+        fail(f"4h world 1: {one['launches']} / {one['step_launches']} "
+             f"attention launches, expected {cfg.num_layers}")
+    if abs(one["step_loss"] - one["loss"]) > 1e-6:
+        fail(f"4h world 1: train step loss {one['step_loss']} vs "
+             f"{one['loss']}")
+    out["world1"] = {k: one[k] for k in ("loss", "loss_err", "grad_err",
+                                         "bit_exact", "launches")}
+
+    # (3) FSDP + TP on (data 2, model 2), ranks in a vclos grant's order
+    grant = core.IsolatedScheduler(core.CLUSTER512).submit(0, DIST_WORLD)
+    order = vclos_device_order(grant, core.CLUSTER512,
+                               devices=list(range(DIST_WORLD)))
+    t0 = time.perf_counter()
+    ranks = run_ranks(fsdp_tp_rank, DIST_WORLD,
+                      (order, TRAIN_BATCH, TRAIN_SEQ, DIST_WARMUP,
+                       DIST_TIMED), workdir=work, timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    steps = DIST_WARMUP + DIST_TIMED
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
+    step_ms = 1e3 * sum(step_s[DIST_WARMUP:]) / DIST_TIMED
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peaks = [r["peak_gb"] for r in ranks]
+    log(f"4h fsdp+tp (data 2, model 2), rank order {order} from a "
+        f"{DIST_WORLD}-GPU vclos grant on CLUSTER512 (placement "
+        f"{grant.placement.gpus}), full-width {cfg.name}, float32 masters "
+        f"drawn into their shards ({r0['init_s']:.1f} s), bf16 compute, "
+        f"AdamW float32, remat none, {TRAIN_BATCH} x {TRAIN_SEQ}: step ms "
+        + ", ".join(f"{s * 1e3:.1f}" for s in step_s)
+        + f" ({DIST_WARMUP} warm-up); timed {step_ms:.1f} ms/step, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s ({label}); losses "
+        f"{['%.5f' % x for x in r0['losses']]}, grad norms "
+        f"{['%.5f' % x for x in r0['grad_norms']]}; attention launches a "
+        f"step by rank {[r['launches'] for r in ranks]}, last shape "
+        f"{r0['last_shape']}; peak GiB by rank "
+        f"{['%.2f' % p for p in peaks]}, sum {sum(peaks):.2f}; {smi}; "
+        f"{wall:.1f} s")
+    loss_gap = abs(r0["losses"][0] - one["loss"])
+    norm_gap = abs(r0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
+    log(f"4h fsdp+tp first step vs the single rank: loss "
+        f"{r0['losses'][0]:.6f} vs {one['loss']:.6f} (|gap| "
+        f"{loss_gap:.3e}, tol 1e-2), grad norm {r0['grad_norms'][0]:.6f} vs "
+        f"{one['grad_norm']:.6f} (relative {norm_gap:.3e}, tol 1e-2)")
+    if loss_gap > 1e-2 or norm_gap > 1e-2:
+        fail("4h fsdp+tp: the first step misses the single rank's loss or "
+             "grad norm")
+    if not all(r["finite"] for r in ranks):
+        fail("4h fsdp+tp: a loss is not finite")
+    if any(n != cfg.num_layers for r in ranks for n in r["launches"]):
+        fail(f"4h fsdp+tp: attention launches a step "
+             f"{[r['launches'] for r in ranks]}, expected {cfg.num_layers}")
+    local = (TRAIN_BATCH // 2, TRAIN_SEQ, cfg.num_heads // 2,
+             cfg.num_kv_heads // 2, cfg.head_dim_)
+    if any(tuple(r["last_shape"]) != local for r in ranks):
+        fail(f"4h fsdp+tp: kernels ran at {[r['last_shape'] for r in ranks]}"
+             f", not the local {local}")
+    prof = r0["profile"]
+    log(f"4h fsdp+tp profiled step (rank 0): wall {prof['wall_ms']:.1f} ms, "
+        f"kernels {prof['kernel_ms']:.1f} ms, idle {prof['idle']:.3f}; "
+        f"device ms by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in prof["by_kind"].items() if v))
+    out["fsdp_tp"] = {"order": order, "step_ms": step_ms,
+                      "tokens_per_s": tokens / step_ms * 1e3,
+                      "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+                      "launches_per_step": r0["launches"][0],
+                      "local_shape": list(local), "peak_gb": peaks,
+                      "profile": prof}
+    del ranks
+
+    # (4) expert parallelism on (1, 2): the single-rank forward first
+    mcfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                               num_layers=EP_LAYERS,
+                               moe_capacity_factor=EP_FACTOR)
+    dev = torch.device("cuda")
+    params = init_lm(mcfg, 0, device=dev, dtype=torch.bfloat16)
+    prompts = ep_prompts(mcfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    from repro_torch.models.context import NULL_CTX
+    single = {dt: ep_last_logits(params, dataclasses.replace(mcfg, dtype=dt),
+                                 prompts, NULL_CTX).float().cpu().numpy()
+              for dt in ("float32", "bfloat16")}
+    del params, prompts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_rank, 2, (EP_LAYERS, TRAIN_BATCH, TRAIN_SEQ,
+                                   EP_FACTOR), workdir=work, timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    errs = {dt: float(np.abs(r0[dt]["last"] - single[dt]).max())
+            for dt in ("float32", "bfloat16")}
+    moe_layers = mcfg.num_layers - mcfg.moe_first_dense
+    log(f"4h ep (data 1, model 2 = EP 2 over \"a\"), {mcfg.name} at full "
+        f"width, {mcfg.num_layers} of 28 layers (1 dense + {moe_layers} "
+        f"MoE), bf16-held weights drawn into their shards one rank at a "
+        f"time ({r0['init_s']:.1f} s, rank 0 peak "
+        f"{r0['init_peak_gb']:.2f} GiB), prefill {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} at capacity factor {EP_FACTOR:g}: float32 compute "
+        f"{r0['float32']['ms']:.1f} ms, last-position logits vs the single "
+        f"rank max |diff| {errs['float32']:.3e} (tol 1e-2); bf16 "
+        f"{r0['bfloat16']['ms']:.1f} ms, max |diff| {errs['bfloat16']:.3e} "
+        f"(recorded); attention launches by rank "
+        f"{[r['float32']['launches'] for r in ranks]} (last shape "
+        f"{r0['bfloat16']['last_shape']}, {r0['bfloat16']['variant']}), "
+        f"all_to_all_single calls by rank "
+        f"{[r['float32']['a2a'] for r in ranks]}; peak GiB by rank "
+        f"{['%.2f' % r['peak_gb'] for r in ranks]} ({label}); {smi}; "
+        f"{wall:.1f} s")
+    if errs["float32"] > 1e-2:
+        fail(f"4h ep: float32 logits {errs['float32']:.3e} from the single "
+             f"rank's (tol 1e-2)")
+    for r in ranks:
+        for dt in ("float32", "bfloat16"):
+            if r[dt]["launches"] != mcfg.num_layers:
+                fail(f"4h ep: {r[dt]['launches']} attention launches in a "
+                     f"{dt} prefill, expected {mcfg.num_layers}")
+            if r[dt]["a2a"] != 2 * moe_layers:
+                fail(f"4h ep: {r[dt]['a2a']} all_to_all_single calls, "
+                     f"expected 2 per MoE layer ({2 * moe_layers})")
+    prof = r0["profile"]
+    log(f"4h ep profiled bf16 prefill (rank 0): wall {prof['wall_ms']:.1f} "
+        f"ms, kernels {prof['kernel_ms']:.1f} ms, idle {prof['idle']:.3f}; "
+        f"device ms by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in prof["by_kind"].items() if v))
+    out["ep"] = {"layers": mcfg.num_layers, "factor": EP_FACTOR,
+                 "ms": {dt: r0[dt]["ms"] for dt in ("float32", "bfloat16")},
+                 "max_abs_err": errs, "launches": r0["float32"]["launches"],
+                 "a2a_calls": r0["float32"]["a2a"],
+                 "local_shape": list(r0["bfloat16"]["last_shape"]),
+                 "peak_gb": [r["peak_gb"] for r in ranks], "profile": prof}
+    return out
+
+
 def grid_lanes():
     """The 72 lanes of the fabric-heavy grid, with fresh jobs (run_lanes
     mutates them)."""
@@ -3097,6 +3615,11 @@ def main() -> None:
     vlm_launches = serve_phase(dev, "phi-3-vision-4.2b",
                                {"flash_attention": 32}, variant="mma_sync")
 
+    # 4h. distributed: ranks sharing the card -----------------------------
+    t0 = time.perf_counter()
+    dist = distributed_phase(smi)
+    log(f"phase 4h took {time.perf_counter() - t0:.1f} s")
+
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
     golden_launches = simulate_golden()
@@ -3273,6 +3796,19 @@ def main() -> None:
             "arch": "phi-3-vision-4.2b",
             "launches": vlm_launches["flash_attention"], **phi3_row},
         "nemotron_head_shape": {"arch": "nemotron-4-340b", **nemotron_row},
+        "distributed_path": {
+            "note": "per rank, ranks sharing one card (gloo, host-staged)",
+            "fsdp_tp_tinyllama": {
+                "mesh": "(data 2, model 2)",
+                "launches_per_rank_per_step":
+                    dist["fsdp_tp"]["launches_per_step"],
+                "local_shape": dist["fsdp_tp"]["local_shape"]},
+            "ep_deepseek": {
+                "mesh": "(data 1, model 2), EP 2",
+                "layers": dist["ep"]["layers"],
+                "launches_per_rank": dist["ep"]["launches"],
+                "local_shape": dist["ep"]["local_shape"]},
+            "world1_nccl_launches": dist["world1"]["launches"]},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",

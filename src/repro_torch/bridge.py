@@ -22,6 +22,13 @@ port's ``train.optimizer.AdamWState`` and back, so both packages take one
 update from the same state.  The error-feedback state is a float32 tree
 like the params and crosses with ``params_from_numpy`` /
 ``params_to_numpy``.
+
+Under a mesh, ``place_params`` lays a bridged (or port-initialised) tree
+out by ``launch.dryrun.sharded_param_specs``, leaf by leaf: each rank keeps
+its shard of one leaf before it takes the next.  ``init_sharded`` draws
+``init_lm``'s tree straight into the shards: one rank at a time draws each
+matrix on the card, keeps its shard and frees the rest before the next is
+drawn, so that no two full matrices are alive at once on a shared card.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import is_dtensor, resolve_device
 from .train.optimizer import AdamWState
+from .train.tree import flatten, get_path, tree_map_with_path
 
 
 def _from_numpy(x, dev, dtype=None):
@@ -82,3 +90,60 @@ def opt_state_to_numpy(state: AdamWState) -> AdamWState:
     """The port's ``AdamWState`` -> numpy leaves in the same tree (bf16
     leaves come back as float32, which holds them exactly)."""
     return AdamWState(*(_to_numpy(x) for x in state))
+
+
+# ---------------------------------------------------------------------------
+# trees on a mesh
+# ---------------------------------------------------------------------------
+
+def _place(leaf, sharding):
+    from .parallel.sharding import distribute_local
+    return distribute_local(leaf, sharding.device_mesh, sharding.placements)
+
+
+def place_params(params: Dict[str, Any], cfg, view) -> Dict[str, Any]:
+    """``params`` (the same full tree on every rank of ``view``) as DTensors
+    laid out by ``sharded_param_specs``, leaf by leaf."""
+    from .launch.dryrun import sharded_param_specs
+    shardings = sharded_param_specs(params, cfg, view)
+    return tree_map_with_path(
+        lambda path, leaf: _place(leaf, get_path(shardings, path)), params)
+
+
+def init_sharded(cfg, view, seed: int = 0, *,
+                 dtype=torch.float32) -> Dict[str, Any]:
+    """``init_lm(cfg, seed, dtype=dtype)``'s tree as DTensors laid out by
+    ``sharded_param_specs`` on ``view``, drawn on the mesh's device.  The
+    ranks take turns (a barrier of the default group between them): a
+    rank draws the matrices in order, keeping its shard of each as it is
+    drawn (``init_lm(place=)``), then frees its cache for the next rank.
+    The values equal ``place_params(init_lm(...))``'s."""
+    import torch.distributed as dist
+
+    from .launch.dryrun import sharded_param_specs
+    from .models.transformer import init_lm
+    order = []
+    abstract = init_lm(cfg, device="meta", dtype=dtype,
+                       place=lambda w: order.append(w) or w)
+    path_of = {id(leaf): path for path, leaf in flatten(abstract)}
+    paths = iter([path_of[id(w)] for w in order])
+    del order
+    shardings = sharded_param_specs(abstract, cfg, view)
+
+    def place(w):
+        return _place(w, get_path(shardings, next(paths)))
+
+    dev = resolve_device(view.device_type)
+    tree = None
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == turn:
+            tree = init_lm(cfg, seed, device=dev, dtype=dtype, place=place)
+            tree = tree_map_with_path(
+                lambda path, leaf: leaf if is_dtensor(leaf) else
+                _place(leaf, get_path(shardings, path)), tree)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+    dist.barrier()
+    return tree

@@ -9,7 +9,8 @@ the port's own copy of the reference's config, held field by field against
 it in ``tests/test_torch_model.py``.
 """
 
-from .base import ModelConfig, get_config, list_configs, reduced, register
+from .base import (SHAPES, ModelConfig, RunConfig, ShapeConfig,  # noqa: F401
+                   get_config, list_configs, reduced, register)
 from . import (deepseek_moe_16b, mixtral_8x22b,  # noqa: F401
                nemotron_4_340b, olmo_1b, phi_3_vision_4_2b,
                qwen1_5_32b, rwkv6_3b, tinyllama_1_1b, whisper_base,

@@ -1,15 +1,16 @@
 """Architecture configuration dataclass and the config registry.
 
-The port keeps its own copy of the reference's ``ModelConfig`` so that it
-imports nothing of the JAX package; ``tests/test_torch_model.py`` holds the
-two copies against each other field by field.
+The port keeps its own copy of the reference's ``ModelConfig``,
+``ShapeConfig`` / ``SHAPES`` and ``RunConfig`` so that it imports nothing of
+the JAX package; ``tests/test_torch_model.py`` holds the two copies against
+each other field by field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -109,6 +110,40 @@ class ModelConfig:
             total += self.num_layers * attn
         total += v * d * (1 if self.tie_embeddings else 2)
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    mode: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Training/serving execution knobs (parallelism, memory policy)."""
+
+    microbatch: int = 0              # 0 = no gradient accumulation
+    remat: str = "full"              # full | none | dots
+    sequence_parallel: bool = True
+    zero_sharded_opt: bool = True    # shard optimizer state over dp axis
+    grad_compression: bool = False   # int8 + error feedback
+    ssm_chunk: int = 128             # linear-attention chunk
+    pipeline_stages: int = 1
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    logical_axis_overrides: Tuple[Tuple[str, str], ...] = ()
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -17,3 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
             "repro_torch: CUDA was requested but torch sees no CUDA device; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """A DTensor: a shard of a tensor laid out over a ``DeviceMesh``."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -34,6 +34,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
 last_variant = None   # the variant of the last launch (VARIANTS)
+last_shape = None     # (B, Sq, Hq, Hkv, head_dim) of the last launch
 
 
 def check_window(window: Optional[int]) -> None:
@@ -164,7 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors; returns (B, Sq, Hq, hd)."""
-    global launches, last_variant
+    global launches, last_variant, last_shape
     build.refuse_grad("flash_attention", q, k, v)
     variant = _check(q, k, v, window)
     b, sq, hq, hd = q.shape
@@ -185,4 +186,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"cudaError_t {err}")
     launches += 1
     last_variant = variant
+    last_shape = (b, sq, hq, hkv, hd)
     return out

@@ -5,7 +5,11 @@ version.  There is no fallback: a CUDA input that the kernel refuses raises.
 Each model kernel sits inside an autograd ``Function`` whose backward
 recomputes through the reference's differentiable plain formulation, as the
 reference trains its Pallas forward (``repro/kernels/ops.py:41-72``): the
-JAX package has no backward kernel to port.  The kernels' own wrappers fill
+JAX package has no backward kernel to port.  Under a mesh the entry points
+take DTensors and run the Function on each rank's local, whole heads
+through ``local_map`` (the reference leaves the split to GSPMD, which may
+cut a head's columns; the kernels take whole heads); a DTensor never
+reaches a kernel.  The kernels' own wrappers fill
 their outputs through ``ctypes`` and refuse to run where autograd would need
 a graph (``build.refuse_grad``).
 """
@@ -16,13 +20,90 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import is_dtensor
 from .flash_attention import flash_attention, flash_attention_plain
 from .rwkv6 import rwkv6_fused, rwkv6_fused_plain
 
 
-def _check_device(name: str, x: torch.Tensor) -> None:
-    if not x.is_cuda and x.device.type != "cpu":
-        raise ValueError(f"{name}: no path for device {x.device}")
+def _check_device(name: str, *xs: Optional[torch.Tensor]) -> None:
+    for x in xs:
+        if x is None:
+            continue
+        if is_dtensor(x):
+            raise TypeError(
+                f"{name}: got a DTensor; a kernel takes local, whole-head "
+                f"tensors, and the entry point (kernels.ops) runs it on each "
+                f"rank's shard through local_map")
+        if not x.is_cuda and x.device.type != "cpu":
+            raise ValueError(f"{name}: no path for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# the kernel boundary under a mesh
+# ---------------------------------------------------------------------------
+
+def _head_layout(x, batch_dim: int, head_dim: int):
+    """Placements of ``x`` with every mesh dim that shards anything but the
+    batch or head dim replicated, and the rank's index along the heads'
+    split (mesh dims in order, major first) with that split's size."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    out, index, parts = [], 0, 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == batch_dim:
+            out.append(pl)
+        elif isinstance(pl, Shard) and pl.dim == head_dim:
+            out.append(pl)
+            index = index * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+        else:
+            out.append(Replicate())
+    return out, index, parts
+
+
+def _kv_layout(q_pl, kv_heads: int, parts: int, head_dim: int):
+    """K / V placements for q's: the same split of the heads where the KV
+    heads divide into it; else whole (replicated over the heads' split),
+    each rank then taking the KV heads its q heads read.  The grad of a
+    whole K / V is a partial sum over that split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if kv_heads % parts == 0:
+        return q_pl, q_pl, False
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == head_dim else p
+          for p in q_pl]
+    grad = [Partial() if isinstance(p, Shard) and p.dim == head_dim else p
+            for p in q_pl]
+    return pl, grad, True
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes its grad contiguous: a local
+    shard's grad leaves ``local_map`` for DTensor view ops, which need
+    contiguous local tensors."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_ins(*xs):
+    return [None if x is None else _ContiguousGrad.apply(x) for x in xs]
+
+
+def _kv_for_rank(k, v, hq_local: int, index: int, group: int):
+    """The KV heads that q heads [index·hq_local, (index+1)·hq_local) read
+    (kv-major GQA: q head h reads kv head h // group)."""
+    lo = index * hq_local // group
+    hi = ((index + 1) * hq_local - 1) // group + 1
+    if hq_local % group and group % hq_local:
+        raise ValueError(f"attention: {hq_local} local q heads read KV heads "
+                         f"{lo}..{hi - 1} unevenly (GQA group {group})")
+    return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -53,9 +134,45 @@ class _FlashAttention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
-    """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
-    _check_device("attention", q)
+    """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
+
+    DTensors (under a mesh) run the kernel on each rank's local heads
+    (:func:`_sharded_attention`)."""
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal, window)
+    _check_device("attention", q, k, v)
     return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _sharded_attention(q, k, v, causal: bool, window: Optional[int]):
+    """Attention on DTensors: q is laid out with its batch and heads split
+    and everything else whole; each rank's kernel runs on its local batch
+    rows and q heads through ``local_map`` around :class:`_FlashAttention`
+    (so the backward recomputes on the local heads, as on one device).
+    K / V take q's split of the heads where their heads divide into it;
+    otherwise they are made whole and each rank slices the KV heads its q
+    heads read."""
+    from torch.distributed.tensor.experimental import local_map
+    q_pl, index, parts = _head_layout(q, 0, 2)
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % parts:
+        raise ValueError(f"attention: {hq} q heads do not split {parts} ways")
+    kv_pl, kv_grad, whole = _kv_layout(q_pl, hkv, parts, 2)
+    mesh = q.device_mesh
+    q = q.redistribute(mesh, q_pl)
+    k, v = (t.redistribute(mesh, kv_pl) for t in (k, v))
+
+    def local(ql, kl, vl):
+        ql, kl, vl = _local_ins(ql, kl, vl)
+        if whole:
+            kl, vl = _kv_for_rank(kl, vl, ql.shape[2], index, hq // hkv)
+        _check_device("attention", ql, kl, vl)
+        return _FlashAttention.apply(ql, kl, vl, causal, window)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -106,11 +223,42 @@ def rwkv6_mix_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card the fused kernel reads the model's tensors as they are and
     does the decay precompute and the bonus diagonal itself; on the CPU the
     plain version computes them as the reference does (``ops.py:97-123``)."""
-    _check_device("rwkv6_mix", q)
+    if not is_dtensor(q):
+        _check_device("rwkv6_mix", q, k, v, log_decay, bonus, initial_state)
     if q.shape[2] % chunk:
         raise ValueError(f"rwkv6_mix: T={q.shape[2]} must be a multiple of "
                          f"chunk={chunk}")
+    if is_dtensor(q):
+        return _sharded_rwkv6_mix(q, k, v, log_decay, bonus, initial_state,
+                                  chunk)
     return _Rwkv6Mix.apply(q, k, v, log_decay, bonus, initial_state, chunk)
+
+
+def _sharded_rwkv6_mix(q, k, v, log_decay, bonus, initial_state,
+                       chunk: int):
+    """The recurrence on DTensors: each rank runs it on its local batch rows
+    and heads through ``local_map`` around :class:`_Rwkv6Mix`, as
+    :func:`_sharded_attention` does for attention.  Every (B, H, ...)
+    operand takes q's layout; the bonus (H, K) its split of the heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl, _, _ = _head_layout(q, 0, 1)
+    bonus_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1
+                else Replicate() for p in pl]
+    mesh = q.device_mesh
+    ops = [q, k, v, log_decay, bonus, initial_state]
+    layouts = [pl, pl, pl, pl, bonus_pl, pl]
+    ins = [None if t is None else t.redistribute(mesh, lay)
+           for t, lay in zip(ops, layouts)]
+
+    def local(*xs):
+        xs = _local_ins(*xs)
+        _check_device("rwkv6_mix", *xs)
+        return _Rwkv6Mix.apply(*xs, chunk)
+
+    lays = tuple(None if t is None else lay for t, lay in zip(ops, layouts))
+    return local_map(local, out_placements=(pl, pl), in_placements=lays,
+                     in_grad_placements=lays, device_mesh=mesh)(*ins)
 
 
 def rwkv6_mix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

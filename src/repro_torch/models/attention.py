@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..device import is_dtensor
 from ..kernels import ops
 from .common import Params, apply_rope, dense_init
 
@@ -57,7 +58,27 @@ def _project(params: Params, x: torch.Tensor, name: str, heads: int,
     y = x @ params["w" + name].to(x.dtype)
     if "b" + name in params:
         y = y + params["b" + name].to(x.dtype)
-    return y.reshape(b, s, heads, head_dim)
+    return _whole_heads(y, heads).reshape(b, s, heads, head_dim)
+
+
+def _whole_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """Under a mesh, a projection's columns (B, S, heads·hd) split so that
+    every rank holds whole heads: where ``heads`` does not divide into the
+    columns' split (the reference's sanitized spec may cut a head, e.g. 2
+    KV heads on 4-way TP), the columns are gathered."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, last = y.device_mesh, y.ndim - 1
+    parts = 1
+    for i, p in enumerate(y.placements):
+        if isinstance(p, Shard) and p.dim == last:
+            parts *= mesh.size(i)
+    if heads % parts == 0:
+        return y
+    return y.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                 and p.dim == last else p
+                                 for p in y.placements])
 
 
 def qkv_project(params: Params, x: torch.Tensor, num_heads: int,

@@ -29,14 +29,22 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, lead=(),
     the float32 one, and the transient is one float32 copy."""
     w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return w.div_(math.sqrt(d_in)).to(dtype)
+    return drawn(gen, w.div_(math.sqrt(d_in)).to(dtype))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return drawn(gen, (w * 0.02).to(dtype))
+
+
+def drawn(gen: torch.Generator, w: torch.Tensor) -> torch.Tensor:
+    """A freshly drawn matrix, handed to the generator's ``place`` hook
+    where it has one (``transformer.init_lm(place=)``: the hook keeps a
+    rank's shard, so the full matrix is freed as soon as it is drawn)."""
+    place = getattr(gen, "place", None)
+    return w if place is None else place(w)
 
 
 # ---------------------------------------------------------------------------

@@ -28,15 +28,19 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
 from .attention import attention_block, attn_init, kv_project
 from .common import (Params, compute_dtype, dense_init, embed_init,
                      norm_apply, norm_init, sinusoidal_positions)
-from .context import NULL_CTX, ModelContext
+from ..parallel.sharding import axis_sizes
+from ..train.tree import get_path
+from .context import NULL_CTX, ModelContext, check_mesh
 from .mlp import mlp_apply, mlp_init
-from .moe import moe_apply_dense, moe_init
+from .moe import _SumOver, moe_apply_a2a, moe_apply_dense, moe_init
 from .ssm import (mamba2_apply, mamba2_init, rwkv6_channel_mix,
                   rwkv6_channel_mix_init, rwkv6_init, rwkv6_time_mix)
 
@@ -95,16 +99,38 @@ def _block_init(gen: torch.Generator, cfg, lead: tuple, *, moe: bool, dtype,
     return p
 
 
+class _Generator(torch.Generator):
+    """``init_lm``'s generator: may carry a ``place`` hook (``common.
+    drawn``)."""
+
+    place = None
+
+
+class _MetaGenerator(_Generator):
+    """A generator whose draws land on the ``meta`` device: shapes and
+    dtypes only (``parallel.sharding.abstract_params``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_lm(cfg, seed: int = 0, *, device="cuda",
-            dtype=torch.float32) -> Params:
+            dtype=torch.float32, place=None) -> Params:
     """Random parameters from ``seed`` (a ``torch.Generator`` on ``device``);
     the reference's layout and initializer scales, not its random numbers.
     ``dtype`` is the matrices' (norms and the MoE router stay float32); each
     is drawn in float32 and cast, so a bf16 tree is the bf16 cast of the
-    float32 tree from the same seed."""
+    float32 tree from the same seed.  ``device="meta"`` gives the tree's
+    shapes and dtypes without allocating.  ``place``, when given, takes
+    each random matrix as soon as it is drawn, in draw order, and returns
+    what the tree keeps in its place (``bridge.init_sharded``: the rank's
+    shard)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else _Generator(device=dev).manual_seed(seed))
+    gen.place = place
     d, L = cfg.d_model, (cfg.num_layers,)
     p: Params = {"embed": embed_init(gen, cfg.vocab_size, d, dtype),
                  "ln_f": norm_init(cfg.norm, d, device=dev)}
@@ -197,8 +223,11 @@ def _attention_half(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
     """The residual after attention, and its norm (the FFN's input)."""
     h = norm_apply(cfg.norm, lp["ln1"], x)
     h = ctx.shard(h, "dp", None, None)
-    x = x + attention_block(lp["attn"], h, cfg, positions, kv_sink,
-                            causal=causal)
+    # each sub-block's output is laid out as the residual before the add
+    # (Megatron-SP's reduce-scatter point), so its grad comes back whole
+    a = attention_block(lp["attn"], h, cfg, positions, kv_sink,
+                        causal=causal)
+    x = x + ctx.shard(a, "dp", "sp", None)
     x = ctx.shard(x, "dp", "sp", None)
     h = norm_apply(cfg.norm, lp["ln2"], x)
     return x, ctx.shard(h, "dp", None, None)
@@ -208,7 +237,8 @@ def _dense_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
                  positions: Optional[torch.Tensor], kv_sink=None,
                  causal: bool = True) -> torch.Tensor:
     x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink, causal)
-    return ctx.shard(x + mlp_apply(lp["mlp"], h, cfg.act), "dp", "sp", None)
+    y = ctx.shard(mlp_apply(lp["mlp"], h, cfg.act), "dp", "sp", None)
+    return ctx.shard(x + y, "dp", "sp", None)
 
 
 def _decoder_block(lp: Params, xl: Params, x: torch.Tensor, cfg,
@@ -227,11 +257,61 @@ def _decoder_block(lp: Params, xl: Params, x: torch.Tensor, cfg,
 def _moe_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
                positions: torch.Tensor, kv_sink=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``_moe_block`` on one device (``moe_apply_dense``);
-    returns (x, this layer's aux)."""
+    """The reference's ``_moe_block``: returns (x, this layer's aux).  Under
+    a mesh with an EP axis that divides the sequence, expert parallelism
+    with a sequence-sharded dispatch (``_moe_a2a``); otherwise
+    ``moe_apply_dense``."""
     x, h = _attention_half(lp, x, cfg, ctx, positions, kv_sink)
-    y, aux = moe_apply_dense(lp["moe"], h, cfg)
-    return ctx.shard(x + y, "dp", "sp", None), aux
+    if (ctx.mesh is not None and ctx.ep_axis is not None
+            and h.shape[1] % axis_sizes(ctx.mesh)[ctx.ep_axis] == 0):
+        y, aux = _moe_a2a(lp["moe"], h, cfg, ctx)
+    else:
+        y, aux = moe_apply_dense(lp["moe"], h, cfg)
+    return ctx.shard(x + ctx.shard(y, "dp", "sp", None), "dp", "sp",
+                     None), aux
+
+
+def _moe_a2a(mp: Params, h: torch.Tensor, cfg, ctx: ModelContext
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with a SEQUENCE-sharded dispatch (the reference's
+    ``transformer.py:178-206``): each EP peer routes its own 1/ep slice of
+    the tokens, so the AlltoAll moves only real work.  ``moe_apply_a2a``
+    runs per rank inside ``local_map``: tokens (dp, ep, None), experts E
+    over the EP axis and F over the expert-TP axis, the router and the
+    shared experts' other dims whole.  A weight whole on a mesh dim that
+    splits the tokens gets a partial grad there, and the aux loss is the
+    mean over those dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.sharding import P, spec_placements
+    ep, tp, mesh = ctx.ep_axis, ctx.ep_tp_axis, ctx.mesh
+    dmesh = ctx.dmesh
+    specs = {"router": P(None, None), "w_up": P(ep, None, tp),
+             "w_gate": P(ep, None, tp), "w_down": P(ep, tp, None)}
+    if "shared" in mp:
+        specs.update({"shared/w_up": P(None, tp), "shared/w_gate":
+                      P(None, tp), "shared/w_down": P(tp, None)})
+    names = list(specs)
+    x_pl = spec_placements(P(ctx.axes.get("dp"), ep, None), mesh)
+    ins = [spec_placements(specs[n], mesh) for n in names]
+    grads = [[Partial() if isinstance(p, Replicate) and isinstance(xp, Shard)
+              else p for p, xp in zip(pl, x_pl)] for pl in ins]
+    leaves = [get_path(mp, n).redistribute(dmesh, pl)
+              for n, pl in zip(names, ins)]
+
+    splits = [a for a, p in zip(dmesh.mesh_dim_names, x_pl)
+              if isinstance(p, Shard)]
+
+    def local(*args):
+        return moe_apply_a2a(_unflatten(dict(zip(names, args))), args[-1],
+                             cfg, mesh=dmesh, ep_axis=ep, tp_axis=tp,
+                             mean_axes=splits)
+
+    fn = local_map(local, out_placements=(x_pl, [Replicate()] * dmesh.ndim),
+                   in_placements=(*ins, x_pl),
+                   in_grad_placements=(*grads, x_pl), device_mesh=dmesh)
+    return fn(*leaves, h.redistribute(dmesh, x_pl))
 
 
 def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -333,8 +413,9 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     does.  Other frontends ignore ``patch_embeds``, as the reference's
     ``forward`` does."""
     check_ported(cfg)
+    check_mesh(cfg, ctx)
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(compute_dtype(cfg))
+    x = _embed(params["embed"], tokens, ctx).to(compute_dtype(cfg))
     if cfg.frontend == "patch" and patch_embeds is not None:
         x = merge_patches(params, x, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None]
@@ -373,6 +454,52 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     return norm_apply(cfg.norm, params["ln_f"], x), aux
 
 
+def _vocab_block(mesh, dims: Sequence[int]) -> int:
+    """This rank's block of a dim split over mesh ``dims`` (in the mesh's
+    order, as DTensor splits it: the first dim's chunks, then each cut by
+    the next)."""
+    coord, block = mesh.get_coordinate(), 0
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+    return block
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor,
+           ctx: ModelContext) -> torch.Tensor:
+    """The lookup of ``tokens`` (B, S) in ``table`` (V, D), in the table's
+    dtype.  Under a mesh the table keeps its vocab split (Megatron's
+    vocab-parallel embedding; an FSDP split of D is gathered): each rank
+    looks up the tokens that fall in its rows, zeros for the others, and
+    the parts add over the vocab's mesh dims, exactly, since one part of
+    each token is not zero.  Each row's grad stays on the rank holding
+    it."""
+    if ctx.mesh is None:
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.dmesh
+    t_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in table.placements]
+    dims = [i for i, p in enumerate(t_pl) if isinstance(p, Shard)]
+    rows = ctx.placements("dp", None)
+    grad = [Partial() if isinstance(p, Replicate) and isinstance(r, Shard)
+            else p for p, r in zip(t_pl, rows)]
+
+    def local(tbl, tok):
+        tok = tok - _vocab_block(mesh, dims) * tbl.shape[0]
+        mine = (tok >= 0) & (tok < tbl.shape[0])
+        out = F.embedding(torch.where(mine, tok, 0), tbl).masked_fill(
+            ~mine[..., None], 0)
+        for i in dims:
+            out = _SumOver.apply(out, mesh.get_group(i))
+        return out
+
+    fn = local_map(local, out_placements=ctx.placements("dp", None, None),
+                   in_placements=(t_pl, rows), in_grad_placements=(grad, rows),
+                   device_mesh=mesh)
+    return fn(table.redistribute(mesh, t_pl), tokens.redistribute(mesh, rows))
+
+
 def merge_patches(params: Params, x: torch.Tensor,
                   patch_embeds: torch.Tensor) -> torch.Tensor:
     """The vlm stub frontend (``transformer.py:228-232``): patch embeddings
@@ -391,6 +518,10 @@ def merge_patches(params: Params, x: torch.Tensor,
 
 def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
                        ctx: ModelContext = NULL_CTX) -> torch.Tensor:
+    # the sequence is gathered first (under sequence parallelism the final
+    # hidden states are split over it): the head's product then splits the
+    # vocab alone
+    x = ctx.shard(x, "dp", None, None)
     logits = x @ _lm_head(params, cfg).to(x.dtype)
     return ctx.shard(logits, "dp", None, "tp")
 
@@ -406,10 +537,11 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *,
 
     As in the reference, the aux loss is a float32 scalar, 0 for the dense
     ssm, hybrid, audio and vlm families (only MoE layers add to it)."""
-    x, aux = hidden_states(params, cfg, tokens, ctx=ctx,
-                           patch_embeds=patch_embeds,
-                           frame_embeds=frame_embeds)
-    return logits_from_hidden(params, cfg, x, ctx), aux
+    with ctx.scope():
+        x, aux = hidden_states(params, cfg, tokens, ctx=ctx,
+                               patch_embeds=patch_embeds,
+                               frame_embeds=frame_embeds)
+        return logits_from_hidden(params, cfg, x, ctx), aux
 
 
 def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
@@ -427,11 +559,84 @@ def lm_loss(params: Params, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     logits, aux = forward(params, cfg, tokens, ctx=ctx,
                           patch_embeds=patch_embeds,
                           frame_embeds=frame_embeds)
+    if ctx.mesh is None:
+        nll = _nll_sum(logits, labels) / labels.numel()
+    else:
+        nll = _sharded_nll(logits, labels, ctx)
+    with ctx.scope():
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross entropy, float32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = (logz - gold).mean()
-    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+    return (logz - gold).sum()
+
+
+def _sharded_nll(logits, labels, ctx: ModelContext):
+    """The mean cross entropy of DTensor logits (B, S, V) and labels (B, S),
+    vocab-parallel (Megatron's): the logits keep their vocab split over
+    the tp dims (as far as V divides, ``sanitize_spec``) and their rows
+    over dp; each rank sums its rows' losses from its own columns
+    (``_VocabNLL``), and the sums add over the data-parallel split (a
+    partial sum), scaled by the global token count."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.sharding import P, sanitize_spec, spec_placements
+    mesh, n = ctx.dmesh, labels.numel()
+    rows = ctx.placements("dp", None)
+    vocab = sanitize_spec(P(None, None, ctx.axes["tp"]), logits, ctx.mesh)
+    lg_pl = spec_placements(P(ctx.axes.get("dp"), None, vocab[2]), ctx.mesh)
+    dims = [i for i, p in enumerate(lg_pl)
+            if isinstance(p, Shard) and p.dim == 2]
+    out = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+
+    def local(lg, lb):
+        if not dims:        # the vocab is whole: the single device's sum
+            return _nll_sum(lg, lb) / n
+        lo = _vocab_block(mesh, dims) * lg.shape[-1]
+        return _VocabNLL.apply(lg.float(), lb, lo,
+                               [mesh.get_group(i) for i in dims]) / n
+
+    fn = local_map(local, out_placements=out, in_placements=(lg_pl, rows),
+                   device_mesh=mesh)
+    nll = fn(logits.redistribute(mesh, lg_pl),
+             labels.redistribute(mesh, rows))
+    return nll.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Summed cross entropy of local logits (B, S, V_local) float32 holding
+    the vocab's columns ``lo`` .. ``lo + V_local`` of ``groups``' ranks:
+    the max, the sum of exponentials and the gold logit are reduced over
+    the groups; the grad is softmax minus the one-hot of the label, on this
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, lo, groups):
+        m = lg.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(lg - m[..., None])
+        se = e.sum(dim=-1)
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < lg.shape[-1])
+        idx = torch.where(mine, local, 0)[..., None]
+        gold = lg.gather(-1, idx)[..., 0].masked_fill(~mine, 0)
+        for g in groups:
+            dist.all_reduce(se, group=g)
+            dist.all_reduce(gold, group=g)
+        ctx.save_for_backward(e.div_(se[..., None]), idx, mine)
+        return (m + torch.log(se) - gold).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        soft, idx, mine = ctx.saved_tensors
+        grad = soft.scatter_add(-1, idx, -mine[..., None].to(soft.dtype))
+        return grad * g, None, None, None
 
 
 # ---------------------------------------------------------------------------

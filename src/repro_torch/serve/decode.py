@@ -43,7 +43,7 @@ import torch
 from ..models.attention import (decode_attention, out_project, q_project,
                                 qkv_project)
 from ..models.common import apply_rope, compute_dtype, norm_apply
-from ..models.context import NULL_CTX, ModelContext
+from ..models.context import NULL_CTX, ModelContext, check_mesh
 from ..models.mlp import mlp_apply
 from ..models.moe import moe_apply_dense
 from ..models.ssm import mamba2_apply, rwkv6_channel_mix, rwkv6_time_mix
@@ -133,6 +133,7 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
     The tensors of ``state`` are updated in place and shared with the new
     state; ``cache_len`` advances by one."""
     check_ported(cfg)
+    check_mesh(cfg, ctx, "decode")
     x = params["embed"][token].to(compute_dtype(cfg))
     x = ctx.shard(x, "dp", None, None)
     pos = state["cache_len"]
@@ -177,6 +178,7 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
     ``params``) for the encoder and the cross K/V projections; then the
     pass over the prompt, each decoder layer cross-attending to its cached
     cross K/V."""
+    check_mesh(cfg, ctx, "prefill into a decode state")
     b, s = tokens.shape
     state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
                               device=tokens.device)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..data.pipeline import DataConfig, Prefetcher, SyntheticSource
+from ..device import is_dtensor
 from . import checkpoint as ckpt
 from .compression import ef_init
 from .optimizer import OptimizerConfig, adamw_init
@@ -51,15 +52,20 @@ class LoopReport:
 def run_training(cfg, train_step: Callable, params: Tree,
                  opt_cfg: OptimizerConfig, data_cfg: DataConfig,
                  loop_cfg: LoopConfig, grad_compression: bool = False,
+                 shardings=None,
                  log: Callable[[str], None] = print) -> LoopReport:
+    """``shardings`` (a tree of ``parallel.sharding.NamedSharding``) lays a
+    resumed checkpoint out on the current mesh (``checkpoint.restore``)."""
     report = LoopReport()
     opt_state = adamw_init(params, opt_cfg)
     ef_state = ef_init(params) if grad_compression else None
     start_step = 0
-    device = leaves(params)[0].device
+    first = leaves(params)[0]
+    device = first.to_local().device if is_dtensor(first) else first.device
 
     if loop_cfg.ckpt_dir:
-        resumed = ckpt.restore_latest(loop_cfg.ckpt_dir, params, opt_state)
+        resumed = ckpt.restore_latest(loop_cfg.ckpt_dir, params, opt_state,
+                                      shardings)
         if resumed is not None:
             start_step, params, opt_state, _meta = resumed
             report.resumed_from = start_step

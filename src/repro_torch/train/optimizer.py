@@ -7,6 +7,12 @@ axis, round half to even as ``jnp.round``); an int8 leaf is the pair
 (q int8, scale float32).  Decoupled weight decay applies to leaves of
 ``ndim >= 2`` only (not norms or biases).  Functional, as the reference:
 ``adamw_update`` returns new params and state and changes none.
+
+On DTensor leaves (under a mesh) the state takes each param's layout,
+each leaf's update runs on its local shards (``local_map``) and the
+global norm adds the ranks' sums of squares.  The int8 state, whose blocks run along a leaf's last
+axis, is not laid out over a mesh yet (ROADMAP.md queue 1): it raises
+there.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from .tree import Tree, flatten, leaves, tree_map, unflatten
 
 
@@ -73,6 +81,10 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
 
 def _store(x: torch.Tensor, dtype: str):
     if dtype == "int8" and x.dim() >= 1 and x.numel() >= _BLOCK:
+        if is_dtensor(x):
+            raise NotImplementedError(
+                "AdamW state_dtype int8 under a mesh is not ported yet "
+                "(ROADMAP.md queue 1); use float32 or bfloat16 state")
         return _q8(x)
     if dtype == "bfloat16":
         return x.to(torch.bfloat16)
@@ -97,22 +109,47 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Tree, cfg: OptimizerConfig) -> AdamWState:
     def zeros(p):
-        return _store(torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), cfg.state_dtype)
+        return _store(torch.zeros_like(p, dtype=torch.float32),
+                      cfg.state_dtype)
     first = leaves(params)[0]
+    if is_dtensor(first):
+        first = first.to_local()
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+    ls = leaves(tree)
+    if ls and is_dtensor(ls[0]):
+        return _sharded_global_norm(ls)
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in ls))
+
+
+def _sharded_global_norm(ls) -> torch.Tensor:
+    """The global norm of DTensor leaves laid out on one mesh (shards and
+    replicas, no partial sums): each rank sums the squares of its shards,
+    each divided by the number of ranks holding the same shard, and the
+    sums add over every mesh dim.  A plain tensor."""
+    from torch.distributed.tensor import Replicate
+    mesh = ls[0].device_mesh
+    total = torch.zeros((), dtype=torch.float32,
+                        device=ls[0].to_local().device)
+    for g in ls:
+        replicas = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                             if isinstance(p, Replicate))
+        total = total + torch.sum(torch.square(g.to_local().float())) \
+            / replicas
+    for i in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: AdamWState, params: Tree,
                  cfg: OptimizerConfig) -> Tuple[Tree, AdamWState, Dict]:
+    """On DTensor leaves each leaf's update runs on its local shards
+    (``local_map``): the grad, param and moments share its layout."""
     step = state.step + 1
     stepf = step.float()
     lr = lr_schedule(cfg, step)
@@ -135,7 +172,16 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
         new_p = (p.float() - lr * u).to(p.dtype)
         return new_p, _store(m, cfg.state_dtype), _store(v, cfg.state_dtype)
 
-    out = [upd(g, p, m, v) for (_, g), p, m, v in zip(
+    def upd_leaf(g, p, m_s, v_s):
+        if not is_dtensor(p):
+            return upd(g, p, m_s, v_s)
+        from torch.distributed.tensor.experimental import local_map
+        pl, mesh = p.placements, p.device_mesh
+        return local_map(upd, out_placements=(pl, pl, pl),
+                         in_placements=(pl, pl, pl, pl), device_mesh=mesh)(
+            g.redistribute(mesh, pl), p, m_s, v_s)
+
+    out = [upd_leaf(g, p, m, v) for (_, g), p, m, v in zip(
         flatten(grads), leaves(params), leaves(state.m), leaves(state.v))]
     return (unflatten(params, (o[0] for o in out)),
             AdamWState(step, unflatten(params, (o[1] for o in out)),

@@ -38,6 +38,21 @@ def unflatten(like: Tree, values: Iterable[Any]) -> Tree:
     return build(like)
 
 
+def tree_map_with_path(fn: Callable, tree: Tree, prefix: str = "") -> Tree:
+    """``fn(path, leaf)`` on every leaf, paths as :func:`flatten` gives
+    them."""
+    return {k: tree_map_with_path(fn, v, f"{prefix}{k}/")
+            if isinstance(v, dict) else fn(prefix + k, v)
+            for k, v in tree.items()}
+
+
+def get_path(tree: Tree, path: str) -> Any:
+    """The leaf (or subtree) at a "/"-joined ``path``."""
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` on the leaves of ``tree`` and the same places of ``rest``."""
     return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)

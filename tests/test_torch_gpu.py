@@ -1218,3 +1218,107 @@ def test_vlm_forward_with_patches_launches_once_per_layer(cuda):
         assert kr.launches == pm.launches == 0
         ref = lm_cpu(toks, patch_embeds=pe)
     torch.testing.assert_close(out.cpu(), ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernel boundary under a mesh: ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+TP_ATTENTION_CASES = [  # (B, S, Hq, Hkv, hd) on 2 ranks
+    (4, 2048, 32, 4, 64),     # tinyllama at TP 2: 16 / 2 local heads
+    (2, 512, 8, 1, 64),       # one KV head on 2 ranks: K / V made whole
+]
+
+
+def _tp_attention_rank(rank, world, case):
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import distribute_local
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    b, s, hq, hkv, hd = case
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    full = fa.flash_attention(q, k, v)
+    mesh = make_smoke_mesh((world,), ("a",), device="cuda")
+    kv_pl = [Shard(2)] if hkv % world == 0 else [Replicate()]
+    fa.launches = 0
+    out = ops.attention(distribute_local(q, mesh, [Shard(2)]),
+                        distribute_local(k, mesh, kv_pl),
+                        distribute_local(v, mesh, kv_pl))
+    torch.cuda.synchronize()
+    local = out.to_local()
+    n = hq // world
+    want = full[:, :, rank * n:(rank + 1) * n]
+    return {"within": bool(((local.float() - want.float()).abs()
+                            <= bf16_bound(want.float())).all()),
+            "bit_exact": bool(torch.equal(local, want)),
+            "launches": fa.launches, "shape": fa.last_shape}
+
+
+@pytest.mark.parametrize("case", TP_ATTENTION_CASES,
+                         ids=["tinyllama-tp2", "kv-fewer-than-tp"])
+def test_attention_under_local_map_matches_unsharded(cuda, case, tmp_path):
+    """Each rank's kernel on its local heads (ops.attention on DTensors,
+    through local_map) against the unsharded kernel's output for the same
+    heads: within one bf16 ulp, bit-exactness printed."""
+    from repro_torch.testing import run_ranks
+    out = run_ranks(_tp_attention_rank, 2, (case,), workdir=tmp_path,
+                    timeout=300)
+    b, s, hq, hkv, hd = case
+    for r in out:
+        print(f"attention under local_map {case}: bit-exact "
+              f"{r['bit_exact']}, local shape {r['shape']}")
+        assert r["within"] and r["launches"] == 1
+        assert tuple(r["shape"]) == (b, s, hq // 2, max(hkv // 2, 1), hd)
+
+
+def _a2a_rank(rank, world):
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    x = torch.arange(world * 3, device=dev, dtype=torch.float32) + 100 * rank
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x)
+    want = torch.cat([torch.arange(rank * 3, rank * 3 + 3, device=dev,
+                                   dtype=torch.float32) + 100 * j
+                      for j in range(world)])
+    return bool(torch.equal(out, want))
+
+
+def test_gloo_all_to_all_single_on_cuda_tensors(cuda, tmp_path):
+    from repro_torch.testing import run_ranks
+    assert run_ranks(_a2a_rank, 2, workdir=tmp_path, timeout=120) == [True,
+                                                                       True]
+
+
+def _gloo_dtensor_rank(rank, world):
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.testing import gloo_cuda
+    gloo_cuda.use_c10d_collectives()
+    torch.cuda.set_device(0)
+    mesh = make_smoke_mesh((world,), ("a",), device="cuda")
+    x = torch.arange(8.0, device="cuda")
+    gathered = distribute_tensor(x, mesh, [Shard(0)]).redistribute(
+        mesh, [Replicate()]).to_local()
+    part = DTensor.from_local(torch.full((8,), rank + 1.0, device="cuda"),
+                              mesh, [Partial()])
+    scattered = part.redistribute(mesh, [Shard(0)]).to_local()
+    m = torch.arange(16.0, device="cuda").reshape(4, 4)
+    moved = distribute_tensor(m, mesh, [Shard(0)]).redistribute(
+        mesh, [Shard(1)]).full_tensor()
+    return (torch.equal(gathered, x),
+            bool((scattered == world * (world + 1) / 2).all()),
+            torch.equal(moved, m))
+
+
+def test_dtensor_redistribute_under_gloo_on_cuda(cuda, tmp_path):
+    """DTensor's all-gather, reduce-scatter and all-to-all redistributions
+    on CUDA tensors under gloo, through ``testing.gloo_cuda``: each against
+    its plain expectation."""
+    from repro_torch.testing import run_ranks
+    assert run_ranks(_gloo_dtensor_rank, 2, workdir=tmp_path,
+                     timeout=120) == [(True, True, True)] * 2

@@ -88,7 +88,12 @@ def test_every_module_imports_without_a_card():
                  "repro_torch.launch.report", "repro_torch.service",
                  "repro_torch.service.state", "repro_torch.service.twin",
                  "repro_torch.service.server", "repro_torch.service.client",
-                 "repro_torch.launch.schedd"):
+                 "repro_torch.launch.schedd", "repro_torch.parallel",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.testing.gloo_cuda",
+                 "repro_torch.testing.ranks", "repro_torch.launch.mesh",
+                 "repro_torch.launch.dryrun", "repro_torch.models.context",
+                 "repro_torch.models.moe", "repro_torch.bridge"):
         assert need in names
     for name in names:
         importlib.import_module(name)

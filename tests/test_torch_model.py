@@ -85,6 +85,32 @@ def test_config_copy_matches_reference(make):
     assert port.param_count() == ref.param_count()
 
 
+@pytest.mark.parametrize("make", [
+    lambda m: m.RunConfig(),
+    lambda m: m.RunConfig(remat="none", sequence_parallel=False,
+                          microbatch=4, grad_compression=True, ssm_chunk=64,
+                          param_dtype="bfloat16",
+                          logical_axis_overrides=(("sp", "data"),)),
+    *(lambda m, n=n: m.SHAPES[n] for n in ("train_4k", "prefill_32k",
+                                           "decode_32k", "long_500k")),
+    lambda m: m.ShapeConfig("t", 256, 8, "train"),
+], ids=["run-defaults", "run-set", "train_4k", "prefill_32k", "decode_32k",
+        "long_500k", "shape-small"])
+def test_run_and_shape_configs_match_reference(make):
+    """``RunConfig``, ``ShapeConfig`` and ``SHAPES`` field for field, with
+    the same defaults, and the same ``SHAPES`` keys."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    ref, port = make(jbase), make(tbase)
+    names = [f.name for f in dataclasses.fields(ref)]
+    assert [f.name for f in dataclasses.fields(port)] == names
+    for n in names:
+        assert getattr(port, n) == getattr(ref, n), n
+    assert list(tbase.SHAPES) == list(jbase.SHAPES)
+    assert [f.default for f in dataclasses.fields(tbase.RunConfig)] == [
+        f.default for f in dataclasses.fields(jbase.RunConfig)]
+
+
 @pytest.mark.parametrize("dtype,atol,rtol", [("float32", 1e-4, 1e-4),
                                              ("bfloat16", 0.15, 0.05)])
 def test_forward_matches_reference(dtype, atol, rtol):
