@@ -168,6 +168,23 @@ Phases, in order; any failure exits non-zero before the result line:
                of the single-rank forward in float32 compute (bf16
                recorded), one attention launch a layer a rank, 2
                all_to_all_single calls a MoE layer; ms, peaks, a profile.
+               (5) rwkv6-3b and (6) zamba2-2.7b at full width, cut to half
+               depth (SSM_LAYERS) on (data 2, model 2), 4 gloo ranks in
+               the grant's rank order: float32 masters drawn into their
+               shards, bf16 compute, AdamW float32, remat full, chunk 16,
+               4 x 1024 (cut from 4 x 2048 for the ranks' summed peak), 1
+               warm-up and 1 timed step; before the ranks start, the same
+               first step on one rank with no mesh.  Gates: the first
+               step's loss within 1e-2 and grad norm within 1% of the
+               single rank's, in bf16 compute for rwkv6-3b and in float32
+               compute for zamba2-2.7b (SSM_GATE: random Mamba2 blocks
+               amplify bf16 rounding; bf16's gap is recorded); finite
+               losses; the recurrence launched twice
+               a layer a step (forward and remat's recompute) on 20 of 40
+               local heads, and zamba2's shared block's attention once a
+               group at 16 / 16 local heads of 80.  Logs step ms,
+               tokens/s, peak GiB by rank, launches and last shapes by
+               rank.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -422,6 +439,33 @@ MOE_KINDS = {**KERNEL_KINDS, "moe dispatch": (
 # staging
 DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 2, 2
 EP_LAYERS, EP_FACTOR = 4, 16.0
+# Phase 4h (5), (6): the ssm and hybrid families' sharded train steps on
+# (data 2, model 2).  Cut from 4 x 2048 to 4 x 1024, then in depth:
+# rwkv6-3b to 16 of 32 layers, zamba2-2.7b to 12 of 54 (two groups, so x0
+# is carried and the shared block runs twice).  The four ranks share the
+# card's 80 GB, and each holds its shards of the float32 masters, grads
+# and AdamW moments, which the functional update holds twice at a step's
+# end: at full depth rwkv6-3b's ranks ran out of the card's memory; and
+# phase 4h must leave the whole script inside its time limit.  Remat full
+# (each layer keeps its input); chunk 16, the recurrence kernel's
+# (RunConfig's default 128 is the TPU reference's, above the kernel's 64)
+SSM_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+SSM_BATCH, SSM_SEQ, SSM_CHUNK, SSM_REMAT = 4, 1024, 16, "full"
+SSM_WARMUP, SSM_TIMED = 1, 1
+SSM_LAYERS = {"rwkv6-3b": 16, "zamba2-2.7b": 12}
+# the compute dtype of the single-rank gate.  Random Mamba2 blocks amplify
+# rounding: the single rank's own bf16 grads sit as far from its float32
+# grads as the grads are long, and their norm lands 0.2% to 67% from
+# float32's over the first four batches (scripts/zamba2_bf16_noise.py), so
+# no two bf16 runs that round at different places can meet a 1% gate,
+# sharded or not.  In float32 the sharded step meets it within 1e-4, and
+# on the CPU in float64 the sharded grads equal the single device's to
+# 1e-10 (tests/test_torch_distributed_ssm.py).  So zamba2's gate runs its
+# first step's loss and grads in float32 compute from the float32 masters,
+# as phase 4e's teacher forcing does; bf16's gap is recorded, beside the
+# single rank's own bf16-vs-float32 gap on SSM_WITNESS_BATCHES
+SSM_GATE = {"rwkv6-3b": "bfloat16", "zamba2-2.7b": "float32"}
+SSM_WITNESS_BATCHES = (0, 1)
 # the distributed profiles split gloo's host staging (device <-> host
 # copies) from the other copies
 DIST_KINDS = {"attention": ("attn_fwd",),
@@ -2268,6 +2312,316 @@ def ep_last_logits(params, cfg, tokens, ctx):
     return logits.full_tensor()[:, 0]
 
 
+def ssm_cfg(arch: str):
+    """The full-width config of step (5) / (6), at ``SSM_LAYERS``' depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = SSM_LAYERS[arch]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def ssm_expected_launches(cfg) -> dict:
+    """Kernel launches of one train step: the recurrence once a layer in
+    the forward and again in remat's recompute (the hybrid's shared block
+    is not under remat, so attention runs once a group)."""
+    again = 2 if SSM_REMAT != "none" else 1
+    if cfg.family == "ssm":
+        return {"rwkv6_chunked": again * cfg.num_layers,
+                "flash_attention": 0}
+    return {"rwkv6_chunked": again * cfg.num_layers,
+            "flash_attention": cfg.num_layers // cfg.attn_every}
+
+
+def ssm_local_shapes(cfg, tp: int, dp: int) -> dict:
+    """Each kernel's last launch shape on a rank of (data dp, model tp):
+    its batch rows and its local heads."""
+    b = SSM_BATCH // dp
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        return {"rwkv6_chunked": (b, h // tp, SSM_SEQ, cfg.rwkv_head_dim,
+                                  cfg.rwkv_head_dim)}
+    from repro_torch.models.transformer import ssm_heads
+    h = ssm_heads(cfg)
+    hd = cfg.d_model * cfg.ssm_expand // h
+    return {"rwkv6_chunked": (b, h // tp, SSM_SEQ, cfg.ssm_state, hd),
+            "flash_attention": (b, SSM_SEQ, cfg.num_heads // tp,
+                                cfg.num_kv_heads // tp, cfg.head_dim_)}
+
+
+def ssm_single_rank(dev, arch: str) -> dict:
+    """The gates' reference for step (5) / (6): the first step's loss and
+    grad norm on one rank with no mesh, at the same batch, remat and
+    chunk, float32 masters, in bf16 compute and in the gate's
+    (``SSM_GATE``).  Where the gate is float32, the witness of its cause:
+    on batches ``SSM_WITNESS_BATCHES`` the single rank's own bf16 grads
+    against its float32 grads (the grad norm's relative gap and
+    |g_bf16 - g_f32| / |g_f32| over all grads)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.kernels import rwkv6 as kr
+    from repro_torch.models.context import ModelContext
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.train.tree import leaves
+    cfg = ssm_cfg(arch)
+    ctx = ModelContext(remat=SSM_REMAT, ssm_chunk=SSM_CHUNK)
+    source = SyntheticSource(DataConfig(cfg.vocab_size, SSM_SEQ, SSM_BATCH))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, 0, device=dev)
+    out = {"witness": []}
+    batches = SSM_WITNESS_BATCHES if SSM_GATE[arch] != "bfloat16" else (0,)
+    for batch in batches:
+        data = source.batch(batch)
+        toks, labels = (torch.as_tensor(data[n]).to(dev, torch.long)
+                        for n in ("tokens", "labels"))
+        grads = {}
+        for dtype in sorted({"bfloat16", SSM_GATE[arch]}):
+            kr.launches = 0
+            loss, grads[dtype] = loss_and_grads(
+                dataclasses.replace(cfg, dtype=dtype), params, toks, labels,
+                ctx=ctx)
+            run = {"loss": loss.item(),
+                   "grad_norm": global_norm(grads[dtype]).item(),
+                   "launches": kr.launches}
+            if batch == 0:
+                out[dtype] = run
+        if len(grads) == 2:
+            g16, g32 = (leaves(grads[d]) for d in ("bfloat16", "float32"))
+            n16, n32 = global_norm(grads["bfloat16"]).item(), \
+                global_norm(grads["float32"]).item()
+            gap = sum(float((a - b).double().pow(2).sum())
+                      for a, b in zip(g16, g32)) ** 0.5
+            out["witness"].append({"batch": batch,
+                                   "norm_gap": abs(n16 - n32) / n32,
+                                   "grad_gap": gap / n32})
+        del grads, loss
+    out.update(s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def in_project_ms(ctx, params, cfg) -> dict:
+    """Mamba2's in-projection on layer 0's ``w_in`` at the step's shape, in
+    bf16: the product alone (its columns left split over TP as the spec
+    splits them) and through ``models.ssm._in_project`` (the columns
+    gathered, each half split by whole heads); ms a call by the host clock
+    between a barrier and a sync, mean of 3 after a warm-up."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.ssm import _in_project
+    from repro_torch.models.transformer import ssm_heads
+    from repro_torch.parallel.sharding import distribute_local
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = distribute_local(torch.randn((SSM_BATCH, SSM_SEQ, cfg.d_model),
+                                     generator=gen, device=dev,
+                                     dtype=torch.bfloat16),
+                         ctx.dmesh, ctx.placements("dp", None, None))
+    out = {}
+    with torch.no_grad():
+        w = params["layers"]["mamba"]["w_in"][0].to(torch.bfloat16)
+        for name, fn in (("product", lambda: x @ w), ("gather_and_split",
+                         lambda: _in_project(x, w, ssm_heads(cfg)))):
+            times = []
+            for _ in range(4):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name] = 1e3 * sum(times[1:]) / 3
+    return out
+
+
+def ssm_train_rank(rank: int, world: int, arch: str, order) -> dict:
+    """Step (5) / (6): a sharded train step of the ssm or hybrid family on
+    (data 2, model 2), the rank order of a vclos grant.  Full width, float32
+    masters drawn into their shards, bf16 compute, AdamW float32; warm-up
+    and timed steps; each kernel's launches a step and last shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_sharded
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6 as kr
+    from repro_torch.launch.dryrun import sharded_param_specs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import (abstract_params,
+                                               distribute_local, make_context)
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
+                                             global_norm)
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.train.tree import leaves, tree_map
+    dist_rank_device()
+    cfg = ssm_cfg(arch)
+    mesh = make_smoke_mesh((2, 2), ranks=order, device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig(
+        remat=SSM_REMAT, sequence_parallel=False, ssm_chunk=SSM_CHUNK))
+    t0 = time.perf_counter()
+    params = init_sharded(cfg, ctx.mesh, seed=0)
+    init_s = time.perf_counter() - t0
+    shard = sharded_param_specs(abstract_params(cfg), cfg, ctx.mesh)
+    steps = SSM_WARMUP + SSM_TIMED
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=steps + 1,
+                              total_steps=steps + 1)
+    step = make_train_step(cfg, opt_cfg, ctx=ctx, grad_shardings=shard)
+    source = SyntheticSource(DataConfig(cfg.vocab_size, SSM_SEQ, SSM_BATCH))
+    gate = None
+    if SSM_GATE[arch] != cfg.dtype:
+        # the first step's loss and grad norm in the gate's compute dtype
+        rows = ctx.placements("dp", None)
+        data = source.batch(0)
+        toks, labels = (distribute_local(
+            torch.as_tensor(data[n]).to(torch.device("cuda", 0), torch.long),
+            ctx.dmesh, rows) for n in ("tokens", "labels"))
+        loss, grads = loss_and_grads(
+            dataclasses.replace(cfg, dtype=SSM_GATE[arch]), params, toks,
+            labels, ctx=ctx)
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                     p.placements),
+                         grads, params)
+        gate = {"loss": loss.full_tensor().item(),
+                "grad_norm": global_norm(grads).item()}
+        for p in leaves(params):
+            p.requires_grad_(False)
+        del grads, loss
+        torch.cuda.empty_cache()
+    state = (params, adamw_init(params, opt_cfg), None)
+    losses, norms, times, launches = [], [], [], []
+    for i in range(steps):
+        data = source.batch(i)
+        fa.launches = kr.launches = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = step(*state, data)
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        launches.append({"rwkv6_chunked": kr.launches,
+                         "flash_attention": fa.launches})
+    split = (in_project_ms(ctx, state[0], cfg) if cfg.family == "hybrid"
+             else None)
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "launches": launches, "init_s": init_s, "gate": gate,
+            "in_project_ms": split,
+            "last_shape": {"rwkv6_chunked": kr.last_shape,
+                           "flash_attention": fa.last_shape},
+            "view": tuple(ctx.mesh.mesh.shape),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": bool(np.all(np.isfinite(losses)))}
+
+
+def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
+    """Step (5) / (6) with its gates: the single rank first, then the 4
+    ranks; fails on a missed gate."""
+    import torch
+    from repro_torch.testing import run_ranks
+    cfg = ssm_cfg(arch)
+    torch.cuda.empty_cache()
+    one = ssm_single_rank(dev, arch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(ssm_train_rank, DIST_WORLD, (arch, order),
+                      workdir=dist_workdir(), timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    steps = SSM_WARMUP + SSM_TIMED
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
+    step_ms = 1e3 * sum(step_s[SSM_WARMUP:]) / SSM_TIMED
+    tokens = SSM_BATCH * SSM_SEQ
+    peaks = [r["peak_gb"] for r in ranks]
+    want = ssm_expected_launches(cfg)
+    local = ssm_local_shapes(cfg, tp=2, dp=2)
+    depth = ("full depth" if SSM_LAYERS[arch] is None else
+             f"cut to {cfg.num_layers} layers")
+    log(f"4h {arch} (data 2, model 2, view {r0['view']}), rank order "
+        f"{order}, full width, {depth}, float32 masters drawn into their "
+        f"shards ({r0['init_s']:.1f} s), bf16 compute, AdamW float32, remat "
+        f"{SSM_REMAT}, chunk {SSM_CHUNK}, {SSM_BATCH} x {SSM_SEQ}: step ms "
+        + ", ".join(f"{x * 1e3:.1f}" for x in step_s)
+        + f" ({SSM_WARMUP} warm-up); timed {step_ms:.1f} ms/step, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s ({label}); losses "
+        f"{['%.5f' % x for x in r0['losses']]}, grad norms "
+        f"{['%.5f' % x for x in r0['grad_norms']]}; launches a step by rank "
+        f"{[r['launches'] for r in ranks]} (expected {want}); last shapes "
+        f"by rank {[r['last_shape'] for r in ranks]}; peak GiB by rank "
+        f"{['%.2f' % p for p in peaks]}, sum {sum(peaks):.2f}; single rank "
+        f"{one['s']:.1f} s, peak {one['peak_gb']:.2f} GiB; {smi}; "
+        f"{wall:.1f} s")
+    firsts = {"bfloat16": {"loss": r0["losses"][0],
+                           "grad_norm": r0["grad_norms"][0]}}
+    if r0["gate"] is not None:
+        firsts[SSM_GATE[arch]] = r0["gate"]
+    gaps = {}
+    for dtype, got in firsts.items():
+        ref = one[dtype]
+        gaps[dtype] = (abs(got["loss"] - ref["loss"]),
+                       abs(got["grad_norm"] - ref["grad_norm"])
+                       / ref["grad_norm"])
+        gated = dtype == SSM_GATE[arch]
+        log(f"4h {arch} first step vs the single rank, {dtype} compute "
+            f"({'the gate' if gated else 'recorded'}): loss "
+            f"{got['loss']:.6f} vs {ref['loss']:.6f} (|gap| "
+            f"{gaps[dtype][0]:.3e}{', tol 1e-2' if gated else ''}), grad "
+            f"norm {got['grad_norm']:.6f} vs {ref['grad_norm']:.6f} "
+            f"(relative {gaps[dtype][1]:.3e}"
+            f"{', tol 1e-2' if gated else ''})")
+    for w in one["witness"]:
+        log(f"4h {arch} the single rank's own bf16 grads against its float32 "
+            f"grads, batch {w['batch']}: grad norm relative gap "
+            f"{w['norm_gap']:.3e}, |g_bf16 - g_f32| / |g_f32| "
+            f"{w['grad_gap']:.4f}")
+    if r0["in_project_ms"] is not None:
+        ip = [r["in_project_ms"] for r in ranks]
+        log(f"4h {arch} Mamba2 in-projection, layer 0 at {SSM_BATCH} x "
+            f"{SSM_SEQ} bf16, ms a call by rank: the product alone "
+            f"{['%.2f' % x['product'] for x in ip]}, with _in_project's "
+            f"column gather and split by heads "
+            f"{['%.2f' % x['gather_and_split'] for x in ip]} ({label})")
+    loss_gap, norm_gap = gaps[SSM_GATE[arch]]
+    if loss_gap > 1e-2 or norm_gap > 1e-2:
+        fail(f"4h {arch}: the first step misses the single rank's loss or "
+             f"grad norm in {SSM_GATE[arch]} compute")
+    if not all(r["finite"] for r in ranks):
+        fail(f"4h {arch}: a loss is not finite")
+    if any(x["launches"] != want["rwkv6_chunked"] for x in
+           (one[dt] for dt in firsts)):
+        fail(f"4h {arch}: the single rank launched the recurrence "
+             f"{[one[dt]['launches'] for dt in firsts]} times, expected "
+             f"{want['rwkv6_chunked']}")
+    if any(n != want for r in ranks for n in r["launches"]):
+        fail(f"4h {arch}: launches a step {[r['launches'] for r in ranks]}"
+             f", expected {want}")
+    for name, shape in local.items():
+        got = [tuple(r["last_shape"][name]) for r in ranks]
+        if any(g != shape for g in got):
+            fail(f"4h {arch}: {name} ran at {got}, not the local {shape}")
+    return {"arch": arch, "layers": cfg.num_layers, "step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "losses": r0["losses"],
+            "grad_norms": r0["grad_norms"], "single": one,
+            "gate_dtype": SSM_GATE[arch], "gaps": gaps,
+            "in_project_ms": r0["in_project_ms"],
+            "launches_per_step": r0["launches"][0],
+            "local_shape": {k: list(r0["last_shape"][k]) for k in local},
+            "peak_gb": peaks, "wall_s": wall}
+
+
 def profile_split(wall_ms: float, rows) -> dict:
     busy = sum(r[0] for r in rows)
     split = dict.fromkeys([*DIST_KINDS, "other"], 0.0)
@@ -2281,9 +2635,10 @@ def profile_split(wall_ms: float, rows) -> dict:
 
 def distributed_phase(smi: str) -> dict:
     """Phase 4h: (1) the collective probe, (2) world size 1 under NCCL,
-    (3) FSDP + TP on (2, 2), (4) expert parallelism on (1, 2).  Ranks are
-    spawned on cuda:0 and joined with a deadline; a rank's failure, a hang
-    or a missed gate exits non-zero."""
+    (3) FSDP + TP on (2, 2), (4) expert parallelism on (1, 2), (5) rwkv6-3b
+    and (6) zamba2-2.7b sharded train steps on (2, 2).  Ranks are spawned
+    on cuda:0 and joined with a deadline; a rank's failure, a hang or a
+    missed gate exits non-zero."""
     import dataclasses
 
     import numpy as np
@@ -2395,7 +2750,8 @@ def distributed_phase(smi: str) -> dict:
                       "tokens_per_s": tokens / step_ms * 1e3,
                       "losses": r0["losses"], "grad_norms": r0["grad_norms"],
                       "launches_per_step": r0["launches"][0],
-                      "local_shape": list(local), "peak_gb": peaks,
+                      "local_shape": list(r0["last_shape"]),
+                      "peak_gb": peaks,
                       "profile": prof}
     del ranks
 
@@ -2458,6 +2814,12 @@ def distributed_phase(smi: str) -> dict:
                  "a2a_calls": r0["float32"]["a2a"],
                  "local_shape": list(r0["bfloat16"]["last_shape"]),
                  "peak_gb": [r["peak_gb"] for r in ranks], "profile": prof}
+    del ranks
+
+    # (5), (6) the ssm and hybrid families: sharded train steps with the
+    # recurrence on each rank's local heads
+    for arch in SSM_ARCHS:
+        out[arch] = ssm_step(dev, arch, order, smi, label)
     return out
 
 
@@ -3259,7 +3621,8 @@ def time_phase_max(picks, smi: str):
     the engines' round trip numpy -> numpy against PR 16's route and
     against transfer design (A), in turns, each design's device operations,
     the route's host parts (p50), the plain version, a library call and
-    host numpy.  Returns the p50 row."""
+    host numpy.  Returns the p50 row, with the kernel's launch floor on the
+    device and the bytes bound of every pick."""
     import numpy as np
     import torch
     from repro_torch.core.fairshare import phase_worst_loads, phase_worst_numpy
@@ -3387,7 +3750,8 @@ def time_phase_max(picks, smi: str):
         f"{rows['max']['bound_ms'] * 1e3:.4f} us, kernel floor "
         f"{floor_dev * 1e3:.1f} us on the device); the engines' route is "
         f"below PR 16's at every pick: {not slower}")
-    return rows["p50"]
+    return {**rows["p50"], "launch_floor_ms": floor_dev,
+            "bound_ms_by_call": {k: r["bound_ms"] for k, r in rows.items()}}
 
 
 def main() -> None:
@@ -3808,7 +4172,15 @@ def main() -> None:
                 "layers": dist["ep"]["layers"],
                 "launches_per_rank": dist["ep"]["launches"],
                 "local_shape": dist["ep"]["local_shape"]},
-            "world1_nccl_launches": dist["world1"]["launches"]},
+            "world1_nccl_launches": dist["world1"]["launches"],
+            "hybrid_zamba2": {
+                "mesh": "(data 2, model 2)",
+                "layers": dist["zamba2-2.7b"]["layers"],
+                "launches_per_rank_per_step":
+                    dist["zamba2-2.7b"]["launches_per_step"][
+                        "flash_attention"],
+                "local_shape":
+                    dist["zamba2-2.7b"]["local_shape"]["flash_attention"]}},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
@@ -3830,6 +4202,8 @@ def main() -> None:
         "numpy_ms": pm_row["numpy_ms"],
         "plain_ms": pm_row["plain_ms"], "bound_ms": pm_row["bound_ms"],
         "bound_by": "bytes", "library_ms": pm_row["library_ms"],
+        "bound_ms_by_call": pm_row["bound_ms_by_call"],
+        "launch_floor_ms": pm_row["launch_floor_ms"],
         "shape": "the grid's p50 call",
     }, {
         "name": "rwkv6_chunked", "route": "cuda",
@@ -3853,6 +4227,15 @@ def main() -> None:
             "plain_ms": mamba_plain_ms, "bound_ms": mamba_bound_ms,
             "bound_by": mamba_by, "library_ms": None,
             "vb": mamba_plan["vb"]},
+        "mesh": {
+            "note": "per rank, ranks sharing one card (gloo, host-staged)",
+            **{arch: {"mesh": "(data 2, model 2)",
+                      "layers": dist[arch]["layers"],
+                      "launches_per_rank_per_step":
+                          dist[arch]["launches_per_step"]["rwkv6_chunked"],
+                      "local_shape":
+                          dist[arch]["local_shape"]["rwkv6_chunked"]}
+               for arch in SSM_ARCHS}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

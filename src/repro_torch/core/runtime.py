@@ -57,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import json
 import multiprocessing
 import os
@@ -84,6 +85,15 @@ TRANSIENT_EXCEPTIONS = (OSError, EOFError, ConnectionError, MemoryError)
 
 #: ceiling on one backoff sleep, seconds
 MAX_BACKOFF = 30.0
+
+#: seconds a submitted cell may wait for its spawned worker to begin it
+#: before the pool generation counts as crashed (far above an honest spawn:
+#: 6–10 s a generation on a card's host, more under a loaded test run)
+STARTUP_LIMIT = 120.0
+
+#: pool generations in a row whose workers begin no cell before the run
+#: stops instead of rebuilding again
+MAX_STALLS = 3
 
 #: key identifying one grid cell: (strategy, scheduler, load, seed)
 CellKey = Tuple[str, str, float, int]
@@ -484,6 +494,23 @@ class CellRunner:
       be interrupted any other way) and the innocents resubmitted without
       an attempt penalty.
 
+      A cell's deadline is ``cell_timeout`` from the moment its worker
+      *begins* it, not from submission: workers are spawned, and a fresh
+      worker pays for an interpreter and its imports before its first
+      cell (6–10 s a pool generation on a card's host), which the
+      reference's forked workers never do.  Each pool generation hands
+      its workers a start-notice queue (:class:`_SpawnPool`), and
+      :func:`_begin_cell` puts ``(token, time.monotonic())`` on it before
+      the cell runs (``CLOCK_MONOTONIC`` is system-wide).  Start-up has
+      a limit of its own, :data:`STARTUP_LIMIT`, with or without a
+      ``cell_timeout``: a cell that has not
+      begun that long after its submission means the generation's
+      workers did not start, which is handled as a crash of the
+      generation — the pool is rebuilt and every in-flight cell goes back
+      without an attempt penalty (after :data:`MAX_STALLS` generations in
+      a row with no cell begun, the campaign stops with a
+      ``RuntimeError``).
+
     Completed cells are journaled the moment they finish — in either
     mode, whatever completed before a crash survives it."""
 
@@ -584,7 +611,9 @@ class CellRunner:
         attempts: Dict[int, int] = {i: 0 for i in indices}
         queue = deque(indices)
         suspects: Set[int] = set()     # in flight at an unattributed crash
-        inflight: Dict[object, Tuple[int, Optional[float]]] = {}
+        inflight: Dict[object, _Flight] = {}
+        tokens = itertools.count()
+        stalls = 0                     # generations in a row that began nothing
         pool = _spawn_pool(workers)
         ok = False
 
@@ -597,17 +626,48 @@ class CellRunner:
             the queue without penalty; the in-flight futures were already
             failed with the pool and are collected as a crash."""
             c = self.cells[i]
-            sub = submitter.submit(pool.submit, self._run_cell, c.spec,
-                                   c.trace, c.config, i, attempts[i])
+            token = next(tokens)
+            sub = submitter.submit(pool.submit, _begin_cell, token,
+                                   self._run_cell, c.spec, c.trace, c.config,
+                                   i, attempts[i])
             e = sub.exception()
             if e is None:
-                inflight[sub.result()] = (i, time.monotonic() + timeout
-                                          if timeout else None)
+                inflight[sub.result()] = _Flight(i, token, time.monotonic(),
+                                                 None)
                 return True
             if not isinstance(e, BrokenProcessPool):
                 raise e
             queue.appendleft(i)
             return False
+
+        def read_notices() -> None:
+            """Record the begin time of every cell whose start notice has
+            arrived; drained every turn, so no worker blocks on a full
+            pipe."""
+            nonlocal stalls
+            by_token = {fl.token: fl for fl in inflight.values()}
+            while not pool.notices.empty():
+                token, t = pool.notices.get()
+                fl = by_token.get(token)
+                if fl is not None and fl.begun is None:
+                    fl.begun = t
+                    stalls = 0
+
+        def wake_in(now: float) -> Optional[float]:
+            """Seconds until the next deadline can fall due: a cell not yet
+            begun has its start-up limit, which runs from its submission,
+            and cannot expire before ``cell_timeout`` from now (it begins
+            after this turn's notices were read); a begun one expires
+            ``cell_timeout`` after it began.  None when nothing can fall
+            due (every cell begun, no ``cell_timeout``)."""
+            due = []
+            for fl in inflight.values():
+                if fl.begun is None:
+                    due.append(fl.submitted + STARTUP_LIMIT)
+                if timeout is not None:
+                    due.append(now + timeout if fl.begun is None
+                               else fl.begun + timeout)
+            return max(0.0, min(due) - now) if due else None
 
         def rebuild() -> None:
             nonlocal pool
@@ -647,11 +707,9 @@ class CellRunner:
                     if inflight:
                         break          # their crash is collected below
                     rebuild()          # a worker died idle: nothing lost
-                now = time.monotonic()
-                deadlines = [dl for _, dl in inflight.values()
-                             if dl is not None]
-                wt = max(0.0, min(deadlines) - now) if deadlines else None
-                done, _ = wait(set(inflight), timeout=wt,
+                read_notices()
+                done, _ = wait(set(inflight),
+                               timeout=wake_in(time.monotonic()),
                                return_when=FIRST_COMPLETED)
                 if not done:
                     # futures can finish between wait() timing out and the
@@ -663,16 +721,31 @@ class CellRunner:
                 if not done:
                     # a deadline expired with the worker still grinding: a
                     # hung worker cannot be interrupted, so the whole pool
-                    # is killed; innocents resubmit without penalty
+                    # is killed; innocents resubmit without penalty.  A
+                    # cell still waiting for its worker past the start-up
+                    # limit means the generation never started: the same
+                    # kill, with nobody to blame
+                    read_notices()
                     now = time.monotonic()
-                    expired = [(f, i) for f, (i, dl) in inflight.items()
-                               if dl is not None and now >= dl - 1e-9]
-                    if not expired:
+                    hung = {fl.i for fl in inflight.values()
+                            if timeout is not None and fl.begun is not None
+                            and now >= fl.begun + timeout - 1e-9}
+                    stalled = [fl.i for fl in inflight.values()
+                               if fl.begun is None
+                               and now >= fl.submitted + STARTUP_LIMIT]
+                    if not hung and not stalled:
                         continue
-                    hung = {i for _, i in expired}
-                    innocents = [i for _, (i, _) in inflight.items()
-                                 if i not in hung]
+                    innocents = [fl.i for fl in inflight.values()
+                                 if fl.i not in hung]
                     inflight.clear()
+                    if not hung:
+                        stalls += 1
+                        if stalls >= MAX_STALLS:
+                            raise RuntimeError(
+                                f"{stalls} pool generations in a row began "
+                                f"no cell within STARTUP_LIMIT="
+                                f"{STARTUP_LIMIT:g}s of its submission: "
+                                f"spawned workers do not start")
                     rebuild()
                     for i in innocents:
                         queue.appendleft(i)
@@ -685,7 +758,7 @@ class CellRunner:
 
                 crashed: List[int] = []
                 for fut in done:
-                    i, _dl = inflight.pop(fut)
+                    i = inflight.pop(fut).i
                     e = fut.exception()
                     if e is None:
                         rep, dt = fut.result()
@@ -703,7 +776,7 @@ class CellRunner:
                 if crashed:
                     # the pool is dead — every other in-flight future is
                     # doomed with it; collect them before rebuilding
-                    doomed = [i for _, (i, _) in inflight.items()]
+                    doomed = [fl.i for fl in inflight.values()]
                     inflight.clear()
                     rebuild()
                     everyone = crashed + doomed
@@ -725,12 +798,57 @@ class CellRunner:
         return results, failed
 
 
+@dataclass
+class _Flight:
+    """One submitted cell: its grid index, the token its start notice
+    carries, when it was submitted and when its worker began it (``None``
+    until the notice arrives), all on ``time.monotonic()``."""
+
+    i: int
+    token: int
+    submitted: float
+    begun: Optional[float]
+
+
+class _SpawnPool(ProcessPoolExecutor):
+    """A ``spawn`` process pool whose workers report on :attr:`notices`
+    (a ``SimpleQueue`` of this generation alone) when they begin a cell.
+    A killed generation's queue goes with it, so a notice can never reach
+    the next one."""
+
+    def __init__(self, workers: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.notices = ctx.SimpleQueue()
+        super().__init__(max_workers=workers, mp_context=ctx,
+                         initializer=_worker_init, initargs=(self.notices,))
+
+
+#: the worker's start-notice queue, set by :func:`_worker_init`
+_notices = None
+
+
+def _worker_init(notices) -> None:
+    """Runs once in each spawned worker before it takes a cell."""
+    global _notices
+    _notices = notices
+    if os.environ.get("REPRO_CHAOS_STARTUP"):
+        from ..testing.chaos import startup_hook
+        startup_hook()
+
+
+def _begin_cell(token: int, run_cell: Callable, *args):
+    """The pool's task: post the start notice, then run the cell.  By now
+    the worker has started and imported the cell's module (unpickling the
+    task does that), so the deadline counts only the cell's own run."""
+    _notices.put((token, time.monotonic()))
+    return run_cell(*args)
+
+
 def _spawn_pool(workers: int) -> ProcessPoolExecutor:
     """A process pool whose workers start with ``spawn``: each imports the
     cell function's module afresh, so no worker inherits a CUDA context or
     the parent's threads (``fork`` gives neither safely)."""
-    return ProcessPoolExecutor(
-        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    return _SpawnPool(workers)
 
 
 def _shutdown_pool(pool, kill: bool) -> None:

@@ -80,7 +80,10 @@ def _kv_layout(q_pl, kv_heads: int, parts: int, head_dim: int):
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose backward makes its grad contiguous: a local
     shard's grad leaves ``local_map`` for DTensor view ops, which need
-    contiguous local tensors."""
+    contiguous local tensors.  A DTensor grad is copied: it reports the
+    strides of its global shape, so ``contiguous()`` may leave its local
+    tensor transposed, and the ``reshape`` in a product's backward then
+    takes the view path on it."""
 
     @staticmethod
     def forward(ctx, x):
@@ -88,7 +91,15 @@ class _ContiguousGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if is_dtensor(g):
+            return g.clone(memory_format=torch.contiguous_format)
         return g.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose grad's local tensor is made contiguous under a mesh: for
+    a tensor read through a transposed view."""
+    return _ContiguousGrad.apply(x) if is_dtensor(x) else x
 
 
 def _local_ins(*xs):
@@ -237,28 +248,58 @@ def rwkv6_mix_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _sharded_rwkv6_mix(q, k, v, log_decay, bonus, initial_state,
                        chunk: int):
     """The recurrence on DTensors: each rank runs it on its local batch rows
-    and heads through ``local_map`` around :class:`_Rwkv6Mix`, as
-    :func:`_sharded_attention` does for attention.  Every (B, H, ...)
-    operand takes q's layout; the bonus (H, K) its split of the heads."""
-    from torch.distributed.tensor import Replicate, Shard
+    and whole heads through ``local_map`` around :class:`_Rwkv6Mix`, as
+    :func:`_sharded_attention` does for attention.  The split of the heads
+    is the first of v's, k's and q's that has one: Mamba2's q is C
+    broadcast over the heads and its k and log decay come from the
+    replicated B, dt and A, so there only v (the conv output) is split.  A
+    (B, H, ...) operand split over the same mesh dims takes that layout;
+    one whole over them enters whole and each rank slices out its own heads
+    (a local slice, no collective), its grad then a partial sum over the
+    split, as :func:`_kv_layout` makes a whole K / V's.  The bonus (H, K)
+    takes the split of the heads, and its grad is a partial sum over the
+    batch's split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    pl, _, _ = _head_layout(q, 0, 1)
-    bonus_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1
-                else Replicate() for p in pl]
-    mesh = q.device_mesh
+
+    def heads_split(t):
+        return any(isinstance(p, Shard) and p.dim == 1 for p in t.placements)
+    ref = next((t for t in (v, k, q) if heads_split(t)), q)
+    pl, index, parts = _head_layout(ref, 0, 1)
+    heads = q.shape[1]
+    if heads % parts:
+        raise ValueError(f"rwkv6_mix: {heads} heads do not split {parts} "
+                         f"ways")
+    split = [isinstance(p, Shard) and p.dim == 1 for p in pl]
+    whole_pl = [Replicate() if s else p for s, p in zip(split, pl)]
+    whole_grad = [Partial() if s else p for s, p in zip(split, pl)]
+    bonus_pl = [Shard(0) if s else Replicate() for s in split]
+    # the bonus has no batch dim: its grad is a partial sum over the batch's
+    bonus_grad = [Partial() if isinstance(p, Shard) and p.dim == 0 else b
+                  for p, b in zip(pl, bonus_pl)]
+    mesh = ref.device_mesh
     ops = [q, k, v, log_decay, bonus, initial_state]
-    layouts = [pl, pl, pl, pl, bonus_pl, pl]
+    whole = [t is not None and t is not bonus and all(
+        isinstance(p, Replicate) for s, p in zip(split, t.placements) if s)
+        for t in ops]
+    lays = [None if t is None else bonus_pl if t is bonus else
+            whole_pl if w else pl for t, w in zip(ops, whole)]
+    grads = [bonus_grad if t is bonus and t is not None else
+             whole_grad if w else lay for t, w, lay in zip(ops, whole, lays)]
     ins = [None if t is None else t.redistribute(mesh, lay)
-           for t, lay in zip(ops, layouts)]
+           for t, lay in zip(ops, lays)]
+    local_heads = heads // parts
 
     def local(*xs):
-        xs = _local_ins(*xs)
+        xs = [x.narrow(1, index * local_heads, local_heads) if w else x
+              for x, w in zip(_local_ins(*xs), whole)]
         _check_device("rwkv6_mix", *xs)
         return _Rwkv6Mix.apply(*xs, chunk)
 
-    lays = tuple(None if t is None else lay for t, lay in zip(ops, layouts))
-    return local_map(local, out_placements=(pl, pl), in_placements=lays,
-                     in_grad_placements=lays, device_mesh=mesh)(*ins)
+    return local_map(local, out_placements=(pl, pl),
+                     in_placements=tuple(lays),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*ins)
 
 
 def rwkv6_mix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

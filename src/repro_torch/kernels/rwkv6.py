@@ -54,6 +54,7 @@ NO_SMEM = -2                     # the library's code: the CTA does not fit
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
 last_plan: Optional[dict] = None   # the last launch's VB, threads, loads, smem
+last_shape = None     # (B, H, T, K, V) of the last launch
 
 
 def check_chunk(t: int, chunk: int) -> None:
@@ -224,7 +225,7 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S (B, H, K, V) float32), on the current stream.  The library makes the
     launch plan (``last_plan``); ``vb`` overrides its column block (for
     measurement)."""
-    global launches, last_plan
+    global launches, last_plan, last_shape
     build.refuse_grad("rwkv6_fused", q, k, v, log_decay, bonus,
                       initial_state)
     _check(q, k, v, log_decay, bonus, chunk, initial_state, vb)
@@ -255,6 +256,7 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv6_fused: kernel launch failed with "
                            f"cudaError_t {err}")
     launches += 1
+    last_shape = (b, h, t, dk, dv)
     last_plan = {"vb": plan[0], "threads": plan[1],
                  "loads": "ring" if plan[2] else "direct", "smem": plan[3]}
     return out.transpose(1, 2), s_out

@@ -58,27 +58,37 @@ def _project(params: Params, x: torch.Tensor, name: str, heads: int,
     y = x @ params["w" + name].to(x.dtype)
     if "b" + name in params:
         y = y + params["b" + name].to(x.dtype)
-    return _whole_heads(y, heads).reshape(b, s, heads, head_dim)
+    return whole_heads(y, heads).reshape(b, s, heads, head_dim)
 
 
-def _whole_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
-    """Under a mesh, a projection's columns (B, S, heads·hd) split so that
-    every rank holds whole heads: where ``heads`` does not divide into the
-    columns' split (the reference's sanitized spec may cut a head, e.g. 2
-    KV heads on 4-way TP), the columns are gathered."""
+def whole_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """Under a mesh, a projection's columns (..., heads·hd) split so that
+    every rank holds whole heads: the columns stay split over the mesh
+    dims (major first) whose sizes multiply into a divisor of ``heads`` and
+    are gathered over the others (the reference's sanitized spec may cut a
+    head, e.g. 2 KV heads on 4-way TP)."""
     if not is_dtensor(y):
         return y
+    pl = whole_head_placements(y.placements, y.device_mesh, y.ndim - 1,
+                               heads)
+    return y if pl == list(y.placements) else y.redistribute(y.device_mesh,
+                                                             pl)
+
+
+def whole_head_placements(placements, mesh, dim: int, heads: int) -> list:
+    """``placements`` with ``Shard(dim)`` kept on the mesh dims, in order,
+    whose sizes multiply into a divisor of ``heads``, and ``Replicate()``
+    on the other mesh dims that split ``dim``."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh, last = y.device_mesh, y.ndim - 1
-    parts = 1
-    for i, p in enumerate(y.placements):
-        if isinstance(p, Shard) and p.dim == last:
-            parts *= mesh.size(i)
-    if heads % parts == 0:
-        return y
-    return y.redistribute(mesh, [Replicate() if isinstance(p, Shard)
-                                 and p.dim == last else p
-                                 for p in y.placements])
+    out, parts = [], 1
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            if heads % (parts * mesh.size(i)):
+                p = Replicate()
+            else:
+                parts *= mesh.size(i)
+        out.append(p)
+    return out
 
 
 def qkv_project(params: Params, x: torch.Tensor, num_heads: int,

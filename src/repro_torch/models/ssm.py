@@ -28,8 +28,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from ..kernels import ops
 from ..kernels.rwkv6 import LOG_DECAY_MIN
+from .attention import whole_head_placements, whole_heads
 from .common import Params, dense_init, norm_apply, norm_init
 
 
@@ -173,7 +175,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     b, t, d = x.shape
     kw = w.shape[0]
     if state is None:
-        state = x.new_zeros((b, kw - 1, d))
+        state = torch.zeros_like(x[:, :1]).expand(b, kw - 1, d)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     wx = w.to(x.dtype)
     y = xp[:, :t] * wx[0]
@@ -202,13 +204,18 @@ def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
     b, t, d = x.shape
     d_inner = d * expand
     hd = d_inner // heads
-    xi, z = (x @ params["w_in"].to(x.dtype)).chunk(2, dim=-1)
+    xi, z = _in_project(x, params["w_in"].to(x.dtype), heads)
     xi, conv_state = _causal_conv(xi, params["conv"],
                                   None if state is None else state["conv"])
     xi = F.silu(xi)
-    B_, C_ = (x @ params["w_bc"].to(x.dtype)).chunk(2, dim=-1)  # (B,T,K)
-    dt = F.softplus((x @ params["w_dt"].to(x.dtype)).float()
-                    + params["dt_bias"].float())                 # (B,T,H)
+    # products with weights TP does not split, laid out as x is (batch rows
+    # split, the rest whole); dt is read transposed below, and under a mesh
+    # its grad reaches the product's DTensor view as it is, which needs it
+    # contiguous
+    B_, C_ = _laid_out_as(x @ params["w_bc"].to(x.dtype), x).chunk(2, dim=-1)
+    dt = F.softplus(ops.contiguous_grad(_laid_out_as(
+        x @ params["w_dt"].to(x.dtype), x)).float()
+        + params["dt_bias"].float())                              # (B,T,H)
     a = -torch.exp(params["a_log"].float())                      # (H,) < 0
     ld = (dt * a).transpose(1, 2)[..., None].expand(b, heads, t, d_state)
     vals = xi.reshape(b, t, heads, hd).transpose(1, 2)           # (B,H,T,hd)
@@ -228,8 +235,41 @@ def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
         out = o[:, :, None]
     out = out + params["d_skip"].to(out.dtype)[:, None, None] * vals
     y = out.transpose(1, 2).reshape(b, t, d_inner)
+    y = _laid_out_as(y, y)
     y = norm_apply("rmsnorm", params["norm"], y) * F.silu(z)
     return y @ params["w_out"].to(x.dtype), {"ssm": S, "conv": conv_state}
+
+
+def _in_project(x: torch.Tensor, w_in: torch.Tensor, heads: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, z) = ``x @ w_in`` split in two along its columns.  Under a mesh
+    ``w_in``'s 2·d_inner columns are split over TP as one dim (the
+    reference's spec), so a rank's block holds x's or z's columns, not
+    some of each: the product is laid out as ``x`` is (its batch rows
+    split, the columns whole), split in two, and each half laid out over
+    the TP dims that split the heads (a local slice), so the conv, the
+    recurrence and the gate run on each rank's rows and whole heads."""
+    xz = x @ w_in
+    if not is_dtensor(xz):
+        return xz.chunk(2, dim=-1)
+    from torch.distributed.tensor import Shard
+    mesh, last = xz.device_mesh, xz.ndim - 1
+    rows = list(x.placements)
+    split = whole_head_placements(
+        [Shard(last) if isinstance(p, Shard) and p.dim == last else r
+         for p, r in zip(xz.placements, rows)], mesh, last, heads)
+    return tuple(h.redistribute(mesh, split) for h in
+                 xz.redistribute(mesh, rows).chunk(2, dim=-1))
+
+
+def _laid_out_as(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, ``y`` redistributed to ``like``'s placements.  With
+    ``like`` = ``y`` it is the identity whose grad comes back to ``y``'s own
+    layout: after heads are merged into columns, the ops that follow may
+    return a grad split finer (over every TP dim, cutting a head), which
+    DTensor's rule for the merge's backward view would take as it is."""
+    return y.redistribute(y.device_mesh, like.placements) if is_dtensor(y) \
+        else y
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +300,9 @@ def rwkv6_init(gen: torch.Generator, d_model: int, head_dim: int, *,
 def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]):
     """x shifted one step later: the previous token's vector at each
     position, zeros (or the decode state's ``last``) at the first."""
-    if last is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
-    return torch.cat([last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    first = (torch.zeros_like(x[:, :1]) if last is None
+             else last[:, None].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
@@ -287,7 +327,9 @@ def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
     log_decay = -torch.exp(params["decay_base"] + dec)        # (B,T,D) < 0
 
     def split_heads(y):
-        return y.reshape(b, t, heads, head_dim).transpose(1, 2)
+        # under a mesh each rank holds whole heads of the TP-split columns
+        return whole_heads(y, heads).reshape(b, t, heads,
+                                             head_dim).transpose(1, 2)
 
     rq, kk, vv, ld = map(split_heads, (r, k, v, log_decay.to(x.dtype)))
     if state is None:
@@ -299,6 +341,7 @@ def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
                                      bonus=params["bonus_u"])
         out = o[:, :, None]
     y = out.transpose(1, 2).reshape(b, t, d)
+    y = _laid_out_as(y, y)
     y = norm_apply("layernorm", params["ln_x"], y) * g
     # the reference's einsum("btd,de->btd", y, w_o) sums w_o over e: each
     # channel is scaled by a row sum of w_o; it is not a matrix product

@@ -316,24 +316,32 @@ def _moe_a2a(mp: Params, h: torch.Tensor, cfg, ctx: ModelContext
 
 def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
                  chunk: int, sink=None) -> torch.Tensor:
-    h = norm_apply(cfg.norm, lp["ln1"], x)
+    """The reference's ssm layer (``transformer.py:241-251``).  Under a mesh
+    each mixer's input is laid out with the whole sequence, since the token
+    shift reads the previous position (as attention's input is, in
+    ``_attention_half``), and each mixer's output takes the residual's
+    layout before the add."""
+    h = ctx.shard(norm_apply(cfg.norm, lp["ln1"], x), "dp", None, None)
     y, st = rwkv6_time_mix(lp["tmix"], h, cfg.rwkv_head_dim, chunk=chunk)
-    x = x + y
-    h = norm_apply(cfg.norm, lp["ln2"], x)
+    x = ctx.shard(x + ctx.shard(y, "dp", "sp", None), "dp", "sp", None)
+    h = ctx.shard(norm_apply(cfg.norm, lp["ln2"], x), "dp", None, None)
     y, cmix_last = rwkv6_channel_mix(lp["cmix"], h)
     if sink is not None:
         sink.append((st["S"], st["last"], cmix_last))
-    return ctx.shard(x + y, "dp", "sp", None)
+    return ctx.shard(x + ctx.shard(y, "dp", "sp", None), "dp", "sp", None)
 
 
 def _mamba2_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
                   chunk: int, sink=None) -> torch.Tensor:
-    y, st = mamba2_apply(lp["mamba"], norm_apply(cfg.norm, lp["ln"], x),
-                         ssm_heads(cfg), cfg.ssm_state, cfg.ssm_expand,
-                         chunk=chunk)
+    """A Mamba2 layer; under a mesh its input has the whole sequence (the
+    causal conv reads the three positions before each) and its output takes
+    the residual's layout before the add."""
+    h = ctx.shard(norm_apply(cfg.norm, lp["ln"], x), "dp", None, None)
+    y, st = mamba2_apply(lp["mamba"], h, ssm_heads(cfg), cfg.ssm_state,
+                         cfg.ssm_expand, chunk=chunk)
     if sink is not None:
         sink.append((st["ssm"], st["conv"]))
-    return ctx.shard(x + y, "dp", "sp", None)
+    return ctx.shard(x + ctx.shard(y, "dp", "sp", None), "dp", "sp", None)
 
 
 def _hybrid_stack(params: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -342,7 +350,10 @@ def _hybrid_stack(params: Params, x: torch.Tensor, cfg, ctx: ModelContext,
     """The reference's hybrid groups (``transformer.py:256-282``): per
     group, ``attn_every`` Mamba2 blocks (each under ``ctx.maybe_remat``),
     then the shared block on ``concat(h, x0) @ shared_proj`` added to h.
-    x0 is the embedded input ``x``."""
+    x0 is the embedded input ``x``.  Under a mesh the concatenation is laid
+    out with the whole sequence before the column-parallel ``shared_proj``
+    (as attention's input is), and the projection's TP-split columns take
+    the residual's layout before the shared block."""
     x0, k = x, cfg.attn_every
     block = ctx.maybe_remat(_mamba2_block)
     layers = unstack(params["layers"], cfg.num_layers)
@@ -350,8 +361,11 @@ def _hybrid_stack(params: Params, x: torch.Tensor, cfg, ctx: ModelContext,
         h = x
         for lp in layers[g * k:(g + 1) * k]:
             h = block(lp, h, cfg, ctx, chunk, sink)
-        z = torch.cat([h, x0], dim=-1) @ params["shared_proj"].to(h.dtype)
-        z = _dense_block(params["shared_block"], z, cfg, ctx, positions, sink)
+        z = ctx.shard(torch.cat([h, x0], dim=-1), "dp", None, None) \
+            @ params["shared_proj"].to(h.dtype)
+        z = _dense_block(params["shared_block"],
+                         ctx.shard(z, "dp", "sp", None), cfg, ctx, positions,
+                         sink)
         x = ctx.shard(h + z, "dp", "sp", None)
     return x
 

@@ -37,6 +37,16 @@ Grammar — comma-separated rules, each ``kind@cell[:attempts]``:
 The hook sits in ``repro_torch.core.campaign._run_cell`` and costs one
 ``os.environ.get`` when disarmed; :mod:`repro_torch.testing` is only imported
 once a rule string is present.
+
+A second variable slows worker start-up down, the cost a spawned pool pays
+that the reference's forked one does not:
+
+    REPRO_CHAOS_STARTUP=<seconds>
+
+makes every pool worker sleep that long when it starts, before it takes its
+first cell (:func:`startup_hook`, called from the pool's worker
+initializer, ``repro_torch.core.runtime._worker_init``).  A cell's
+``cell_timeout`` must not count it.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ from typing import Dict, List, NamedTuple, Optional
 ENV_VAR = "REPRO_CHAOS"
 #: environment variable overriding the hang duration (seconds)
 ENV_HANG = "REPRO_CHAOS_HANG"
+#: environment variable delaying each pool worker's start (seconds)
+ENV_STARTUP = "REPRO_CHAOS_STARTUP"
 
 KINDS = ("crash", "hang", "raise", "flaky")
 
@@ -153,3 +165,9 @@ def chaos_hook(cell_index: int, attempt: int) -> None:
             raise TransientChaosError(
                 f"injected transient failure at cell {cell_index} "
                 f"(attempt {attempt})")
+
+
+def startup_hook() -> None:
+    """Sleep ``$REPRO_CHAOS_STARTUP`` seconds: a pool worker's start-up
+    made slow, before the worker takes its first cell."""
+    time.sleep(float(os.environ.get(ENV_STARTUP, "0")))

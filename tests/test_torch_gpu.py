@@ -42,7 +42,10 @@ Sq != Skv, and reduced whisper's ``generate`` against the CPU with
 (phi-3-vision, MHA 32 / 32) and 192 (nemotron-4-340b, GQA 96 / 8) on the
 mma kernel, with GQA, windows, ragged S and Sq != Skv, their shared memory
 as the kernel's plan sizes it, and reduced phi-3-vision at head_dim 96
-with patch embeddings against the CPU with one launch a layer.
+with patch embeddings against the CPU with one launch a layer.  Under a
+mesh: attention through ``local_map`` on ranks sharing the card, gloo's
+collectives on CUDA tensors, and the recurrence on a (1, 1) NCCL mesh
+equal to the call with no mesh (both masks, float32 and bf16).
 """
 
 import numpy as np
@@ -1272,6 +1275,70 @@ def test_attention_under_local_map_matches_unsharded(cuda, case, tmp_path):
               f"{r['bit_exact']}, local shape {r['shape']}")
         assert r["within"] and r["launches"] == 1
         assert tuple(r["shape"]) == (b, s, hq // 2, max(hkv // 2, 1), hd)
+
+
+# (dtype, mask): RWKV6's exclusive mask with the bonus at rwkv6-3b's head
+# shape, Mamba2's inclusive one with q broadcast over the heads at
+# zamba2's (K 64, V 128)
+RWKV_MESH_CASES = [(dt, mask) for dt in ("float32", "bfloat16")
+                   for mask in ("rwkv6", "mamba2")]
+
+
+def _rwkv_mesh_rank(rank, world, dtype, mask):
+    """The recurrence on a (1, 1) NCCL mesh (``ops.rwkv6_mix_state`` on
+    DTensors, through ``_sharded_rwkv6_mix`` and ``local_map``) and with
+    no mesh, on the same tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import compute_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, t, dk = 2, 8, 256, 64
+    dv = 64 if mask == "rwkv6" else 128
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    k, v = normal(b, h, t, dk).to(dt), normal(b, h, t, dv).to(dt)
+    if mask == "rwkv6":
+        q = normal(b, h, t, dk).to(dt)
+        ld = (-torch.exp(normal(b, h, t, dk) - 1.0)).to(dt)
+        bonus = normal(h, dk) * 0.1
+    else:
+        q = normal(b, 1, t, dk).to(dt).expand(b, h, t, dk)
+        ld = (-torch.exp(normal(b, h, t, 1) - 1.0)).expand(
+            b, h, t, dk).contiguous().to(dt)
+        bonus = None
+    kr.launches = 0
+    want, want_s = ops.rwkv6_mix_state(q, k, v, ld, bonus=bonus, chunk=16)
+    mesh = compute_mesh(make_smoke_mesh((1, 1), device="cuda"))
+
+    def place(x):
+        return None if x is None else DTensor.from_local(
+            x, mesh, [Replicate()], run_check=False)
+    out, S = ops.rwkv6_mix_state(place(q), place(k), place(v), place(ld),
+                                 bonus=place(bonus), chunk=16)
+    torch.cuda.synchronize()
+    return {"out_equal": torch.equal(out.to_local(), want),
+            "state_equal": torch.equal(S.to_local(), want_s),
+            "launches": kr.launches, "shape": kr.last_shape}
+
+
+@pytest.mark.parametrize("dtype,mask", RWKV_MESH_CASES,
+                         ids=[f"{d}-{m}" for d, m in RWKV_MESH_CASES])
+def test_recurrence_on_a_one_rank_mesh_equals_no_mesh(cuda, dtype, mask,
+                                                      tmp_path):
+    """The recurrence through ``_sharded_rwkv6_mix`` on a (1, 1) NCCL mesh
+    equals the call with no mesh, output and final state, in float32 and
+    bf16, with both masks: one launch each, at the whole shape."""
+    from repro_torch.testing import run_ranks
+    r = run_ranks(_rwkv_mesh_rank, 1, (dtype, mask), workdir=tmp_path,
+                  timeout=300, backend="nccl")[0]
+    assert r["out_equal"] and r["state_equal"]
+    assert r["launches"] == 2
+    assert tuple(r["shape"]) == (2, 8, 256, 64, 64 if mask == "rwkv6"
+                                 else 128)
 
 
 def _a2a_rank(rank, world):

@@ -16,7 +16,6 @@ import json
 import multiprocessing
 import os
 import time
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -496,15 +495,14 @@ def test_pool_workers_are_spawned(monkeypatch):
     assert made == ["spawn"]
 
 
-class _BreaksAtSubmit(ProcessPoolExecutor):
-    """A spawn pool that breaks just before its ``at``-th submission (its
-    workers are killed, or before the first a worker is made to exit) and
-    then submits once the pool has marked itself broken: the moment a
-    worker dies between ``wait`` and the next ``submit``."""
+class _BreaksAtSubmit(TR._SpawnPool):
+    """The runner's spawn pool, broken just before its ``at``-th submission
+    (its workers are killed, or before the first a worker is made to exit)
+    and then submitting once the pool has marked itself broken: the moment
+    a worker dies between ``wait`` and the next ``submit``."""
 
     def __init__(self, workers, at):
-        super().__init__(max_workers=workers,
-                         mp_context=multiprocessing.get_context("spawn"))
+        super().__init__(workers)
         self.n, self.at = 0, at
 
     def submit(self, fn, /, *args, **kwargs):
@@ -588,6 +586,79 @@ def test_hung_cell_timeout_retry_recovers(clean, monkeypatch):
     res = run(cfg=dict(cell_timeout=3.0))
     assert cell_reports(res) == cell_reports(clean)
     assert res.complete and not res.failed_cells
+
+
+@pytest.mark.parametrize("chaos", ["", "hang@0"], ids=["clean", "hang@0"])
+def test_slow_worker_startup_is_not_cell_time(clean, monkeypatch, chaos):
+    """Spawned workers that take longer to start than ``cell_timeout``
+    (as under a loaded test run, or on a card's host): the deadline runs
+    from the moment a worker begins the cell, so no innocent cell times
+    out, and a hung one is still killed after its own ``cell_timeout``."""
+    monkeypatch.setenv("REPRO_CHAOS_STARTUP", "5")
+    monkeypatch.setenv("REPRO_CHAOS", chaos)
+    monkeypatch.setenv("REPRO_CHAOS_HANG", "60")
+    res = run(cfg=dict(workers=2, cell_timeout=3.0, max_retries=0,
+                       quarantine=True))
+    want = {(c.strategy, c.scheduler, c.load, c.seed): c.report
+            for c in clean.cells}
+    if not chaos:
+        assert cell_reports(res) == cell_reports(clean)
+        assert res.complete and not res.failed_cells
+        return
+    first = clean.cells[0]             # grid order: cell 0 hangs
+    assert [(f.kind, f.key()) for f in res.failed_cells] == [
+        ("timeout", (first.strategy, first.scheduler, first.load,
+                     first.seed))]
+    assert len(res.cells) == GRID.size - 1
+    for c in res.cells:
+        assert c.report == want[(c.strategy, c.scheduler, c.load, c.seed)]
+
+
+def _never_starts(monkeypatch, first_only: bool) -> list:
+    """Pool generations whose workers never begin a cell (their start-up
+    sleeps far past the start-up limit, through ``REPRO_CHAOS_STARTUP``):
+    the first generation alone, or every one.  The list of the pools
+    made."""
+    made = []
+    real = TR._spawn_pool
+    default = TR.STARTUP_LIMIT
+
+    def spawn(workers):
+        if first_only and made:
+            monkeypatch.delenv("REPRO_CHAOS_STARTUP")
+            monkeypatch.setattr(TR, "STARTUP_LIMIT", default)
+        made.append(real(workers))
+        return made[-1]
+
+    monkeypatch.setenv("REPRO_CHAOS_STARTUP", "600")
+    monkeypatch.setattr(TR, "_spawn_pool", spawn)
+    return made
+
+
+@pytest.mark.parametrize("cell_timeout", [3.0, 0.0],
+                         ids=["cell_timeout", "no_cell_timeout"])
+def test_workers_that_never_start_are_rebuilt_without_penalty(
+        clean, monkeypatch, cell_timeout):
+    """A generation whose workers never begin a cell is killed after the
+    start-up limit and rebuilt, with or without a ``cell_timeout``; its
+    cells go back without an attempt penalty, so a campaign with
+    ``max_retries=0`` still completes."""
+    made = _never_starts(monkeypatch, first_only=True)
+    monkeypatch.setattr(TR, "STARTUP_LIMIT", 2.0)
+    res = run(cfg=dict(workers=2, cell_timeout=cell_timeout, max_retries=0))
+    assert len(made) == 2
+    assert cell_reports(res) == cell_reports(clean)
+    assert res.complete and not res.failed_cells
+
+
+def test_workers_that_never_start_stop_the_run(monkeypatch):
+    """Generations that never start end the run after ``MAX_STALLS`` of
+    them instead of rebuilding for ever."""
+    made = _never_starts(monkeypatch, first_only=False)
+    monkeypatch.setattr(TR, "STARTUP_LIMIT", 1.0)
+    with pytest.raises(RuntimeError, match="STARTUP_LIMIT"):
+        run(cfg=dict(workers=2, cell_timeout=3.0))
+    assert len(made) == TR.MAX_STALLS
 
 
 # ---------------------------------------------------------------------------
