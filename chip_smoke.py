@@ -157,7 +157,7 @@ Phases, in order; any failure exits non-zero before the result line:
                float32, remat none, 4 x 2048: the first step's loss within
                1e-2 and grad norm within 1% of (2)'s single rank; 22
                attention launches a rank a step at 16 / 2 local heads;
-               finite losses; 2 warm-up and 2 timed steps (ms, tokens/s),
+               finite losses; 1 warm-up and 1 timed step (ms, tokens/s),
                each rank's peak memory, one step profiled on rank 0 with
                gloo's host staging as its own kind.  (4) Expert parallelism
                on (1, 2), 2 gloo ranks: full-width deepseek-moe-16b cut to
@@ -167,12 +167,16 @@ Phases, in order; any failure exits non-zero before the result line:
                sequence-sharded dispatch: last-position logits within 1e-2
                of the single-rank forward in float32 compute (bf16
                recorded), one attention launch a layer a rank, 2
-               all_to_all_single calls a MoE layer; ms, peaks, a profile.
-               (5) rwkv6-3b and (6) zamba2-2.7b at full width, cut to half
+               all_to_all_single calls a MoE layer; ms, peaks, a profile;
+               in float32, every (token, MoE layer)'s top-6 against the
+               single rank's: the choices that differ, the smallest router
+               margin (6th minus 7th probability) at one, and the logit
+               gap on the rows with no differing choice.
+               (5) rwkv6-3b and (6) zamba2-2.7b at full width, cut in
                depth (SSM_LAYERS) on (data 2, model 2), 4 gloo ranks in
                the grant's rank order: float32 masters drawn into their
-               shards, bf16 compute, AdamW float32, remat full, chunk 16,
-               4 x 1024 (cut from 4 x 2048 for the ranks' summed peak), 1
+               shards, bf16 compute, AdamW float32, remat full, chunk 16
+               (SSM_CHUNK), 4 x 1024 (cut from 4 x 2048 for the ranks' summed peak), 1
                warm-up and 1 timed step; before the ranks start, the same
                first step on one rank with no mesh.  Gates: the first
                step's loss within 1e-2 and grad norm within 1% of the
@@ -184,7 +188,28 @@ Phases, in order; any failure exits non-zero before the result line:
                local heads, and zamba2's shared block's attention once a
                group at 16 / 16 local heads of 80.  Logs step ms,
                tokens/s, peak GiB by rank, launches and last shapes by
-               rank.
+               rank.  (7) whisper-base at full width and depth and (8)
+               phi-3-vision-4.2b at full width, cut in depth (MESH_TRAIN),
+               sharded train steps on (data 2, model 2) as (5): float32
+               masters drawn into their shards, bf16 compute, AdamW
+               float32; whisper 16 requests of 1500 seeded bf16 frames and
+               448 decoder tokens, remat none; phi-3 4 x 1024 with 256
+               seeded bf16 patch embeddings, remat full.  Gates: the first
+               step's loss within 1e-2 and grad norm within 1% of the
+               single rank's; finite losses; whisper 18 attention launches
+               a rank a step (6 encoder, 6 self, 6 cross), `wgmma_tma`, at
+               4 of 8 local heads; phi-3 2 a layer a step (forward and
+               remat's recompute), `mma_sync`, at 16 of 32 heads of 96.
+               (9) tinyllama-1.1b (full width and depth, bf16 weights, 4 x
+               2048 prompt) and (10) whisper-base (16 x 1500 bf16 frames, a
+               224-token prompt, caches of 1536 rows) served on (data 2,
+               model 2): a prefill into the sharded decode state, then
+               MESH_DECODE greedy decode steps fed the single rank's
+               tokens.  Gates: the prefill's and every step's logits
+               within 0.15 / 0.05 of the single rank's; 22 (18) attention
+               launches a rank a prefill at 16 / 2 (4 / 4) local heads, 0
+               in decode; every state tensor placed as decode_state_specs
+               places it; the greedy tokens' agreement is recorded.
   5. simulate — the flow-level simulator through ``repro_torch.core`` on
                ``cuda``, its rate resolution in the segment-max kernel
                through the engines' route (``phase_max_host``: one host copy
@@ -437,22 +462,30 @@ MOE_KINDS = {**KERNEL_KINDS, "moe dispatch": (
 # layers: each MoE layer's two all-to-alls carry the E x capacity slot
 # blocks (3.2 GB a rank in float32 at factor 16) through gloo's host
 # staging
-DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 2, 2
+# (1 warm-up and 1 timed step, for the script's time limit)
+DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 1, 1
 EP_LAYERS, EP_FACTOR = 4, 16.0
 # Phase 4h (5), (6): the ssm and hybrid families' sharded train steps on
 # (data 2, model 2).  Cut from 4 x 2048 to 4 x 1024, then in depth:
-# rwkv6-3b to 16 of 32 layers, zamba2-2.7b to 12 of 54 (two groups, so x0
-# is carried and the shared block runs twice).  The four ranks share the
-# card's 80 GB, and each holds its shards of the float32 masters, grads
-# and AdamW moments, which the functional update holds twice at a step's
-# end: at full depth rwkv6-3b's ranks ran out of the card's memory; and
-# phase 4h must leave the whole script inside its time limit.  Remat full
-# (each layer keeps its input); chunk 16, the recurrence kernel's
-# (RunConfig's default 128 is the TPU reference's, above the kernel's 64)
+# rwkv6-3b to 8 of 32 layers (cut further for the script's time limit
+# once phase 4h gained steps 7-10), zamba2-2.7b to 12 of 54 (two
+# groups, so x0 is carried and the shared block runs twice).  The four
+# ranks share the card's 80 GB, and each holds its shards of the float32
+# masters, grads and AdamW moments, which the functional update holds
+# twice at a step's end: at full depth rwkv6-3b's ranks ran out of the
+# card's memory; and phase 4h must leave the whole script inside its time
+# limit.  Remat full
+# (each layer keeps its input); chunk 16, the serving path's.  RunConfig's
+# 128 (the reference's TPU tile) runs on the card, the kernel at 64
+# (kernels.rwkv6.kernel_chunk), but the backward recomputes through the
+# plain chunk scan at 128, whose float32 exponentials overflow on
+# rwkv6-3b's decays: NaN grads, as the reference's own formulation gives
+# a NaN loss at chunk 128 on these decays (on the CPU, 2 layers at full
+# width; finite at 64)
 SSM_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
 SSM_BATCH, SSM_SEQ, SSM_CHUNK, SSM_REMAT = 4, 1024, 16, "full"
 SSM_WARMUP, SSM_TIMED = 1, 1
-SSM_LAYERS = {"rwkv6-3b": 16, "zamba2-2.7b": 12}
+SSM_LAYERS = {"rwkv6-3b": 8, "zamba2-2.7b": 12}
 # the compute dtype of the single-rank gate.  Random Mamba2 blocks amplify
 # rounding: the single rank's own bf16 grads sit as far from its float32
 # grads as the grads are long, and their norm lands 0.2% to 67% from
@@ -466,6 +499,33 @@ SSM_LAYERS = {"rwkv6-3b": 16, "zamba2-2.7b": 12}
 # single rank's own bf16-vs-float32 gap on SSM_WITNESS_BATCHES
 SSM_GATE = {"rwkv6-3b": "bfloat16", "zamba2-2.7b": "float32"}
 SSM_WITNESS_BATCHES = (0, 1)
+# Phase 4h (7), (8): the audio and vlm families' sharded train steps on
+# (data 2, model 2).  Whisper-base at full width and depth: 16 requests of
+# 1500 frames (n_audio_ctx) and 448 decoder tokens (n_text_ctx), remat
+# none.  Phi-3-vision-4.2b at full width, 4 x 1024 with 256 patch
+# embeddings, remat full, cut from 32 to 8 layers: at about 28 bytes a
+# parameter summed over the ranks at the functional update's end (masters,
+# grads, two moments, the update's second copy), 32 layers would need
+# about 117 GB of the card's 80.  At 12 layers the ranks' summed peak was
+# 60 GiB: the step ran alone, but after phase 4h's earlier steps the card
+# ran out of memory (the cause is not broken down); 8 layers (1.10 B
+# parameters with the embeddings) also keep the script inside its limit
+MESH_TRAIN = {"whisper-base": dict(layers=None, batch=16, seq=448,
+                                   frames=1500, remat="none", launches=18,
+                                   variant="wgmma_tma"),
+              "phi-3-vision-4.2b": dict(layers=8, batch=4, seq=1024,
+                                        patches=256, remat="full",
+                                        variant="mma_sync")}
+MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 1, 1
+# Phase 4h (9), (10): serving on (data 2, model 2): tinyllama-1.1b's phase
+# 4 prompt and whisper-base's phase 4f shape; greedy decode steps cut from
+# 32 to 4 for gloo's host-staged collectives (each step runs a few a
+# layer, about 1.4 s a tinyllama step) and the script's time limit
+MESH_SERVE = {"tinyllama-1.1b": dict(batch=4, prompt=2048, max_len=2056,
+                                     launches=22),
+              "whisper-base": dict(batch=16, prompt=224, frames=1500,
+                                   max_len=1536, launches=18)}
+MESH_DECODE = 4
 # the distributed profiles split gloo's host staging (device <-> host
 # copies) from the other copies
 DIST_KINDS = {"attention": ("attn_fwd",),
@@ -2269,11 +2329,14 @@ def ep_rank(rank: int, world: int, layers: int, batch: int, seq: int,
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, dtype=dtype)
         fa.launches = moe.a2a_calls = 0
+        routes, restore = all_routes_recorder(cfg.moe_top_k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last = ep_last_logits(params, c, toks, ctx)
         torch.cuda.synchronize()
+        restore()
         out[dtype] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "routes": routes if dtype == "float32" else None,
                       "last": last.float().cpu().numpy(),
                       "launches": fa.launches, "a2a": moe.a2a_calls,
                       "last_shape": fa.last_shape,
@@ -2288,6 +2351,52 @@ def ep_rank(rank: int, world: int, layers: int, batch: int, seq: int,
         ep_last_logits(params, c, toks, ctx)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return out
+
+
+def all_routes_recorder(top_k: int):
+    """Wrap ``moe._route`` (until ``restore()``): each call records every
+    routed token's top-(k + 1) router probabilities and experts, on the
+    host, in the call's token order.  Returns (calls, restore)."""
+    import torch
+    from repro_torch.models import moe
+    route, calls = moe._route, []
+
+    def recording_route(router_w, x_flat, k, num_experts, capacity):
+        probs = torch.softmax(x_flat.float() @ router_w.float(), dim=-1)
+        top = probs.topk(top_k + 1, dim=-1, sorted=True)
+        calls.append((top.values.cpu().numpy(), top.indices.cpu().numpy()))
+        return route(router_w, x_flat, k, num_experts, capacity)
+
+    def restore():
+        moe._route = route
+    moe._route = recording_route
+    return calls, restore
+
+
+def ep_route_flips(single, ranks, batch: int, top_k: int) -> dict:
+    """Every (token, MoE layer)'s top-k experts under EP against the single
+    rank's: ``single`` the single rank's calls (one a layer, (B·S, k + 1)
+    in (b, s) order), ``ranks`` each EP rank's (its slice of the sequence,
+    (B·S / ep, k + 1)).  Returns the (token, layer) choices that differ,
+    the smallest single-rank margin (k-th minus (k + 1)-th probability) at
+    one, and which batch rows hold none."""
+    import numpy as np
+    flips, margins = 0, []
+    row_flip = np.zeros(batch, dtype=bool)
+    for layer, (vals, idx) in enumerate(single):
+        vals = vals.reshape(batch, -1, top_k + 1)
+        idx = idx.reshape(batch, -1, top_k + 1)
+        ep_idx = np.concatenate([r[layer][1].reshape(batch, -1, top_k + 1)
+                                 for r in ranks], axis=1)
+        differ = (np.sort(idx[..., :top_k], axis=-1)
+                  != np.sort(ep_idx[..., :top_k], axis=-1)).any(-1)
+        flips += int(differ.sum())
+        margins += list((vals[..., top_k - 1] - vals[..., top_k])[differ])
+        row_flip |= differ.any(-1)
+    return {"flips": flips,
+            "tokens_x_layers": single[0][1].shape[0] * len(single),
+            "min_margin": min(margins) if margins else None,
+            "clean_rows": [int(b) for b in np.flatnonzero(~row_flip)]}
 
 
 def ep_prompts(cfg, batch: int, seq: int, dev):
@@ -2520,7 +2629,7 @@ def ssm_train_rank(rank: int, world: int, arch: str, order) -> dict:
              else None)
     return {"losses": losses, "grad_norms": norms, "step_s": times,
             "launches": launches, "init_s": init_s, "gate": gate,
-            "in_project_ms": split,
+            "in_project_ms": split, "kernel_chunk": kr.last_plan["chunk"],
             "last_shape": {"rwkv6_chunked": kr.last_shape,
                            "flash_attention": fa.last_shape},
             "view": tuple(ctx.mesh.mesh.shape),
@@ -2608,6 +2717,13 @@ def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
     if any(n != want for r in ranks for n in r["launches"]):
         fail(f"4h {arch}: launches a step {[r['launches'] for r in ranks]}"
              f", expected {want}")
+    from repro_torch.kernels.rwkv6 import kernel_chunk
+    chunks = [r["kernel_chunk"] for r in ranks]
+    log(f"4h {arch}: chunk {SSM_CHUNK}, the kernel's chunk by rank "
+        f"{chunks}")
+    if any(c != kernel_chunk(SSM_SEQ, SSM_CHUNK) for c in chunks):
+        fail(f"4h {arch}: the kernel ran at chunks {chunks}, not "
+             f"{kernel_chunk(SSM_SEQ, SSM_CHUNK)}")
     for name, shape in local.items():
         got = [tuple(r["last_shape"][name]) for r in ranks]
         if any(g != shape for g in got):
@@ -2617,9 +2733,404 @@ def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
             "grad_norms": r0["grad_norms"], "single": one,
             "gate_dtype": SSM_GATE[arch], "gaps": gaps,
             "in_project_ms": r0["in_project_ms"],
+            "kernel_chunk": r0["kernel_chunk"],
             "launches_per_step": r0["launches"][0],
             "local_shape": {k: list(r0["last_shape"][k]) for k in local},
             "peak_gb": peaks, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# 4h (7)-(10): audio and vlm train steps, and serving, under a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_train_cfg(arch: str):
+    """The full-width config of step (7) / (8), at ``MESH_TRAIN``'s depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = MESH_TRAIN[arch]["layers"]
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def mesh_train_batch(cfg, arch: str, i: int, dev) -> dict:
+    """Batch ``i`` of step (7) / (8): ``SyntheticSource``'s tokens and
+    labels, and seeded bf16 frames or patch embeddings (the stub
+    frontends), drawn on the card, the same on every rank."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    spec = MESH_TRAIN[arch]
+    batch = dict(SyntheticSource(DataConfig(
+        cfg.vocab_size, spec["seq"], spec["batch"])).batch(i))
+    gen = torch.Generator(device=dev).manual_seed(1000 + i)
+    for name, key in (("frame_embeds", "frames"),
+                      ("patch_embeds", "patches")):
+        if key in spec:
+            batch[name] = torch.randn(
+                (spec["batch"], spec[key], cfg.d_model), generator=gen,
+                device=dev).to(torch.bfloat16)
+    return batch
+
+
+def mesh_train_launches(cfg, arch: str) -> int:
+    """Attention launches of one train step: each attention once in the
+    forward (whisper: encoder, self and cross), again in remat's
+    recompute."""
+    again = 2 if MESH_TRAIN[arch]["remat"] != "none" else 1
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers
+             if cfg.is_encoder_decoder else cfg.num_layers)
+    return again * calls
+
+
+def mesh_train_extras(batch: dict) -> dict:
+    return {n: batch[n] for n in ("frame_embeds", "patch_embeds")
+            if n in batch}
+
+
+def mesh_train_single(dev, arch: str) -> dict:
+    """The gate's reference for step (7) / (8): the first step's loss and
+    grad norm on one rank with no mesh, at the same batch and remat,
+    float32 masters, bf16 compute."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.context import ModelContext
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = mesh_train_cfg(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, 0, device=dev)
+    batch = mesh_train_batch(cfg, arch, 0, dev)
+    toks, labels = (torch.as_tensor(batch[n]).to(dev, torch.long)
+                    for n in ("tokens", "labels"))
+    fa.launches = 0
+    loss, grads = loss_and_grads(
+        cfg, params, toks, labels,
+        ctx=ModelContext(remat=MESH_TRAIN[arch]["remat"]),
+        **mesh_train_extras(batch))
+    out = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+           "launches": fa.launches, "variant": fa.last_variant,
+           "s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del params, grads, loss, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, arch: str, order) -> dict:
+    """Step (7) / (8): a sharded train step of the audio or vlm family on
+    (data 2, model 2), the rank order of a vclos grant.  Full width,
+    float32 masters drawn into their shards, bf16 compute, AdamW float32;
+    warm-up and timed steps; the attention's launches a step, last shape
+    and variant."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_sharded
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import sharded_param_specs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import abstract_params, make_context
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    dev = dist_rank_device()
+    cfg = mesh_train_cfg(arch)
+    mesh = make_smoke_mesh((2, 2), ranks=order, device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig(
+        remat=MESH_TRAIN[arch]["remat"], sequence_parallel=False))
+    t0 = time.perf_counter()
+    params = init_sharded(cfg, ctx.mesh, seed=0)
+    init_s = time.perf_counter() - t0
+    shard = sharded_param_specs(abstract_params(cfg), cfg, ctx.mesh)
+    steps = MESH_TRAIN_WARMUP + MESH_TRAIN_TIMED
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=steps + 1,
+                              total_steps=steps + 1)
+    step = make_train_step(cfg, opt_cfg, ctx=ctx, grad_shardings=shard)
+    state = (params, adamw_init(params, opt_cfg), None)
+    losses, norms, times, launches, variants = [], [], [], [], []
+    for i in range(steps):
+        batch = mesh_train_batch(cfg, arch, i, dev)
+        fa.launches = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = step(*state, batch)
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        launches.append(fa.launches)
+        variants.append(fa.last_variant)
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "launches": launches, "variants": variants, "init_s": init_s,
+            "last_shape": fa.last_shape, "view": tuple(ctx.mesh.mesh.shape),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": bool(np.all(np.isfinite(losses)))}
+
+
+def mesh_train_step(dev, arch: str, order, smi: str, label: str) -> dict:
+    """Step (7) / (8) with its gates: the single rank first, then the 4
+    ranks; fails on a missed gate."""
+    import torch
+    from repro_torch.testing import run_ranks
+    cfg = mesh_train_cfg(arch)
+    spec = MESH_TRAIN[arch]
+    torch.cuda.empty_cache()
+    one = mesh_train_single(dev, arch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_train_rank, DIST_WORLD, (arch, order),
+                      workdir=dist_workdir(), timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    steps = MESH_TRAIN_WARMUP + MESH_TRAIN_TIMED
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
+    step_ms = 1e3 * sum(step_s[MESH_TRAIN_WARMUP:]) / MESH_TRAIN_TIMED
+    tokens = spec["batch"] * spec["seq"]
+    peaks = [r["peak_gb"] for r in ranks]
+    want = mesh_train_launches(cfg, arch)
+    local = (spec["batch"] // 2, spec["seq"], cfg.num_heads // 2,
+             cfg.num_kv_heads // 2, cfg.head_dim_)
+    depth = ("full depth" if spec["layers"] is None else
+             f"cut to {cfg.num_layers} of 32 layers")
+    extra = (f"{spec['frames']} bf16 frames a request" if "frames" in spec
+             else f"{spec['patches']} bf16 patch embeddings a row")
+    log(f"4h {arch} (data 2, model 2, view {r0['view']}), rank order "
+        f"{order}, full width, {depth}, float32 masters drawn into their "
+        f"shards ({r0['init_s']:.1f} s), bf16 compute, AdamW float32, remat "
+        f"{spec['remat']}, {spec['batch']} x {spec['seq']} tokens, {extra}:"
+        f" step ms " + ", ".join(f"{x * 1e3:.1f}" for x in step_s)
+        + f" ({MESH_TRAIN_WARMUP} warm-up); timed {step_ms:.1f} ms/step, "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s ({label}); losses "
+        f"{['%.5f' % x for x in r0['losses']]}, grad norms "
+        f"{['%.5f' % x for x in r0['grad_norms']]}; attention launches a "
+        f"step by rank {[r['launches'] for r in ranks]} (expected {want}), "
+        f"variants {sorted({v for r in ranks for v in r['variants']})}, "
+        f"last shapes by rank {[r['last_shape'] for r in ranks]}; peak GiB "
+        f"by rank {['%.2f' % p for p in peaks]}, sum {sum(peaks):.2f}; "
+        f"single rank {one['s']:.1f} s, {one['launches']} launches, peak "
+        f"{one['peak_gb']:.2f} GiB; {smi}; {wall:.1f} s")
+    loss_gap = abs(r0["losses"][0] - one["loss"])
+    norm_gap = abs(r0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
+    log(f"4h {arch} first step vs the single rank, bf16 compute: loss "
+        f"{r0['losses'][0]:.6f} vs {one['loss']:.6f} (|gap| {loss_gap:.3e},"
+        f" tol 1e-2), grad norm {r0['grad_norms'][0]:.6f} vs "
+        f"{one['grad_norm']:.6f} (relative {norm_gap:.3e}, tol 1e-2)")
+    if loss_gap > 1e-2 or norm_gap > 1e-2:
+        fail(f"4h {arch}: the first step misses the single rank's loss or "
+             f"grad norm")
+    if not all(r["finite"] for r in ranks):
+        fail(f"4h {arch}: a loss is not finite")
+    if one["launches"] != want:
+        fail(f"4h {arch}: the single rank launched attention "
+             f"{one['launches']} times, expected {want}")
+    if any(n != want for r in ranks for n in r["launches"]):
+        fail(f"4h {arch}: attention launches a step "
+             f"{[r['launches'] for r in ranks]}, expected {want}")
+    if any(v != spec["variant"] for r in ranks for v in r["variants"]):
+        fail(f"4h {arch}: the attention kernel ran "
+             f"{[r['variants'] for r in ranks]}, not {spec['variant']}")
+    if any(tuple(r["last_shape"]) != local for r in ranks):
+        fail(f"4h {arch}: the kernel ran at "
+             f"{[r['last_shape'] for r in ranks]}, not the local {local}")
+    return {"arch": arch, "layers": cfg.num_layers, "step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "losses": r0["losses"],
+            "grad_norms": r0["grad_norms"], "single": one,
+            "gaps": (loss_gap, norm_gap), "launches_per_step": want,
+            "variant": spec["variant"], "local_shape": list(local),
+            "peak_gb": peaks, "wall_s": wall}
+
+
+def mesh_serve_inputs(cfg, arch: str, dev):
+    """Step (9) / (10)'s prompts (``launch.serve.make_prompts``, seed 0) and,
+    for whisper, seeded bf16 frames, the same on every rank."""
+    import torch
+    from repro_torch.launch.serve import make_prompts
+    spec = MESH_SERVE[arch]
+    prompts = make_prompts(cfg, spec["batch"], spec["prompt"], seed=0,
+                           device=dev)
+    frames = None
+    if "frames" in spec:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        frames = torch.randn((spec["batch"], spec["frames"], cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+    return prompts, frames
+
+
+def mesh_serve_single(dev, arch: str) -> dict:
+    """The gates' reference for step (9) / (10): the same weights (bf16,
+    seed 0) served on one rank with no mesh: the prefill's last logits,
+    then ``MESH_DECODE`` greedy steps, each step's logits and token."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.decode import decode_step, prefill
+    cfg = get_config(arch)
+    spec = MESH_SERVE[arch]
+    params = init_lm(cfg, 0, device=dev, dtype=torch.bfloat16)
+    prompts, frames = mesh_serve_inputs(cfg, arch, dev)
+    with torch.inference_mode():
+        fa.launches = 0
+        logits, state = prefill(params, cfg, prompts, spec["max_len"],
+                                frame_embeds=frames)
+        launches = fa.launches
+        outs, tokens = [logits.float().cpu().numpy()], []
+        for _ in range(MESH_DECODE):
+            tok = logits.argmax(dim=-1)
+            tokens.append(tok.cpu().numpy())
+            logits, state = decode_step(params, cfg, tok, state)
+            outs.append(logits.float().cpu().numpy())
+    del params, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"logits": outs, "tokens": tokens, "launches": launches}
+
+
+def mesh_serve_rank(rank: int, world: int, arch: str, order, feed) -> dict:
+    """Step (9) / (10): serving on (data 2, model 2).  bf16 weights drawn
+    into their shards; the prefill into the decode state laid out by
+    ``decode_state_specs``; ``MESH_DECODE`` decode steps fed the single
+    rank's tokens (``feed``), each step's greedy token from the
+    vocab-split logits (``serve.decode.greedy``) recorded beside it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.bridge import init_sharded
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.device import is_dtensor
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import decode_state_specs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import make_context
+    from repro_torch.serve.decode import decode_step, greedy, prefill
+    dev = dist_rank_device()
+    cfg = get_config(arch)
+    spec = MESH_SERVE[arch]
+    mesh = make_smoke_mesh((2, 2), ranks=order, device="cuda")
+    ctx = make_context(mesh, cfg, RunConfig())
+    t0 = time.perf_counter()
+    params = init_sharded(cfg, ctx.mesh, seed=0, dtype=torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    prompts, frames = mesh_serve_inputs(cfg, arch, dev)
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        fa.launches = 0
+        (logits, state), prefill_ms = timed(lambda: prefill(
+            params, cfg, prompts, spec["max_len"], ctx=ctx,
+            frame_embeds=frames))
+        launches, shape, variant = fa.launches, fa.last_shape, \
+            fa.last_variant
+        outs, agree, step_ms = [logits.full_tensor().float().cpu()
+                                .numpy()], [], []
+        fa.launches = 0
+        for want in feed:
+            mine = greedy(logits, ctx).full_tensor().cpu().numpy()
+            agree.append(float(np.mean(mine == want)))
+            tok = torch.as_tensor(want, device=dev)
+            (logits, state), ms = timed(lambda: decode_step(
+                params, cfg, tok, state, ctx=ctx))
+            step_ms.append(ms)
+            outs.append(logits.full_tensor().float().cpu().numpy())
+        decode_launches = fa.launches
+    _, specs = decode_state_specs(cfg, ShapeConfig(
+        "serve", spec["max_len"], spec["batch"], "decode"), ctx.mesh)
+    placements = {n: (str(tuple(t.placements)),
+                      str(tuple(specs[n].placements)))
+                  for n, t in state.items() if is_dtensor(t)}
+    return {"logits": outs if rank == 0 else None, "agree": agree,
+            "launches": launches, "decode_launches": decode_launches,
+            "last_shape": shape, "variant": variant,
+            "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "placements": placements, "init_s": init_s,
+            "view": tuple(ctx.mesh.mesh.shape),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def mesh_serve_step(dev, arch: str, order, smi: str, label: str) -> dict:
+    """Step (9) / (10) with its gates: the single rank first, then the 4
+    ranks; fails on a missed gate."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.testing import run_ranks
+    cfg = get_config(arch)
+    spec = MESH_SERVE[arch]
+    torch.cuda.empty_cache()
+    one = mesh_serve_single(dev, arch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_serve_rank, DIST_WORLD,
+                      (arch, order, one["tokens"]), workdir=dist_workdir(),
+                      timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    margins = [allclose_margin(torch.as_tensor(g), torch.as_tensor(w),
+                               SERVE_ATOL, SERVE_RTOL)
+               for g, w in zip(r0["logits"], one["logits"])]
+    errs = [float(np.abs(g - w).max())
+            for g, w in zip(r0["logits"], one["logits"])]
+    step_ms = [max(r["step_ms"][i] for r in ranks)
+               for i in range(MESH_DECODE)]
+    prefill_ms = max(r["prefill_ms"] for r in ranks)
+    local = (spec["batch"] // 2, spec["prompt"], cfg.num_heads // 2,
+             cfg.num_kv_heads // 2, cfg.head_dim_)
+    frames = (f", {spec['frames']} bf16 frames a request" if "frames" in spec
+              else "")
+    log(f"4h {arch} served on (data 2, model 2, view {r0['view']}), rank "
+        f"order {order}, full width and depth, bf16 weights drawn into "
+        f"their shards ({r0['init_s']:.1f} s), prompt {spec['batch']} x "
+        f"{spec['prompt']}{frames}, caches of {spec['max_len']} slots split "
+        f"over tp: prefill {prefill_ms:.1f} ms, {MESH_DECODE} decode steps "
+        f"ms " + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f" ({label}); attention launches a prefill by rank "
+        f"{[r['launches'] for r in ranks]} (single rank {one['launches']}),"
+        f" in decode {[r['decode_launches'] for r in ranks]}, last shapes "
+        f"{[r['last_shape'] for r in ranks]}, variant {r0['variant']}; "
+        f"logits vs the single rank's, prefill then each step: max |diff| "
+        + ", ".join(f"{e:.3e}" for e in errs)
+        + f", allclose margin (<= 1 at {SERVE_ATOL} / {SERVE_RTOL}) "
+        f"{max(margins):.3f}; greedy tokens equal to the single rank's, "
+        f"share a step: " + ", ".join(f"{a:.3f}" for a in r0["agree"])
+        + f"; peak GiB by rank {['%.2f' % r['peak_gb'] for r in ranks]}; "
+        f"{smi}; {wall:.1f} s")
+    log(f"4h {arch} decode state placements (as placed; as "
+        f"decode_state_specs places them): {r0['placements']}")
+    if max(margins) > 1:
+        fail(f"4h {arch}: the mesh's logits miss the single rank's "
+             f"(allclose margins {margins})")
+    if one["launches"] != spec["launches"] or any(
+            r["launches"] != spec["launches"] for r in ranks):
+        fail(f"4h {arch}: attention launches a prefill "
+             f"{[r['launches'] for r in ranks]} (single {one['launches']}),"
+             f" expected {spec['launches']}")
+    if any(r["decode_launches"] for r in ranks):
+        fail(f"4h {arch}: decode launched attention "
+             f"{[r['decode_launches'] for r in ranks]} times")
+    if any(tuple(r["last_shape"]) != local for r in ranks):
+        fail(f"4h {arch}: the kernel ran at "
+             f"{[r['last_shape'] for r in ranks]}, not the local {local}")
+    if any(not r["placements"] or any(a != b for a, b in
+                                       r["placements"].values())
+           for r in ranks):
+        fail(f"4h {arch}: the decode state is not placed as "
+             f"decode_state_specs places it")
+    return {"arch": arch, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "launches": r0["launches"], "local_shape": list(local),
+            "variant": r0["variant"], "max_abs_err": errs,
+            "margin": max(margins), "agree": r0["agree"],
+            "peak_gb": [r["peak_gb"] for r in ranks], "wall_s": wall}
 
 
 def profile_split(wall_ms: float, rows) -> dict:
@@ -2652,6 +3163,9 @@ def distributed_phase(smi: str) -> dict:
     work = dist_workdir()
     out = {}
     label = "gloo, host-staged, one card"
+    log(f"4h this process before the ranks start: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
     # (1) the collective probe: 4 ranks, gloo, CUDA tensors, 64 MB
     t0 = time.perf_counter()
@@ -2763,9 +3277,14 @@ def distributed_phase(smi: str) -> dict:
     params = init_lm(mcfg, 0, device=dev, dtype=torch.bfloat16)
     prompts = ep_prompts(mcfg, TRAIN_BATCH, TRAIN_SEQ, dev)
     from repro_torch.models.context import NULL_CTX
-    single = {dt: ep_last_logits(params, dataclasses.replace(mcfg, dtype=dt),
-                                 prompts, NULL_CTX).float().cpu().numpy()
-              for dt in ("float32", "bfloat16")}
+    single = {}
+    for dt in ("float32", "bfloat16"):
+        routes, restore = all_routes_recorder(mcfg.moe_top_k)
+        single[dt] = ep_last_logits(params, dataclasses.replace(
+            mcfg, dtype=dt), prompts, NULL_CTX).float().cpu().numpy()
+        restore()
+        if dt == "float32":
+            single_routes = routes
     del params, prompts
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2803,6 +3322,24 @@ def distributed_phase(smi: str) -> dict:
             if r[dt]["a2a"] != 2 * moe_layers:
                 fail(f"4h ep: {r[dt]['a2a']} all_to_all_single calls, "
                      f"expected 2 per MoE layer ({2 * moe_layers})")
+    flips = ep_route_flips(single_routes, [r["float32"]["routes"]
+                                           for r in ranks], TRAIN_BATCH,
+                           mcfg.moe_top_k)
+    clean = flips["clean_rows"]
+    clean_gap = (float(np.abs(r0["float32"]["last"][clean]
+                              - single["float32"][clean]).max())
+                 if clean else None)
+    row_gaps = np.abs(r0["float32"]["last"] - single["float32"]).max(-1)
+    log(f"4h ep float32 routing against the single rank: "
+        f"{flips['flips']} of {flips['tokens_x_layers']} (token, MoE layer) "
+        f"top-{mcfg.moe_top_k} choices differ; smallest single-rank margin "
+        f"(6th minus 7th probability) at a differing choice "
+        + (f"{flips['min_margin']:.3e}" if flips["min_margin"] is not None
+           else "none")
+        + f"; rows with no differing choice {clean}, their last-position "
+        f"logit gap " + (f"{clean_gap:.3e}" if clean
+                         else "none (every row has one)")
+        + "; the gap by row " + ", ".join(f"{g:.3e}" for g in row_gaps))
     prof = r0["profile"]
     log(f"4h ep profiled bf16 prefill (rank 0): wall {prof['wall_ms']:.1f} "
         f"ms, kernels {prof['kernel_ms']:.1f} ms, idle {prof['idle']:.3f}; "
@@ -2813,13 +3350,26 @@ def distributed_phase(smi: str) -> dict:
                  "max_abs_err": errs, "launches": r0["float32"]["launches"],
                  "a2a_calls": r0["float32"]["a2a"],
                  "local_shape": list(r0["bfloat16"]["last_shape"]),
-                 "peak_gb": [r["peak_gb"] for r in ranks], "profile": prof}
+                 "peak_gb": [r["peak_gb"] for r in ranks], "profile": prof,
+                 "route_flips": flips,
+                 "clean_row_gap": clean_gap,
+                 "row_gaps": [float(g) for g in row_gaps]}
     del ranks
 
     # (5), (6) the ssm and hybrid families: sharded train steps with the
     # recurrence on each rank's local heads
     for arch in SSM_ARCHS:
         out[arch] = ssm_step(dev, arch, order, smi, label)
+
+    # (7), (8) the audio and vlm families: sharded train steps with the
+    # attention kernel on each rank's local heads
+    for arch in MESH_TRAIN:
+        out[arch] = mesh_train_step(dev, arch, order, smi, label)
+
+    # (9), (10) serving under a mesh: a prefill into the sharded decode
+    # state, then decode steps
+    out["serve"] = {arch: mesh_serve_step(dev, arch, order, smi, label)
+                    for arch in MESH_SERVE}
     return out
 
 
@@ -4180,7 +4730,23 @@ def main() -> None:
                     dist["zamba2-2.7b"]["launches_per_step"][
                         "flash_attention"],
                 "local_shape":
-                    dist["zamba2-2.7b"]["local_shape"]["flash_attention"]}},
+                    dist["zamba2-2.7b"]["local_shape"]["flash_attention"]},
+            **{f"train_{arch}": {
+                "mesh": "(data 2, model 2)",
+                "layers": dist[arch]["layers"],
+                "launches_per_rank_per_step":
+                    dist[arch]["launches_per_step"],
+                "variant": dist[arch]["variant"],
+                "local_shape": dist[arch]["local_shape"]}
+               for arch in MESH_TRAIN},
+            **{f"serve_{arch}": {
+                "mesh": "(data 2, model 2)",
+                "launches_per_rank_per_prefill":
+                    dist["serve"][arch]["launches"],
+                "launches_in_decode": 0,
+                "variant": dist["serve"][arch]["variant"],
+                "local_shape": dist["serve"][arch]["local_shape"]}
+               for arch in MESH_SERVE}},
     }, {
         "name": "phase_max", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/phase_max.cu",
@@ -4233,6 +4799,8 @@ def main() -> None:
                       "layers": dist[arch]["layers"],
                       "launches_per_rank_per_step":
                           dist[arch]["launches_per_step"]["rwkv6_chunked"],
+                      "chunk": SSM_CHUNK,
+                      "kernel_chunk": dist[arch]["kernel_chunk"],
                       "local_shape":
                           dist[arch]["local_shape"]["rwkv6_chunked"]}
                for arch in SSM_ARCHS}},

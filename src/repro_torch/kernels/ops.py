@@ -22,7 +22,7 @@ import torch
 
 from ..device import is_dtensor
 from .flash_attention import flash_attention, flash_attention_plain
-from .rwkv6 import rwkv6_fused, rwkv6_fused_plain
+from .rwkv6 import kernel_chunk, rwkv6_fused, rwkv6_fused_plain
 
 
 def _check_device(name: str, *xs: Optional[torch.Tensor]) -> None:
@@ -194,15 +194,20 @@ class _Rwkv6Mix(torch.autograd.Function):
     """The fused recurrence (the kernel, or ``rwkv6_fused_plain`` on the
     CPU) -> (out, final S), both differentiable; the backward recomputes
     through ``models.ssm.chunked_linear_attention_scan``, the reference's
-    chunk scan with its bonus diagonal (``repro/models/ssm.py:36-100``)."""
+    chunk scan with its bonus diagonal (``repro/models/ssm.py:36-100``).
+    On the card a chunk above the kernel's ``MAX_CHUNK`` runs at its largest
+    divisor that the kernel takes (``rwkv6.kernel_chunk``: 128 at 64)."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_decay, bonus, initial_state, chunk: int):
         ctx.save_for_backward(q, k, v, log_decay, bonus, initial_state)
         ctx.chunk = chunk
-        run = rwkv6_fused if q.is_cuda else rwkv6_fused_plain
-        return run(q, k, v, log_decay, bonus=bonus, chunk=chunk,
-                   initial_state=initial_state)
+        if q.is_cuda:
+            return rwkv6_fused(q, k, v, log_decay, bonus=bonus,
+                               chunk=kernel_chunk(q.shape[2], chunk),
+                               initial_state=initial_state)
+        return rwkv6_fused_plain(q, k, v, log_decay, bonus=bonus,
+                                 chunk=chunk, initial_state=initial_state)
 
     @staticmethod
     def backward(ctx, g_out, g_state):

@@ -53,7 +53,8 @@ VB_CHOICES = (8, 16, 32, 64)     # V columns per CTA a caller may name
 NO_SMEM = -2                     # the library's code: the CTA does not fit
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
-last_plan: Optional[dict] = None   # the last launch's VB, threads, loads, smem
+last_plan: Optional[dict] = None   # the last launch's VB, threads, loads,
+#                                    smem and chunk
 last_shape = None     # (B, H, T, K, V) of the last launch
 
 
@@ -63,6 +64,18 @@ def check_chunk(t: int, chunk: int) -> None:
     if chunk < 1 or chunk > MAX_CHUNK or t % chunk:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK} and divide T={t}, "
                          f"got {chunk}")
+
+
+def kernel_chunk(t: int, chunk: int) -> int:
+    """The chunk the kernel runs a call of ``chunk`` at: the largest divisor
+    of ``chunk`` that is at most ``MAX_CHUNK`` (so it divides T wherever
+    ``chunk`` does).  RunConfig's 128, the reference's TPU tile, runs at 64:
+    the recurrence carries its state exactly across chunk boundaries, so a
+    chunk's size changes only the rounding."""
+    if chunk < 1 or t % chunk:
+        raise ValueError(f"chunk must be >= 1 and divide T={t}, got {chunk}")
+    return max(d for d in range(1, min(chunk, MAX_CHUNK) + 1)
+               if chunk % d == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -258,5 +271,6 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     last_shape = (b, h, t, dk, dv)
     last_plan = {"vb": plan[0], "threads": plan[1],
-                 "loads": "ring" if plan[2] else "direct", "smem": plan[3]}
+                 "loads": "ring" if plan[2] else "direct", "smem": plan[3],
+                 "chunk": chunk}
     return out.transpose(1, 2), s_out

@@ -18,6 +18,7 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import is_dtensor
 from ..kernels import ops
@@ -208,17 +209,71 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``cache_len``: the number of valid cache entries, the same for the whole
     batch (the new token is already written into the cache).  Products
     accumulate in float32; the probabilities are cast to the cache dtype
-    before the PV product, as in the reference."""
+    before the PV product, as in the reference.  A DTensor cache (under a
+    mesh) has its slots split over tp: :func:`_sharded_decode_attention`."""
+    if is_dtensor(k_cache):
+        return _sharded_decode_attention(q, k_cache, v_cache, cache_len)
+    return _decode_local(q, k_cache, v_cache, cache_len, 0, ())
+
+
+def _decode_local(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cache_len: int, first: int,
+                  groups) -> torch.Tensor:
+    """``decode_attention`` on a block of the cache's slots, ``first`` ..
+    ``first + L - 1``, whose other blocks lie on the ranks of ``groups``:
+    the softmax's max and denominator and the PV products are summed over
+    them (all-reduces), so every rank ends with the whole output.  With no
+    groups, the one-device softmax: exp(s - max) / sum, then p in the cache
+    dtype, as ``jax.nn.softmax`` and the reference compute it."""
     b, _, hq, hd = q.shape
     lcap, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, hd).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) \
         * (1.0 / math.sqrt(hd))
-    valid = torch.arange(lcap, device=q.device) < cache_len
+    valid = torch.arange(first, first + lcap, device=q.device) < cache_len
     s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
+    m = s.amax(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(den, group=g)
+    p = (e / den).to(v_cache.dtype).float()
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    for g in groups:
+        dist.all_reduce(o, group=g)
     return o.to(q.dtype).reshape(b, 1, hq, hd)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, cache_len: int):
+    """Decode attention over a cache whose slots are split over the tp mesh
+    dims (``launch.dryrun.state_spec``): no rank gathers the cache.  q is
+    laid out with the cache's batch split and its heads whole (a gather of
+    one token's heads); each rank scores its slots, and the softmax's max,
+    its denominator and the PV products are reduced over the slots' split
+    before p is cast to the cache dtype (``_decode_local``), so p rounds as
+    the reference's does.  The output is whole on every rank of the
+    split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.sharding import shard_block
+    mesh, pl = k_cache.device_mesh, list(k_cache.placements)
+    dims = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+            and p.dim == 1]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    block = shard_block(mesh, dims)
+    groups = [mesh.get_group(i) for i in dims]
+
+    def local(ql, kl, vl):
+        return _decode_local(ql, kl, vl, cache_len, block * kl.shape[1],
+                             groups)
+
+    return local_map(local, out_placements=rows,
+                     in_placements=(rows, pl, pl), device_mesh=mesh)(
+        q.redistribute(mesh, rows), k_cache, v_cache)
 
 
 def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):

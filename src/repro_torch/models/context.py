@@ -104,24 +104,3 @@ class ModelContext:
 
 
 NULL_CTX = ModelContext()
-
-# the families and paths the port distributes so far (ROADMAP.md queue 1)
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_mesh(cfg, ctx: ModelContext, what: str = "forward") -> None:
-    """Refuse what the port does not yet run under a mesh, naming the
-    roadmap's queue, instead of running it unsharded."""
-    if ctx.mesh is None:
-        return
-    if what != "forward":
-        raise NotImplementedError(
-            f"{cfg.name}: {what} under a mesh is not ported yet (ROADMAP.md "
-            f"queue 1: 6d, prefill and decode under a mesh, after 6c, audio "
-            f"/ VLM under a mesh); run it without a mesh")
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a mesh is not ported "
-            f"yet (ROADMAP.md queue 1: 6c, audio / VLM under a mesh); the "
-            f"port distributes the {', '.join(MESH_FAMILIES[:-1])} and "
-            f"{MESH_FAMILIES[-1]} families")

@@ -105,7 +105,8 @@ def _expert_ffn(w_up: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(act, w_down.to(h.dtype))
 
 
-def moe_apply_dense(params: Params, x: torch.Tensor, cfg
+def moe_apply_dense(params: Params, x: torch.Tensor, cfg, *,
+                    experts: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux float32 scalar).
 
@@ -115,20 +116,27 @@ def moe_apply_dense(params: Params, x: torch.Tensor, cfg
     scatter writes (``index_put`` without accumulation) where the
     reference adds (``.at[].add``): both give every kept row its token, and
     the writes need no atomics, which the dropped pairs would contend for
-    on the scratch row."""
+    on the scratch row.
+
+    ``experts`` = (first, count): the expert weights hold only experts
+    first .. first + count - 1 (a rank's block under a mesh), and ``y``
+    sums only their part."""
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
+    lo, n = experts or (0, e)
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
     cap = _capacity(t, k, e, cfg.moe_capacity_factor)
     expert_idx, gates, slot, keep, aux = _route(
         params["router"], x_flat, k, e, cap)
-    dst = torch.where(keep, expert_idx * cap + slot, e * cap).reshape(-1)
-    buf = x.new_zeros((e * cap + 1, d)).index_put(
+    keep = keep & (expert_idx >= lo) & (expert_idx < lo + n)
+    dst = torch.where(keep, (expert_idx - lo) * cap + slot,
+                      n * cap).reshape(-1)
+    buf = x.new_zeros((n * cap + 1, d)).index_put(
         (dst,), x_flat.repeat_interleave(k, dim=0))
     out = _expert_ffn(params["w_up"], params["w_gate"], params["w_down"],
-                      buf[:e * cap].reshape(e, cap, d))
-    out_flat = torch.cat([out.reshape(e * cap, d), x.new_zeros((1, d))])
+                      buf[:n * cap].reshape(n, cap, d))
+    out_flat = torch.cat([out.reshape(n * cap, d), x.new_zeros((1, d))])
     fetched = out_flat[dst].reshape(t, k, d)
     y = torch.einsum("tkd,tk->td", fetched, (gates * keep).to(x.dtype))
     if "shared" in params:

@@ -110,7 +110,11 @@ def chunked_linear_attention_scan(q: torch.Tensor, k: torch.Tensor,
 
 def linear_attention_step(q, k, v, log_decay, S,
                           bonus: Optional[torch.Tensor] = None):
-    """Single-token decode step.  q,k,v: (B,H,K/V); S: (B,H,K,V) float32."""
+    """Single-token decode step.  q,k,v: (B,H,K/V); S: (B,H,K,V) float32.
+    Under a mesh (DTensors) each rank steps its own batch rows and heads
+    (:func:`_sharded_step`)."""
+    if is_dtensor(v):
+        return _sharded_step(q, k, v, log_decay, S, bonus)
     ld = log_decay.float().clamp(LOG_DECAY_MIN, 0.0)
     qf, kf, vf = q.float(), k.float(), v.float()
     S_new = torch.exp(ld)[..., None] * S + kf[..., None] * vf[..., None, :]
@@ -121,6 +125,29 @@ def linear_attention_step(q, k, v, log_decay, S,
     else:
         o = torch.einsum("bhk,bhkv->bhv", qf, S_new)
     return o.to(q.dtype), S_new
+
+
+def _sharded_step(q, k, v, log_decay, S, bonus):
+    """``linear_attention_step`` on DTensors: the step is independent per
+    (batch row, head), so every operand is laid out as v's batch and heads
+    split (Mamba2's q, k and log decay are whole over the heads: each rank
+    slices its own, no collective) and each rank steps its block through
+    ``local_map``, as on one device.  DTensor's own rules would flatten the
+    split batch and head dims in the einsums, which torch 2.11 refuses."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = v.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in v.placements]
+    heads = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
+             for p in pl]
+    ins = [t.redistribute(mesh, pl) for t in (q, k, v, log_decay, S)]
+    if bonus is not None:
+        bonus = bonus.redistribute(mesh, heads)
+    return local_map(linear_attention_step, out_placements=(pl, pl),
+                     in_placements=(pl,) * 5 + (None if bonus is None
+                                                else heads,),
+                     device_mesh=mesh)(*ins, bonus)
 
 
 def linear_attention_reference(q, k, v, log_decay, bonus=None,
@@ -170,12 +197,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv, kernel 4.  x: (B,T,D), w: (4,D); state
-    (B,3,D): the trailing context decode carries (zeros when None).
-    Returns (y in x's dtype, the new trailing context)."""
+    (B,3,D): the trailing context decode carries (zeros when None; under
+    a mesh laid out as x before the concatenation).  Returns (y in x's
+    dtype, the new trailing context)."""
     b, t, d = x.shape
     kw = w.shape[0]
     if state is None:
         state = torch.zeros_like(x[:, :1]).expand(b, kw - 1, d)
+    else:
+        state = _laid_out_as(state, x)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     wx = w.to(x.dtype)
     y = xp[:, :t] * wx[0]

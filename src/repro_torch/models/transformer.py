@@ -36,9 +36,9 @@ from ..device import resolve_device
 from .attention import attention_block, attn_init, kv_project
 from .common import (Params, compute_dtype, dense_init, embed_init,
                      norm_apply, norm_init, sinusoidal_positions)
-from ..parallel.sharding import axis_sizes
+from ..parallel.sharding import axis_sizes, shard_block
 from ..train.tree import get_path
-from .context import NULL_CTX, ModelContext, check_mesh
+from .context import NULL_CTX, ModelContext
 from .mlp import mlp_apply, mlp_init
 from .moe import _SumOver, moe_apply_a2a, moe_apply_dense, moe_init
 from .ssm import (mamba2_apply, mamba2_init, rwkv6_channel_mix,
@@ -247,11 +247,12 @@ def _decoder_block(lp: Params, xl: Params, x: torch.Tensor, cfg,
                    kv_sink=None) -> torch.Tensor:
     """An enc-dec decoder layer (``transformer.py:312-322``): the dense
     block, then ``cross_attn``'s norm and cross attention to ``cross``, the
-    encoder's k / v of this layer."""
+    encoder's k / v of this layer; laid out as ``_attention_half`` lays out
+    the self attention."""
     x = _dense_block(lp, x, cfg, ctx, positions, kv_sink)
-    h = norm_apply(cfg.norm, xl["ln"], x)
-    x = x + attention_block(xl["attn"], h, cfg, kv_override=cross)
-    return ctx.shard(x, "dp", "sp", None)
+    h = ctx.shard(norm_apply(cfg.norm, xl["ln"], x), "dp", None, None)
+    a = attention_block(xl["attn"], h, cfg, kv_override=cross)
+    return ctx.shard(x + ctx.shard(a, "dp", "sp", None), "dp", "sp", None)
 
 
 def _moe_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -287,14 +288,9 @@ def _moe_a2a(mp: Params, h: torch.Tensor, cfg, ctx: ModelContext
     from ..parallel.sharding import P, spec_placements
     ep, tp, mesh = ctx.ep_axis, ctx.ep_tp_axis, ctx.mesh
     dmesh = ctx.dmesh
-    specs = {"router": P(None, None), "w_up": P(ep, None, tp),
-             "w_gate": P(ep, None, tp), "w_down": P(ep, tp, None)}
-    if "shared" in mp:
-        specs.update({"shared/w_up": P(None, tp), "shared/w_gate":
-                      P(None, tp), "shared/w_down": P(tp, None)})
-    names = list(specs)
+    layout = expert_layout(mp, ctx)
+    names, ins = list(layout), list(layout.values())
     x_pl = spec_placements(P(ctx.axes.get("dp"), ep, None), mesh)
-    ins = [spec_placements(specs[n], mesh) for n in names]
     grads = [[Partial() if isinstance(p, Replicate) and isinstance(xp, Shard)
               else p for p, xp in zip(pl, x_pl)] for pl in ins]
     leaves = [get_path(mp, n).redistribute(dmesh, pl)
@@ -312,6 +308,21 @@ def _moe_a2a(mp: Params, h: torch.Tensor, cfg, ctx: ModelContext
                    in_placements=(*ins, x_pl),
                    in_grad_placements=(*grads, x_pl), device_mesh=dmesh)
     return fn(*leaves, h.redistribute(dmesh, x_pl))
+
+
+def expert_layout(mp: Params, ctx: ModelContext) -> Dict[str, list]:
+    """The placements, by path, in which each rank reads the MoE layer
+    ``mp`` (``_moe_a2a``, and a decode step's ``serve.decode._moe_decode``):
+    experts E over the EP axis and F over the expert-TP axis, the router
+    and the shared experts' other dims whole."""
+    from ..parallel.sharding import P, spec_placements
+    ep, tp = ctx.ep_axis, ctx.ep_tp_axis
+    specs = {"router": P(None, None), "w_up": P(ep, None, tp),
+             "w_gate": P(ep, None, tp), "w_down": P(ep, tp, None)}
+    if "shared" in mp:
+        specs.update({"shared/w_up": P(None, tp), "shared/w_gate":
+                      P(None, tp), "shared/w_down": P(tp, None)})
+    return {n: spec_placements(s, ctx.mesh) for n, s in specs.items()}
 
 
 def _rwkv6_block(lp: Params, x: torch.Tensor, cfg, ctx: ModelContext,
@@ -377,14 +388,16 @@ def encode(params: Params, cfg, frames: torch.Tensor, *,
     blocks, ``ln_enc``.  Runs in the frames' dtype (``forward`` hands it
     frames cast to the compute dtype, ``prefill`` the frames as given).  As
     in the reference, its self-attention also applies RoPE at
-    ``arange(S_enc)``."""
+    ``arange(S_enc)``.  Under a mesh the output is laid out with the whole
+    sequence: every decoder layer's cross K / V reads all of it."""
     enc = frames + sinusoidal_positions(
         frames.shape[1], cfg.d_model, device=frames.device).to(frames.dtype)
     enc = ctx.shard(enc, "dp", "sp", None)
     block = ctx.maybe_remat(_dense_block)
     for lp in unstack(params["encoder_layers"], cfg.encoder_layers):
         enc = block(lp, enc, cfg, ctx, None, causal=False)
-    return norm_apply(cfg.norm, params["ln_enc"], enc)
+    return ctx.shard(norm_apply(cfg.norm, params["ln_enc"], enc), "dp", None,
+                     None)
 
 
 def cross_kv(params: Params, cfg, enc: torch.Tensor
@@ -427,11 +440,10 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     does.  Other frontends ignore ``patch_embeds``, as the reference's
     ``forward`` does."""
     check_ported(cfg)
-    check_mesh(cfg, ctx)
     s = tokens.shape[1]
     x = _embed(params["embed"], tokens, ctx).to(compute_dtype(cfg))
     if cfg.frontend == "patch" and patch_embeds is not None:
-        x = merge_patches(params, x, patch_embeds)
+        x = merge_patches(params, x, patch_embeds, ctx)
     positions = torch.arange(s, device=tokens.device)[None]
     x = ctx.shard(x, "dp", "sp", None)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -468,16 +480,6 @@ def hidden_states(params: Params, cfg, tokens: torch.Tensor, *,
     return norm_apply(cfg.norm, params["ln_f"], x), aux
 
 
-def _vocab_block(mesh, dims: Sequence[int]) -> int:
-    """This rank's block of a dim split over mesh ``dims`` (in the mesh's
-    order, as DTensor splits it: the first dim's chunks, then each cut by
-    the next)."""
-    coord, block = mesh.get_coordinate(), 0
-    for i in dims:
-        block = block * mesh.size(i) + coord[i]
-    return block
-
-
 def _embed(table: torch.Tensor, tokens: torch.Tensor,
            ctx: ModelContext) -> torch.Tensor:
     """The lookup of ``tokens`` (B, S) in ``table`` (V, D), in the table's
@@ -500,7 +502,7 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor,
             else p for p, r in zip(t_pl, rows)]
 
     def local(tbl, tok):
-        tok = tok - _vocab_block(mesh, dims) * tbl.shape[0]
+        tok = tok - shard_block(mesh, dims) * tbl.shape[0]
         mine = (tok >= 0) & (tok < tbl.shape[0])
         out = F.embedding(torch.where(mine, tok, 0), tbl).masked_fill(
             ~mine[..., None], 0)
@@ -515,19 +517,24 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def merge_patches(params: Params, x: torch.Tensor,
-                  patch_embeds: torch.Tensor) -> torch.Tensor:
+                  patch_embeds: torch.Tensor,
+                  ctx: ModelContext = NULL_CTX) -> torch.Tensor:
     """The vlm stub frontend (``transformer.py:228-232``): patch embeddings
     (B, P, D) cast to the compute dtype of ``x`` (B, S, D) and projected by
     ``patch_proj`` replace the first P token embeddings.  P > S is refused:
     there the reference's merged sequence is P long against S positions,
-    which its RoPE cannot broadcast (ROADMAP.md, deliberate differences)."""
+    which its RoPE cannot broadcast (ROADMAP.md, deliberate differences).
+    Under a mesh both parts of the concatenation are laid out as the
+    embeddings are (rows over dp, the rest whole) before the ``cat`` over
+    the sequence: ``patch_proj``'s columns are split over tp."""
     n = patch_embeds.shape[1]
     if n > x.shape[1]:
         raise ValueError(f"{n} patch embeddings do not fit a sequence of "
                          f"{x.shape[1]} tokens; they replace the first P "
                          f"token embeddings, so P <= S")
     pe = patch_embeds.to(x.dtype) @ params["patch_proj"].to(x.dtype)
-    return torch.cat([pe, x[:, n:]], dim=1)
+    return torch.cat([ctx.shard(pe, "dp", None, None),
+                      ctx.shard(x[:, n:], "dp", None, None)], dim=1)
 
 
 def logits_from_hidden(params: Params, cfg, x: torch.Tensor,
@@ -599,19 +606,15 @@ def _sharded_nll(logits, labels, ctx: ModelContext):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from ..parallel.sharding import P, sanitize_spec, spec_placements
     mesh, n = ctx.dmesh, labels.numel()
     rows = ctx.placements("dp", None)
-    vocab = sanitize_spec(P(None, None, ctx.axes["tp"]), logits, ctx.mesh)
-    lg_pl = spec_placements(P(ctx.axes.get("dp"), None, vocab[2]), ctx.mesh)
-    dims = [i for i, p in enumerate(lg_pl)
-            if isinstance(p, Shard) and p.dim == 2]
+    lg_pl, dims = vocab_split(logits, ctx)
     out = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
 
     def local(lg, lb):
         if not dims:        # the vocab is whole: the single device's sum
             return _nll_sum(lg, lb) / n
-        lo = _vocab_block(mesh, dims) * lg.shape[-1]
+        lo = shard_block(mesh, dims) * lg.shape[-1]
         return _VocabNLL.apply(lg.float(), lb, lo,
                                [mesh.get_group(i) for i in dims]) / n
 
@@ -620,6 +623,20 @@ def _sharded_nll(logits, labels, ctx: ModelContext):
     nll = fn(logits.redistribute(mesh, lg_pl),
              labels.redistribute(mesh, rows))
     return nll.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def vocab_split(logits, ctx: ModelContext) -> Tuple[list, List[int]]:
+    """The layout of logits (B, S, V) read vocab-parallel: rows over dp,
+    the vocab over the tp dims as far as V divides (``sanitize_spec``; a
+    vocab no split divides stays whole); and the mesh dims that split the
+    vocab."""
+    from torch.distributed.tensor import Shard
+
+    from ..parallel.sharding import P, sanitize_spec, spec_placements
+    vocab = sanitize_spec(P(None, None, ctx.axes["tp"]), logits, ctx.mesh)
+    pl = spec_placements(P(ctx.axes.get("dp"), None, vocab[2]), ctx.mesh)
+    return pl, [i for i, p in enumerate(pl)
+                if isinstance(p, Shard) and p.dim == 2]
 
 
 class _VocabNLL(torch.autograd.Function):

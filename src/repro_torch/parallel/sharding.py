@@ -97,6 +97,16 @@ def spec_placements(spec, mesh) -> List:
     return out
 
 
+def shard_block(mesh, dims) -> int:
+    """This rank's block of a tensor dim split over mesh ``dims`` (in the
+    mesh's order, as DTensor splits it: the first dim's chunks, then each
+    cut by the next)."""
+    coord, block = mesh.get_coordinate(), 0
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+    return block
+
+
 def distribute_local(full: torch.Tensor, mesh, placements):
     """The DTensor of ``full`` (the same on every rank) laid out as
     ``placements`` on ``mesh``: each rank copies out its own shard onto the

@@ -32,6 +32,20 @@ recurrence with ``linear_attention_step``, each application point of
 the hybrid's shared block attends against its own cache, and each audio
 decoder layer then attends the token to its cross K/V with
 ``decode_attention``.
+
+Under a mesh (``ctx`` from ``parallel.sharding.make_context``) both entry
+points take the params as ``bridge.place_params`` lays them out and the
+tokens (and frames) as DTensors whose rows split over dp, or plain tensors,
+the same on every rank, which they lay out so.  The decode state is built
+in the reference's ``decode_state_specs`` layout (``kv_cache.
+init_decode_state(view=)``) and filled from the one-pass prefill's sink;
+the prefill runs the attention and recurrence kernels on each rank's local
+heads.  A decode step writes each new K / V on the rank holding its slot,
+and attends over the sequence-split cache with a distributed softmax
+(``models.attention.decode_attention``); the recurrent states step on their
+layouts; MoE layers run every rank's local experts on all B tokens
+(``_moe_decode``).  The logits come back split over the vocab; ``greedy``
+picks the next token from them.
 """
 
 from __future__ import annotations
@@ -39,18 +53,31 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..device import is_dtensor
 from ..models.attention import (decode_attention, out_project, q_project,
                                 qkv_project)
 from ..models.common import apply_rope, compute_dtype, norm_apply
-from ..models.context import NULL_CTX, ModelContext, check_mesh
+from ..models.context import NULL_CTX, ModelContext
 from ..models.mlp import mlp_apply
 from ..models.moe import moe_apply_dense
 from ..models.ssm import mamba2_apply, rwkv6_channel_mix, rwkv6_time_mix
-from ..models.transformer import (attention_stacks, check_ported, cross_kv,
-                                  encode, hidden_states, layer,
-                                  logits_from_hidden, ssm_heads)
-from .kv_cache import cache_names, cache_write, init_decode_state
+from ..models.transformer import (_embed, _unflatten, attention_stacks,
+                                  check_ported, cross_kv, encode,
+                                  expert_layout, hidden_states, layer,
+                                  logits_from_hidden, ssm_heads, vocab_split)
+from ..parallel.sharding import shard_block
+from ..train.tree import get_path
+from .kv_cache import (cache_names, cache_write, fill_cache,
+                       init_decode_state, layer_of, store, write_slots)
+
+
+def _residual(ctx: ModelContext, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """x + y, both laid out as a decode step's activations (rows over dp,
+    the rest whole); the identity layouts without a mesh."""
+    return ctx.shard(x + ctx.shard(y, "dp", None, None), "dp", None, None)
 
 
 def _attn_decode(layer_attn: Dict, x: torch.Tensor, cfg, pos: int,
@@ -66,26 +93,28 @@ def _attn_decode(layer_attn: Dict, x: torch.Tensor, cfg, pos: int,
     return out_project(layer_attn, o.to(x.dtype))
 
 
-def _rwkv6_decode(lp: Dict, x: torch.Tensor, cfg, state: Dict,
-                  i: int) -> torch.Tensor:
+def _rwkv6_decode(lp: Dict, x: torch.Tensor, cfg, state: Dict, i: int,
+                  ctx: ModelContext) -> torch.Tensor:
     """x: (B,1,D); steps layer ``i``'s recurrence and token shifts, writing
     its S and last vectors into ``state`` in place."""
-    h = norm_apply(cfg.norm, lp["ln1"], x)
+    h = ctx.shard(norm_apply(cfg.norm, lp["ln1"], x), "dp", None, None)
     o, st = rwkv6_time_mix(lp["tmix"], h, cfg.rwkv_head_dim,
-                           state={"S": state["rwkv_S"][i],
-                                  "last": state["tmix_last"][i]})
-    x = x + o
-    h = norm_apply(cfg.norm, lp["ln2"], x)
-    o, cmix_last = rwkv6_channel_mix(lp["cmix"], h,
-                                     state=state["cmix_last"][i])
-    state["rwkv_S"][i] = st["S"]
-    state["tmix_last"][i] = st["last"]
-    state["cmix_last"][i] = cmix_last
-    return x + o
+                           state={"S": layer_of(state["rwkv_S"], i),
+                                  "last": ctx.shard(layer_of(
+                                      state["tmix_last"], i), "dp", None)})
+    x = _residual(ctx, x, o)
+    h = ctx.shard(norm_apply(cfg.norm, lp["ln2"], x), "dp", None, None)
+    o, cmix_last = rwkv6_channel_mix(
+        lp["cmix"], h, state=ctx.shard(layer_of(state["cmix_last"], i),
+                                       "dp", None))
+    store(state["rwkv_S"], i, st["S"])
+    store(state["tmix_last"], i, st["last"])
+    store(state["cmix_last"], i, cmix_last)
+    return _residual(ctx, x, o)
 
 
 def _hybrid_decode(params: Dict, x: torch.Tensor, cfg, state: Dict,
-                   pos: int) -> torch.Tensor:
+                   pos: int, ctx: ModelContext) -> torch.Tensor:
     """x: (B,1,D); the reference's hybrid step (``decode.py:87-128``):
     each Mamba2 block steps its recurrence and conv context (written into
     ``state`` in place), each application point of the shared block
@@ -95,22 +124,26 @@ def _hybrid_decode(params: Dict, x: torch.Tensor, cfg, state: Dict,
         h = x
         for i in range(g * k, (g + 1) * k):
             lp = layer(params["layers"], i)
-            o, st = mamba2_apply(lp["mamba"],
-                                 norm_apply(cfg.norm, lp["ln"], h),
-                                 ssm_heads(cfg), cfg.ssm_state,
-                                 cfg.ssm_expand,
-                                 state={"ssm": state["mamba_ssm"][i],
-                                        "conv": state["mamba_conv"][i]})
-            state["mamba_ssm"][i] = st["ssm"]
-            state["mamba_conv"][i] = st["conv"]
-            h = h + o
+            hn = ctx.shard(norm_apply(cfg.norm, lp["ln"], h), "dp", None,
+                           None)
+            o, st = mamba2_apply(lp["mamba"], hn, ssm_heads(cfg),
+                                 cfg.ssm_state, cfg.ssm_expand,
+                                 state={"ssm": layer_of(state["mamba_ssm"],
+                                                        i),
+                                        "conv": layer_of(state["mamba_conv"],
+                                                         i)})
+            store(state["mamba_ssm"], i, st["ssm"])
+            store(state["mamba_conv"], i, st["conv"])
+            h = _residual(ctx, h, o)
         z = torch.cat([h, x0], dim=-1) @ params["shared_proj"].to(h.dtype)
+        z = ctx.shard(z, "dp", None, None)
         zn = norm_apply(cfg.norm, shared["ln1"], z)
-        z = z + _attn_decode(shared["attn"], zn, cfg, pos,
-                             state["k_cache"][g], state["v_cache"][g])
+        z = _residual(ctx, z, _attn_decode(
+            shared["attn"], zn, cfg, pos, layer_of(state["k_cache"], g),
+            layer_of(state["v_cache"], g)))
         zn = norm_apply(cfg.norm, shared["ln2"], z)
-        z = z + mlp_apply(shared["mlp"], zn, cfg.act)
-        x = h + z
+        z = _residual(ctx, z, mlp_apply(shared["mlp"], zn, cfg.act))
+        x = _residual(ctx, h, z)
     return x
 
 
@@ -121,9 +154,91 @@ def _cross_decode(xl: Dict, x: torch.Tensor, cfg, state: Dict,
     (``enc_len`` of them valid), out-project."""
     h = norm_apply(cfg.norm, xl["ln"], x)
     q = q_project(xl["attn"], h, cfg.num_heads, cfg.head_dim_)
-    o = decode_attention(q, state["cross_k"][i], state["cross_v"][i],
-                         state["enc_len"])
+    o = decode_attention(q, layer_of(state["cross_k"], i),
+                         layer_of(state["cross_v"], i), state["enc_len"])
     return out_project(xl["attn"], o.to(x.dtype))
+
+
+def _moe_decode(mp: Dict, h: torch.Tensor, cfg,
+                ctx: ModelContext) -> torch.Tensor:
+    """A decode step's MoE layer on its B tokens: ``moe_apply_dense``.
+    Under a mesh every rank routes all B tokens (gathered, whole) against
+    one capacity, as the single device does, runs its local experts (E
+    over the EP axis, F over the expert-TP axis; ``expert_layout``) and
+    the shared experts' slice of F, and the partial outputs add over the
+    mesh dims that split them."""
+    if ctx.mesh is None:
+        return moe_apply_dense(mp, h, cfg)[0]
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.dmesh
+    layout = expert_layout(mp, ctx)
+    names = list(layout)
+    whole = [Replicate()] * mesh.ndim
+    split = {a: mesh.get_group(a) for a in (ctx.ep_axis, ctx.ep_tp_axis)
+             if a in mesh.mesh_dim_names}
+
+    def local(*args):
+        p = _unflatten(dict(zip(names, args[:-1])))
+        shared, x = p.pop("shared", None), args[-1]
+        n = p["w_up"].shape[0]
+        first = (shard_block(mesh, [mesh.mesh_dim_names.index(ctx.ep_axis)])
+                 * n if ctx.ep_axis in split else 0)
+        y = moe_apply_dense(p, x, cfg, experts=(first, n))[0]
+        for g in split.values():
+            dist.all_reduce(y, group=g)
+        if shared is not None:
+            ys = mlp_apply(shared, x, "silu")
+            if ctx.ep_tp_axis in split:
+                dist.all_reduce(ys, group=split[ctx.ep_tp_axis])
+            y = y + ys
+        return y
+
+    return local_map(local, out_placements=whole,
+                     in_placements=(*layout.values(), whole),
+                     device_mesh=mesh)(
+        *(get_path(mp, n).redistribute(mesh, pl)
+          for n, pl in layout.items()), h.redistribute(mesh, whole))
+
+
+def _rows(x: Optional[torch.Tensor], ctx: ModelContext):
+    """Under a mesh, a plain batch tensor (the same on every rank) laid out
+    by rows over dp; a DTensor or no mesh: as it is."""
+    if x is None or ctx.mesh is None or is_dtensor(x):
+        return x
+    from ..parallel.sharding import distribute_local
+    return distribute_local(x, ctx.dmesh, ctx.placements(
+        "dp", *[None] * (x.dim() - 1)))
+
+
+def greedy(logits: torch.Tensor, ctx: ModelContext = NULL_CTX
+           ) -> torch.Tensor:
+    """The greedy next token (B, 1) of logits (B, 1, V): the first index of
+    the largest logit, as ``argmax`` picks it.  Under a mesh the logits'
+    vocab stays split (as far as V divides, ``sanitize_spec``): each rank
+    takes its block's largest logit and first index, the largest value is
+    reduced over the vocab's mesh dims and then the least index holding
+    it; the token is laid out by rows as the logits are."""
+    if ctx.mesh is None:
+        return logits.argmax(dim=-1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = ctx.dmesh
+    pl, dims = vocab_split(logits, ctx)
+    lg = logits.redistribute(mesh, pl).to_local()
+    idx = lg.argmax(dim=-1)
+    best = lg.gather(-1, idx[..., None])[..., 0].float()
+    top = best.clone()
+    for i in dims:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    idx = idx + shard_block(mesh, dims) * lg.shape[-1]
+    tok = torch.where(best == top, idx, torch.iinfo(idx.dtype).max)
+    for i in dims:
+        dist.all_reduce(tok, op=dist.ReduceOp.MIN, group=mesh.get_group(i))
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    return DTensor.from_local(tok, mesh, rows, run_check=False,
+                              shape=logits.shape[:2],
+                              stride=(logits.shape[1], 1))
 
 
 def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
@@ -133,31 +248,37 @@ def decode_step(params: Dict, cfg, token: torch.Tensor, state: Dict, *,
     The tensors of ``state`` are updated in place and shared with the new
     state; ``cache_len`` advances by one."""
     check_ported(cfg)
-    check_mesh(cfg, ctx, "decode")
-    x = params["embed"][token].to(compute_dtype(cfg))
-    x = ctx.shard(x, "dp", None, None)
-    pos = state["cache_len"]
-    if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            x = _rwkv6_decode(layer(params["layers"], i), x, cfg, state, i)
-    elif cfg.family == "hybrid":
-        x = _hybrid_decode(params, x, cfg, state, pos)
-    else:
-        for key, n, moe in attention_stacks(cfg):
-            kc, vc = (state[name] for name in cache_names(key))
-            for i in range(n):
-                lp = layer(params[key], i)
-                h = norm_apply(cfg.norm, lp["ln1"], x)
-                x = x + _attn_decode(lp["attn"], h, cfg, pos, kc[i], vc[i])
-                h = norm_apply(cfg.norm, lp["ln2"], x)
-                x = x + (moe_apply_dense(lp["moe"], h, cfg)[0] if moe
-                         else mlp_apply(lp["mlp"], h, cfg.act))
-                if cfg.is_encoder_decoder:
-                    x = x + _cross_decode(layer(params["cross_attn"], i), x,
-                                          cfg, state, i)
-    x = norm_apply(cfg.norm, params["ln_f"], x)
-    return logits_from_hidden(params, cfg, x, ctx), {**state,
-                                                     "cache_len": pos + 1}
+    with ctx.scope():
+        x = _embed(params["embed"], _rows(token, ctx), ctx).to(
+            compute_dtype(cfg))
+        x = ctx.shard(x, "dp", None, None)
+        pos = state["cache_len"]
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                x = _rwkv6_decode(layer(params["layers"], i), x, cfg, state,
+                                  i, ctx)
+        elif cfg.family == "hybrid":
+            x = _hybrid_decode(params, x, cfg, state, pos, ctx)
+        else:
+            for key, n, moe in attention_stacks(cfg):
+                kc, vc = (state[name] for name in cache_names(key))
+                for i in range(n):
+                    lp = layer(params[key], i)
+                    h = norm_apply(cfg.norm, lp["ln1"], x)
+                    x = _residual(ctx, x, _attn_decode(
+                        lp["attn"], h, cfg, pos, layer_of(kc, i),
+                        layer_of(vc, i)))
+                    h = norm_apply(cfg.norm, lp["ln2"], x)
+                    x = _residual(ctx, x, _moe_decode(lp["moe"], h, cfg, ctx)
+                                  if moe else mlp_apply(lp["mlp"], h,
+                                                        cfg.act))
+                    if cfg.is_encoder_decoder:
+                        x = _residual(ctx, x, _cross_decode(
+                            layer(params["cross_attn"], i), x, cfg, state,
+                            i))
+        x = norm_apply(cfg.norm, params["ln_f"], x)
+        return logits_from_hidden(params, cfg, x, ctx), {
+            **state, "cache_len": pos + 1}
 
 
 def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
@@ -169,7 +290,7 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
 
     One ``hidden_states`` pass over the prompt.  Attention families: each
     layer's K/V goes into its cache (moe: the dense layers' into
-    ``k/v_cache_dense``) through ``_fill_cache``.  Ssm: each layer's final
+    ``k/v_cache_dense``) through ``fill_cache``.  Ssm: each layer's final
     S and last normed inputs go into the state.  Hybrid: each Mamba2
     block's final S and conv context, and each application point's K/V
     into its own cache.  MoE layers route the whole prompt against one
@@ -177,39 +298,45 @@ def prefill(params: Dict, cfg, tokens: torch.Tensor, max_len: int, *,
     ``frame_embeds`` (B, S_enc, D) first, with ``encoder_params`` (default
     ``params``) for the encoder and the cross K/V projections; then the
     pass over the prompt, each decoder layer cross-attending to its cached
-    cross K/V."""
-    check_mesh(cfg, ctx, "prefill into a decode state")
+    cross K/V.  Under a mesh the state is laid out as ``launch.dryrun.
+    decode_state_specs`` lays it out."""
+    check_ported(cfg)
     b, s = tokens.shape
-    state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
-                              device=tokens.device)
-    cross = None
-    if cfg.is_encoder_decoder:
-        cross = _encode_cross(
-            params if encoder_params is None else encoder_params, cfg,
-            frame_embeds, state, ctx)
-    sink: list = []
-    x, _ = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink,
-                         cross=cross)
-    if cfg.family == "ssm":
-        for i, (S, tmix_last, cmix_last) in enumerate(sink):
-            state["rwkv_S"][i] = S
-            state["tmix_last"][i] = tmix_last
-            state["cmix_last"][i] = cmix_last
-    elif cfg.family == "hybrid":
-        entries = iter(sink)
-        for g in range(cfg.num_layers // cfg.attn_every):
-            for i in range(g * cfg.attn_every, (g + 1) * cfg.attn_every):
-                state["mamba_ssm"][i], state["mamba_conv"][i] = next(entries)
-            _fill_cache(state["k_cache"][g], state["v_cache"][g],
-                        *next(entries))
-    else:
-        kv = iter(sink)
-        for key, n, _ in attention_stacks(cfg):
-            kc, vc = (state[name] for name in cache_names(key))
-            for i in range(n):
-                _fill_cache(kc[i], vc[i], *next(kv))
-    state["cache_len"] = s
-    return logits_from_hidden(params, cfg, x[:, -1:], ctx), state
+    with ctx.scope():
+        tokens = _rows(tokens, ctx)
+        state = init_decode_state(cfg, b, max_len, dtype=compute_dtype(cfg),
+                                  device=tokens.device, view=ctx.mesh)
+        cross = None
+        if cfg.is_encoder_decoder:
+            cross = _encode_cross(
+                params if encoder_params is None else encoder_params, cfg,
+                _rows(frame_embeds, ctx), state, ctx)
+        sink: list = []
+        x, _ = hidden_states(params, cfg, tokens, ctx=ctx, sink=sink,
+                             cross=cross)
+        if cfg.family == "ssm":
+            for i, entry in enumerate(sink):
+                for name, t in zip(("rwkv_S", "tmix_last", "cmix_last"),
+                                   entry):
+                    store(state[name], i, t)
+        elif cfg.family == "hybrid":
+            entries = iter(sink)
+            for g in range(cfg.num_layers // cfg.attn_every):
+                for i in range(g * cfg.attn_every,
+                               (g + 1) * cfg.attn_every):
+                    S, conv = next(entries)
+                    store(state["mamba_ssm"], i, S)
+                    store(state["mamba_conv"], i, conv)
+                fill_cache(layer_of(state["k_cache"], g),
+                           layer_of(state["v_cache"], g), *next(entries))
+        else:
+            kv = iter(sink)
+            for key, n, _ in attention_stacks(cfg):
+                kc, vc = (state[name] for name in cache_names(key))
+                for i in range(n):
+                    fill_cache(layer_of(kc, i), layer_of(vc, i), *next(kv))
+        state["cache_len"] = s
+        return logits_from_hidden(params, cfg, x[:, -1:], ctx), state
 
 
 def _encode_cross(params: Dict, cfg, frame_embeds: Optional[torch.Tensor],
@@ -221,29 +348,19 @@ def _encode_cross(params: Dict, cfg, frame_embeds: Optional[torch.Tensor],
     ``forward`` does); (b) each layer's cross K/V goes into ``cross_k`` /
     ``cross_v`` in the state's dtype, the first ``max_len`` frames of it
     (the rest zero); (c) ``enc_len`` is S_enc, not clamped to ``max_len``.
-    Returns each decoder layer's cached cross K/V cut to the
-    min(S_enc, max_len) rows that decode attends to."""
+    Returns each decoder layer's cross K/V as cached (in the state's dtype),
+    cut to the min(S_enc, max_len) rows that decode attends to."""
     if frame_embeds is None:
         raise ValueError(f"{cfg.name}: the audio family needs frame_embeds "
                          f"(B, S_enc, d_model)")
     enc = encode(params, cfg, frame_embeds, ctx=ctx)
     n = min(enc.shape[1], state["cross_k"].shape[2])
-    ck, cv = state["cross_k"], state["cross_v"]
+    out = []
     for i, (k, v) in enumerate(cross_kv(params, cfg, enc)):
-        ck[i, :, :n] = k[:, :n]
-        cv[i, :, :n] = v[:, :n]
+        kv = (k[:, :n].to(state["cross_k"].dtype),
+              v[:, :n].to(state["cross_v"].dtype))
+        for name, t in zip(("cross_k", "cross_v"), kv):
+            write_slots(layer_of(state[name], i), t, 0)
+        out.append(kv)
     state["enc_len"] = enc.shape[1]
-    return [(ck[i, :, :n], cv[i, :, :n]) for i in range(cfg.num_layers)]
-
-
-def _fill_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> None:
-    """A prompt's K/V (B, S, Hkv, hd) into one layer's cache (B, cap, Hkv,
-    hd), in the cache dtype, at slots pos % cap: for a rolling cache
-    shorter than the prompt, only the last ``cap`` positions, the ones a
-    token-by-token prefill leaves behind."""
-    s, cap = k.shape[1], kc.shape[1]
-    first = max(0, s - cap)
-    slots = torch.arange(first, s, device=k.device) % cap
-    kc[:, slots] = k[:, first:].to(kc.dtype)
-    vc[:, slots] = v[:, first:].to(vc.dtype)
+    return out

@@ -22,6 +22,15 @@ Layouts as the reference's:
           encoder's length, not clamped to ``max_len``
 ``cache_len`` is a Python int, the number of tokens already written.  Unlike
 the reference's functional updates, the port writes the state in place.
+
+Under a mesh (``init_decode_state(..., view=)``) every tensor of the state is
+a DTensor laid out as the reference's ``decode_state_specs`` lays it out
+(``launch.dryrun.state_spec``): the caches' batch over dp and their
+sequence (slots) over tp, the recurrent states' heads over "a", the token
+shifts and the conv context over tp.  Each rank reads and writes its own
+block in place: ``layer_of`` is a layer's view, ``store`` writes a layer
+from a tensor of any layout, and ``cache_write`` / ``fill_cache`` write the
+slots a rank owns.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 from ..models.transformer import attention_stacks, ssm_heads
 
 
@@ -41,8 +50,13 @@ def attn_cache_len(cfg, max_len: int) -> int:
 
 
 def init_decode_state(cfg, batch: int, max_len: int, *,
-                      dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
-    """Zeroed decode state for one model."""
+                      dtype=torch.bfloat16, device="cuda",
+                      view=None) -> Dict[str, Any]:
+    """Zeroed decode state for one model; on the mesh view ``view`` (every
+    rank calls it), each tensor a DTensor of zeros in the layout of
+    ``launch.dryrun.state_spec``, each rank allocating only its block."""
+    if view is not None:
+        return _on_view(cfg, batch, max_len, dtype, view)
     dev = resolve_device(device)
     if cfg.family == "ssm":
         h, k = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
@@ -79,6 +93,98 @@ def init_decode_state(cfg, batch: int, max_len: int, *,
     return state
 
 
+def _on_view(cfg, batch: int, max_len: int, dtype, view) -> Dict[str, Any]:
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..launch.dryrun import state_spec
+    from ..parallel.sharding import compute_mesh, spec_placements
+    mesh = compute_mesh(view)
+    out: Dict[str, Any] = {}
+    for name, leaf in init_decode_state(cfg, batch, max_len, dtype=dtype,
+                                        device="meta").items():
+        if not isinstance(leaf, torch.Tensor):
+            out[name] = leaf
+            continue
+        pl = spec_placements(state_spec(name, leaf, batch, view), view)
+        local = list(leaf.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                local[p.dim] //= mesh.size(i)
+        out[name] = DTensor.from_local(
+            torch.zeros(local, dtype=leaf.dtype,
+                        device=resolve_device(mesh.device_type)),
+            mesh, pl, run_check=False, shape=leaf.shape,
+            stride=leaf.stride())
+    return out
+
+
+def layer_of(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked state tensor, a view: under a mesh the
+    DTensor over each rank's view of its block (no layout splits the layer
+    axis)."""
+    if not is_dtensor(t):
+        return t[i]
+    from torch.distributed.tensor import DTensor, Shard
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    local = t.to_local()[i]
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False,
+                              shape=t.shape[1:],
+                              stride=torch.empty(t.shape[1:],
+                                                 device="meta").stride())
+
+
+def store(t: torch.Tensor, i: int, value: torch.Tensor) -> None:
+    """Layer ``i`` of ``t`` := ``value`` in ``t``'s dtype, in place; under a
+    mesh ``value`` (a DTensor in any layout) is laid out as the layer and
+    each rank copies its block."""
+    if not is_dtensor(t):
+        t[i] = value
+        return
+    dst = layer_of(t, i)
+    dst.to_local().copy_(value.redistribute(dst.device_mesh, dst.placements)
+                         .to_local())
+
+
+def write_slots(cache: torch.Tensor, new: torch.Tensor, first: int) -> None:
+    """Positions ``first`` .. ``first + n - 1`` of ``new`` (B, n, Hkv, hd)
+    into one layer's cache (B, cap, Hkv, hd) at slots pos % cap, in place,
+    in the cache dtype (n <= cap).  Under a mesh the cache's slots are
+    split over the tp dims: ``new`` is laid out with the cache's batch
+    split and its positions whole, and each rank writes the positions
+    whose slots it holds, the rolling ones included."""
+    cap, n = cache.shape[1], new.shape[1]
+    local, lo = cache, 0
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        from ..parallel.sharding import shard_block
+        mesh, pl = cache.device_mesh, cache.placements
+        new = new.redistribute(mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in pl]).to_local()
+        local = cache.to_local()
+        lo = shard_block(mesh, [d for d, p in enumerate(pl) if
+                                isinstance(p, Shard) and p.dim == 1]) \
+            * local.shape[1]
+    slots = torch.arange(first, first + n) % cap
+    mine = (slots >= lo) & (slots < lo + local.shape[1])
+    dev = local.device
+    local[:, (slots[mine] - lo).to(dev)] = \
+        new[:, mine.nonzero()[:, 0].to(dev)].to(local.dtype)
+
+
+def fill_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> None:
+    """A prompt's K/V (B, S, Hkv, hd) into one layer's cache (B, cap, Hkv,
+    hd), in the cache dtype, at slots pos % cap: for a rolling cache
+    shorter than the prompt, only the last ``cap`` positions, the ones a
+    token-by-token prefill leaves behind."""
+    first = max(0, k.shape[1] - kc.shape[1])
+    write_slots(kc, k[:, first:], first)
+    write_slots(vc, v[:, first:], first)
+
+
 def cache_names(stack: str) -> Tuple[str, str]:
     """The k and v cache keys of a stack of ``attention_stacks``."""
     suffix = "_dense" if stack == "dense_layers" else ""
@@ -87,7 +193,7 @@ def cache_names(stack: str) -> Tuple[str, str]:
 
 def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> None:
-    """Write one token (B, 1, Hkv, hd) at slot pos % cap, in place."""
-    slot = pos % k_cache.shape[1]
-    k_cache[:, slot] = k_new[:, 0]
-    v_cache[:, slot] = v_new[:, 0]
+    """Write one token (B, 1, Hkv, hd) at slot pos % cap, in place (under a
+    mesh, on the rank holding the slot)."""
+    write_slots(k_cache, k_new, pos)
+    write_slots(v_cache, v_new, pos)

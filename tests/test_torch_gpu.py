@@ -1389,3 +1389,199 @@ def test_dtensor_redistribute_under_gloo_on_cuda(cuda, tmp_path):
     from repro_torch.testing import run_ranks
     assert run_ranks(_gloo_dtensor_rank, 2, workdir=tmp_path,
                      timeout=120) == [(True, True, True)] * 2
+
+
+# ---------------------------------------------------------------------------
+# RunConfig's chunk 128 and serving under a mesh (ROADMAP 6c, 6d)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("exclusive", [True, False],
+                         ids=["rwkv6", "inclusive"])
+def test_rwkv6_kernel_at_run_config_chunk(cuda, exclusive, dtype):
+    """``ops.rwkv6_mix_state`` at chunk 128 (``RunConfig``'s, above the
+    kernel's ``MAX_CHUNK``) launches the kernel at 64 (``last_plan``) and
+    matches the plain version at chunk 128 on the same inputs: float32
+    within 1e-4 (output and final state), bf16 within one bf16 ulp."""
+    q, k, v, ld, u = _rwkv_inputs(cuda, 2, 4, 512, 64, 64, seed=128,
+                                  bonus=exclusive)
+    q, k, v, ld = (x.to(dtype) for x in (q, k, v, ld))
+    s0 = torch.randn(2, 4, 64, 64, device=cuda)
+    before = kr.launches
+    out, S = ops.rwkv6_mix_state(q, k, v, ld, bonus=u, chunk=128,
+                                 initial_state=s0)
+    torch.cuda.synchronize()
+    assert kr.launches == before + 1 and kr.last_plan["chunk"] == 64
+    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=128,
+                                      initial_state=s0)
+    if dtype == torch.bfloat16:
+        diff = (out.float() - ref.float()).abs()
+        assert (diff <= bf16_bound(ref.float())).all(), diff.max().item()
+    else:
+        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+
+
+RUN_CONFIG_ARCHS = {"rwkv6-3b": {}, "zamba2-2.7b": {"num_layers": 4}}
+
+
+def _run_config_rank(rank, world, arch):
+    """An ssm / hybrid forward through ``make_context`` on a (1, 1) NCCL
+    mesh with ``RunConfig()`` (chunk 128) against no mesh at chunk 128."""
+    from repro_torch.configs import RunConfig, get_config, reduced
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.context import ModelContext
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.bridge import place_params
+    from repro_torch.parallel.sharding import distribute_local, make_context
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = reduced(get_config(arch), dtype="float32",
+                  **RUN_CONFIG_ARCHS[arch])
+    params = init_lm(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                         device=dev)
+    with torch.no_grad():
+        kr.launches = 0
+        want, _ = forward(params, cfg, toks, ctx=ModelContext(ssm_chunk=128))
+        plain_launches, plain_chunk = kr.launches, kr.last_plan["chunk"]
+        ctx = make_context(make_smoke_mesh((1, 1), device="cuda"), cfg,
+                           RunConfig())
+        kr.launches = 0
+        got, _ = forward(place_params(params, cfg, ctx.mesh), cfg,
+                         distribute_local(toks, ctx.dmesh,
+                                          ctx.placements("dp", None)),
+                         ctx=ctx)
+        got = got.full_tensor()
+    torch.cuda.synchronize()
+    return {"chunk": ctx.ssm_chunk, "launches": (plain_launches, kr.launches),
+            "kernel_chunk": (plain_chunk, kr.last_plan["chunk"]),
+            "err": (got - want).abs().max().item(),
+            "bit_exact": torch.equal(got, want), "layers": cfg.num_layers}
+
+
+@pytest.mark.parametrize("arch", list(RUN_CONFIG_ARCHS))
+def test_run_config_chunk_on_a_one_rank_mesh(cuda, arch, tmp_path):
+    """``make_context(mesh, cfg, RunConfig())`` keeps chunk 128; the
+    forward runs the recurrence kernel once a layer at chunk 64, with no
+    fallback, and equals the forward with no mesh at chunk 128 (within
+    1e-6, bit-exactness printed)."""
+    from repro_torch.testing import run_ranks
+    r = run_ranks(_run_config_rank, 1, (arch,), workdir=tmp_path,
+                  timeout=300, backend="nccl")[0]
+    print(f"{arch} RunConfig() on a (1, 1) mesh: max |diff| {r['err']:.3e},"
+          f" bit-exact {r['bit_exact']}")
+    assert r["chunk"] == 128
+    assert r["launches"] == (r["layers"], r["layers"])
+    assert r["kernel_chunk"] == (64, 64)
+    assert r["err"] <= 1e-6
+
+
+SERVE_MESH_ARCHS = {"tinyllama-1.1b": {}, "whisper-base": {},
+                    "tinyllama-swa": {"sliding_window": 8},
+                    "rwkv6-3b": {}, "zamba2-2.7b": {"num_layers": 4}}
+
+
+def _serve_mesh_rank(rank, world, name, dtype):
+    """Prefill and 3 greedy decode steps on a (1, 1) NCCL mesh (the decode
+    state in ``decode_state_specs``' layout, the sequence-split decode
+    attention and cache writes, ``greedy``) and with no mesh."""
+    from repro_torch.bridge import place_params
+    from repro_torch.configs import RunConfig, get_config, reduced
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.parallel.sharding import make_context
+    from repro_torch.serve.decode import decode_step, greedy
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    arch = "tinyllama-1.1b" if name == "tinyllama-swa" else name
+    cfg = reduced(get_config(arch), dtype=dtype, **SERVE_MESH_ARCHS[name])
+    params = init_lm(cfg, 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                         device=dev)
+    frames = (torch.randn((2, 40, cfg.d_model), generator=gen, device=dev)
+              if cfg.is_encoder_decoder else None)
+    ctx = make_context(make_smoke_mesh((1, 1), device="cuda"), cfg,
+                       RunConfig())
+
+    def serve(p, c):
+        outs, caches = [], []
+        with torch.no_grad():
+            lg, st = prefill(p, cfg, toks, 48, ctx=c, frame_embeds=frames)
+            for _ in range(4):
+                outs.append(lg.full_tensor() if c.mesh is not None else lg)
+                lg, st = decode_step(p, cfg, greedy(lg, c), st, ctx=c)
+        for n, t in st.items():
+            if isinstance(t, torch.Tensor):
+                caches.append(t.full_tensor() if c.mesh is not None else t)
+        return outs, caches
+
+    from repro_torch.models.context import ModelContext
+    want, want_state = serve(params, ModelContext(ssm_chunk=ctx.ssm_chunk))
+    got, got_state = serve(place_params(params, cfg, ctx.mesh), ctx)
+    torch.cuda.synchronize()
+    return {"logits_equal": all(torch.equal(a, b) for a, b in
+                                zip(got, want)),
+            "state_equal": all(torch.equal(a, b) for a, b in
+                               zip(got_state, want_state)),
+            "err": max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, want))}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", list(SERVE_MESH_ARCHS))
+def test_serving_on_a_one_rank_mesh_equals_no_mesh(cuda, name, dtype,
+                                                   tmp_path):
+    """Prefill into the mesh's decode state and 3 decode steps on a (1, 1)
+    NCCL mesh equal no mesh bit for bit: every logit and every tensor of
+    the decode state (the caches' writes, rolling ones included, the
+    recurrent states, whisper's cross caches)."""
+    from repro_torch.testing import run_ranks
+    r = run_ranks(_serve_mesh_rank, 1, (name, dtype), workdir=tmp_path,
+                  timeout=300, backend="nccl")[0]
+    assert r["logits_equal"] and r["state_equal"], r["err"]
+
+
+ONE_RANK_ATTENTION = {  # (B, Sq, Skv, Hq, Hkv, hd, causal)
+    "whisper-cross": (4, 224, 1500, 8, 8, 64, False),
+    "phi3-hd96": (2, 512, 512, 32, 32, 96, True)}
+
+
+def _one_rank_attention(rank, world, case):
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import distribute_local, make_context
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    b, sq, skv, hq, hkv, hd, causal = case
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, sq, hq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((b, skv, hkv, hd), generator=gen, device=dev)
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    want = fa.flash_attention(q, k, v, causal=causal)
+    ctx = make_context(make_smoke_mesh((1, 1), device="cuda"),
+                       get_config("tinyllama-1.1b"))
+    pl = ctx.placements("dp", None, "tp", None)
+    fa.launches = 0
+    out = ops.attention(*(distribute_local(x, ctx.dmesh, pl)
+                          for x in (q, k, v)), causal=causal)
+    torch.cuda.synchronize()
+    return {"equal": torch.equal(out.to_local(), want),
+            "launches": fa.launches, "shape": fa.last_shape}
+
+
+@pytest.mark.parametrize("name", list(ONE_RANK_ATTENTION))
+def test_sharded_attention_on_a_one_rank_mesh(cuda, name, tmp_path):
+    """``_sharded_attention`` on a (1, 1) NCCL mesh at whisper's cross
+    shape (non-causal, Sq 224 != Skv 1500) and phi-3's head_dim 96 equals
+    the unsharded kernel bit for bit, in one launch at the whole shape."""
+    from repro_torch.testing import run_ranks
+    case = ONE_RANK_ATTENTION[name]
+    r = run_ranks(_one_rank_attention, 1, (case,), workdir=tmp_path,
+                  timeout=300, backend="nccl")[0]
+    b, sq, skv, hq, hkv, hd, _ = case
+    assert r["equal"] and r["launches"] == 1
+    assert tuple(r["shape"]) == (b, sq, hq, hkv, hd)

@@ -492,6 +492,55 @@ def test_fit_chunk_matches_reference():
         assert TT._fit_chunk(t, 16) == JT._fit_chunk(t, 16), t
 
 
+@pytest.mark.parametrize("t", [2048, 1024, 96, 12])
+def test_kernel_chunk_of_run_configs_chunk(t):
+    """``RunConfig``'s chunk 128 (``make_context``'s) through the model
+    path's ``_fit_chunk`` and then ``kernel_chunk``, the chunk the CUDA path
+    hands the kernel: at most ``MAX_CHUNK``, a divisor of the chunk asked
+    for and of T, and the largest such divisor; a pure function of the
+    shapes, which ``check_chunk`` takes.  At T 2048: 128, run at 64."""
+    from repro_torch.configs import RunConfig
+    asked = TT._fit_chunk(t, RunConfig().ssm_chunk)
+    assert asked == JT._fit_chunk(t, 128)
+    got = kr.kernel_chunk(t, asked)
+    assert got <= kr.MAX_CHUNK and asked % got == 0 and t % got == 0
+    assert got == max(d for d in range(1, kr.MAX_CHUNK + 1)
+                      if asked % d == 0)
+    kr.check_chunk(t, got)
+    if t == 2048:
+        assert (asked, got) == (128, 64)
+    for chunk in (16, 64):
+        assert kr.kernel_chunk(128, chunk) == chunk
+    with pytest.raises(ValueError, match="chunk"):
+        kr.kernel_chunk(100, 128)
+
+
+@pytest.mark.parametrize("with_bonus", [False, True],
+                         ids=["inclusive", "bonus"])
+def test_plain_chunk_128_equals_chunk_16(with_bonus):
+    """The recurrence carries its state exactly across chunk boundaries, so
+    the chunk changes only the rounding: the plain version at chunk 128
+    (what a caller of ``RunConfig()`` asks for) equals chunk 16 within
+    1e-5, output and final state, with a carried initial state.  On
+    float64 values (the plain version then computes in float64), so that
+    the test sees the function: in float32 the two chunks' outputs, of
+    magnitude up to ~20 here, differ by up to 1.4e-4, since e^L over a
+    128-step cumsum spans more of float32's range than over 16."""
+    _, ins = _fused_inputs(11 + with_bonus, 256, "float32", "contiguous",
+                           "model")
+    ins = [x.double() for x in ins]
+    rng = np.random.default_rng(12)
+    u = torch.from_numpy(rng.normal(size=(3, 16)) * 0.2) \
+        if with_bonus else None
+    s0 = torch.from_numpy(rng.normal(size=(2, 3, 16, 8)))
+    a = kr.rwkv6_fused_plain(*ins, bonus=u, chunk=128, initial_state=s0)
+    b = kr.rwkv6_fused_plain(*ins, bonus=u, chunk=16, initial_state=s0)
+    for x, y in zip(a, b):
+        assert x.dtype == torch.float64
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # training: the chunk scan and the autograd Function around the kernel
 # ---------------------------------------------------------------------------

@@ -310,31 +310,52 @@ def test_spec_placements():
 
 
 # ---------------------------------------------------------------------------
-# what the port does not distribute yet: refused, never run unsharded
+# the decode state's layout
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
-def test_unported_families_under_a_mesh_raise(arch):
-    from repro_torch.models import transformer as TT
-    from repro_torch.models.context import ModelContext
-    cfg = tcfg.reduced(tcfg.get_config(arch), dtype="float32")
-    ctx = ModelContext(mesh=object())       # refused before the mesh is used
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TT.forward({}, cfg, torch.zeros((1, 8), dtype=torch.long), ctx=ctx)
+def _reference_decode_state_specs():
+    """The reference's ``decode_state_specs`` with its ``NamedSharding``
+    taken out (it needs a real mesh): each leaf's spec as a tuple.  As in
+    ``_reference_fsdp_spec``, importing ``repro.launch.dryrun`` leaves
+    ``XLA_FLAGS`` as it found it."""
+    before = os.environ.get("XLA_FLAGS")
+    import repro.launch.dryrun as jd
+    if before is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = before
+    return jd
 
 
-@pytest.mark.parametrize("entry", ["prefill", "decode_step"])
-def test_decode_under_a_mesh_raises(entry):
-    from repro_torch.models.context import ModelContext
-    from repro_torch.serve import decode
-    cfg = tcfg.reduced(tcfg.get_config("tinyllama-1.1b"), dtype="float32")
-    ctx = ModelContext(mesh=object())
-    tok = torch.zeros((1, 4), dtype=torch.long)
-    call = {"prefill": lambda: decode.prefill({}, cfg, tok, 8, ctx=ctx),
-            "decode_step": lambda: decode.decode_step({}, cfg, tok[:, :1],
-                                                      {}, ctx=ctx)}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        call()
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("mesh_shape", MESHES,
+                         ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_state_specs_match_reference(arch, mesh_shape, shape_name,
+                                            monkeypatch):
+    """Every decode-state leaf's shape, dtype and spec from the port's
+    ``decode_state_specs`` equal the reference's, on the stub views of
+    ``test_spec_table_matches_reference`` (decode_32k's batch of 128 splits
+    over dp, long_500k's batch of 1 does not)."""
+    jd = _reference_decode_state_specs()
+    monkeypatch.setattr(jd, "NamedSharding", lambda view, spec: spec)
+    tc, jc = tcfg.get_config(arch), jcfg.get_config(arch)
+    view = _view(tc, mesh_shape)
+    jview = SimpleNamespace(axis_names=tuple(view.shape), shape=view.shape)
+    ref_state, ref = jd.decode_state_specs(jc, jcfg.SHAPES[shape_name],
+                                           jview)
+    state, port = TD.decode_state_specs(tc, tcfg.SHAPES[shape_name], view)
+    assert sorted(port) == sorted(ref)
+    for name, spec in ref.items():
+        assert tuple(port[name].spec) == tuple(spec), name
+        leaf = state[name]
+        if isinstance(leaf, torch.Tensor):
+            assert tuple(leaf.shape) == tuple(ref_state[name].shape), name
+            assert str(leaf.dtype).split(".")[-1] == \
+                str(ref_state[name].dtype), name
+            assert leaf.device.type == "meta"
+        else:
+            assert ref_state[name].shape == (), name
 
 
 def test_dryrun_cli_refuses_until_slice_7(capsys):
