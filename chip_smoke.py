@@ -159,7 +159,16 @@ Phases, in order; any failure exits non-zero before the result line:
                attention launches a rank a step at 16 / 2 local heads;
                finite losses; 1 warm-up and 1 timed step (ms, tokens/s),
                each rank's peak memory, one step profiled on rank 0 with
-               gloo's host staging as its own kind.  (4) Expert parallelism
+               gloo's host staging as its own kind.  The warm-up step runs
+               under the dry run's recorder (``launch/hlo_analysis.py``):
+               FLOPs a rank, collectives by op, 22 attention op calls, the
+               same on every rank (phase 7 holds the dry run to it).  After
+               the timed step, one ``adamw_update`` with int8 state from a
+               zero state on that step's grads (clip_norm 0): every leaf's
+               q bit-identical and scale exact against the single rank's
+               int8 update on the gathered leaf (stacked leaves on their
+               first layer); the int8 state's bytes a rank beside
+               float32's.  (4) Expert parallelism
                on (1, 2), 2 gloo ranks: full-width deepseek-moe-16b cut to
                its dense layer and 3 MoE layers (EP_LAYERS), bf16-held
                weights drawn into their shards one rank at a time, one
@@ -309,6 +318,20 @@ Phases, in order; any failure exits non-zero before the result line:
                (B·H 160 and 40); then the recurrence at the Mamba2 path's
                shape and call (float32 operands, q broadcast over the
                heads, bound with q read once).
+  7. dryrun  — the compile-only dry run (``repro_torch.launch.dryrun``:
+               fake tensors of the cuda device on a fake process group, no
+               allocation, no launch), in one background process started
+               after the build and held here: (a) phase 4h step (3)'s cell
+               on a fake (2, 2) mesh: its FLOPs a device and collectives by
+               op equal the real warm-up step's, 22 attention op calls in
+               both, 0 launches in the dry run and 22 in the step; its peak
+               a device logged beside the ranks' max_memory_allocated;
+               (b) tinyllama-1.1b train_4k on the 16 x 16 production mesh
+               (256 fake ranks) at full depth and (c) nemotron-4-340b
+               train_4k pod with int8 AdamW state, cut in depth
+               (DRYRUN_NEMOTRON_LAYERS), both through the CLI into
+               ``artifacts/dryrun_torch/``: status ok, seconds, roofline
+               terms.
 The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
@@ -526,6 +549,17 @@ MESH_SERVE = {"tinyllama-1.1b": dict(batch=4, prompt=2048, max_len=2056,
               "whisper-base": dict(batch=16, prompt=224, frames=1500,
                                    max_len=1536, launches=18)}
 MESH_DECODE = 4
+# Phase 7: the dry run.  Its cells run in one background process started
+# after the build (fake tensors: no allocation, no launch; the process
+# needs only the host's CPU), while the card runs phases 3-6; phase 7 waits
+# for it and holds its results.  (a) phase 4h step (3)'s cell on a fake
+# (2, 2) mesh; (b) tinyllama-1.1b train_4k on the 16 x 16 production mesh
+# at full depth; (c) nemotron-4-340b train_4k pod with int8 AdamW state,
+# cut from 96 to DRYRUN_NEMOTRON_LAYERS layers for the script's time (its
+# 16 microbatches of one row stay the full arch's)
+DRYRUN_NEMOTRON_LAYERS = 2
+DRYRUN_TAG, DRYRUN_DEVICE = "chip", "cuda"
+DRYRUN_TIMEOUT = 900
 # the distributed profiles split gloo's host staging (device <-> host
 # copies) from the other copies
 DIST_KINDS = {"attention": ("attn_fwd",),
@@ -550,13 +584,10 @@ def nvidia_smi() -> str:
 
 
 def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(q, k) pairs the masks leave: the work the kernel must do."""
-    total = 0
-    for q in range(sq):
-        hi = min(skv, q + 1) if causal else skv
-        lo = max(0, q - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
+    """(q, k) pairs the masks leave: the work the kernel must do (the
+    attention op's FLOP formula counts the same)."""
+    from repro_torch.kernels.flash_attention import live_pairs as pairs
+    return pairs(sq, skv, causal, window)
 
 
 def bound(q, k, v, causal, window):
@@ -2232,12 +2263,73 @@ def single_rank_rank(rank: int, world: int, batch: int, seq: int) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def int8_update_check(grads, params, steps: int) -> dict:
+    """Step 3's int8 check: one ``adamw_update`` with ``state_dtype="int8"``
+    from a zero state on the sharded step's grads and params, against the
+    single rank's int8 update on the gathered leaves (rank 0): every q
+    bit-identical, every scale exact.  ``clip_norm`` 0, so a leaf's update
+    is its own; each stacked leaf is held on its first layer (rows update
+    independently), the others whole.  Also the state's bytes a rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import _state_bytes
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.tree import flatten
+    opt8 = OptimizerConfig(lr=1e-3, warmup_steps=steps + 1,
+                           total_steps=steps + 1, clip_norm=0.0,
+                           state_dtype="int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st8, _ = adamw_update(grads, adamw_init(params, opt8), params, opt8)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    g_of, m8, v8 = dict(flatten(grads)), dict(flatten(st8.m)), \
+        dict(flatten(st8.v))
+    out = {"update_ms": update_ms, "int8_bytes": _state_bytes(st8),
+           "leaves": 0, "q_mismatch": [], "scale_mismatch": [],
+           "int8_leaves": 0}
+    for path, p in flatten(params):
+        cut = (lambda x: x[0:1]) if path.startswith("layers/") else \
+            (lambda x: x)
+        p_full = cut(p).full_tensor()
+        g_full = cut(g_of[path]).full_tensor()
+        got = [tuple(cut(t).full_tensor() for t in s) if isinstance(s, tuple)
+               else cut(s).full_tensor() for s in (m8[path], v8[path])]
+        if dist.get_rank() == 0:
+            _, ref, _ = adamw_update({"x": g_full}, adamw_init(
+                {"x": p_full}, opt8), {"x": p_full}, opt8)
+            out["leaves"] += 1
+            for name, mine, want in zip("mv", got, (ref.m["x"], ref.v["x"])):
+                if isinstance(want, tuple) != isinstance(mine, tuple):
+                    out["q_mismatch"].append(f"{path}/{name}: layout")
+                    continue
+                if not isinstance(want, tuple):
+                    if not torch.equal(mine, want):
+                        out["scale_mismatch"].append(f"{path}/{name}")
+                    continue
+                out["int8_leaves"] += name == "m"
+                q, sc = (t.reshape(want[i].shape) for i, t in
+                         enumerate(mine))
+                if not torch.equal(q, want[0]):
+                    out["q_mismatch"].append(f"{path}/{name}")
+                if not torch.equal(sc, want[1]):
+                    out["scale_mismatch"].append(f"{path}/{name}")
+        del p_full, g_full, got
+    del st8
+    torch.cuda.empty_cache()
+    return out
+
+
 def fsdp_tp_rank(rank: int, world: int, order, batch: int, seq: int,
                  warmup: int, timed: int) -> dict:
     """Step 3: FSDP + TP on (data 2, model 2), the rank order of a vclos
     grant.  Full-width tinyllama, float32 masters drawn into their shards,
-    bf16 compute, AdamW float32, remat none; warm-up and timed steps, then
-    one step under torch.profiler on rank 0."""
+    bf16 compute, AdamW float32, remat none; warm-up and timed steps (the
+    first warm-up step under the dry run's recorder: FLOPs a rank,
+    collectives by op, kernel op calls), then one int8 AdamW update on the
+    timed step's grads (``int8_update_check``), then one step under
+    torch.profiler on rank 0."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2245,9 +2337,11 @@ def fsdp_tp_rank(rank: int, world: int, order, batch: int, seq: int,
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticSource
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.dryrun import sharded_param_specs
+    from repro_torch.launch.dryrun import _state_bytes, sharded_param_specs
+    from repro_torch.launch.hlo_analysis import Recorder
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.parallel.sharding import abstract_params, make_context
+    from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import OptimizerConfig, adamw_init
     from repro_torch.train.train_step import make_train_step
     dist_rank_device()
@@ -2266,20 +2360,40 @@ def fsdp_tp_rank(rank: int, world: int, order, batch: int, seq: int,
     state = (params, adamw_init(params, opt_cfg), None)
     source = SyntheticSource(DataConfig(cfg.vocab_size, seq, batch))
     losses, norms, times, launches = [], [], [], []
+    update, captured = ts.adamw_update, {}
+
+    def capture(grads, opt_state, params, opt):
+        captured.update(grads=grads, params=params)
+        return update(grads, opt_state, params, opt)
+    rec = Recorder(device_type="cuda")
     for i in range(steps):
         data = source.batch(i)
         fa.launches = 0
+        ts.adamw_update = capture if i == steps - 1 else update
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        *state, m = step(*state, data)
+        if i == 0:        # the warm-up step, counted as the dry run counts
+            with rec:
+                *state, m = step(*state, data)
+        else:
+            *state, m = step(*state, data)
         torch.cuda.synchronize()
         dist.barrier()
         times.append(time.perf_counter() - t0)
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         launches.append(fa.launches)
+    ts.adamw_update = update
     shape = fa.last_shape
+    stats = rec.stats()
+    recorded = {"flops": rec.flops, "bytes": rec.bytes,
+                "collectives": dict(stats.count),
+                "wire_bytes": stats.total_wire_bytes,
+                "op_calls": dict(rec.op_calls), "launches": launches[0]}
+    int8 = int8_update_check(captured.pop("grads"), captured.pop("params"),
+                             steps)
+    int8["float32_bytes"] = _state_bytes(state[1])
     data = source.batch(steps)
     if rank == 0:
         wall, rows = device_profile("4h fsdp+tp step (rank 0)",
@@ -2293,7 +2407,9 @@ def fsdp_tp_rank(rank: int, world: int, order, batch: int, seq: int,
     return {"losses": losses, "grad_norms": norms, "step_s": times,
             "launches": launches, "last_shape": shape, "init_s": init_s,
             "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
             "finite": bool(np.all(np.isfinite(losses))),
+            "recorded": recorded, "int8": int8,
             "profile": None if rows is None else profile_split(wall, rows)}
 
 
@@ -3255,12 +3371,44 @@ def distributed_phase(smi: str) -> dict:
     if any(tuple(r["last_shape"]) != local for r in ranks):
         fail(f"4h fsdp+tp: kernels ran at {[r['last_shape'] for r in ranks]}"
              f", not the local {local}")
+    rec0 = r0["recorded"]
+    log(f"4h fsdp+tp warm-up step under the dry run's recorder, by rank: "
+        f"FLOPs {[r['recorded']['flops'] for r in ranks]}, collectives "
+        f"{[r['recorded']['collectives'] for r in ranks]}, wire bytes "
+        f"{[r['recorded']['wire_bytes'] for r in ranks]}, bytes accessed "
+        f"{[r['recorded']['bytes'] for r in ranks]}, kernel op calls "
+        f"{[r['recorded']['op_calls'] for r in ranks]}, launches "
+        f"{[r['recorded']['launches'] for r in ranks]}")
+    if any(r["recorded"]["flops"] != rec0["flops"] or
+           r["recorded"]["collectives"] != rec0["collectives"]
+           for r in ranks):
+        fail("4h fsdp+tp: the ranks' recorded warm-up steps differ")
+    if rec0["op_calls"] != {"flash_attention_fwd": cfg.num_layers}:
+        fail(f"4h fsdp+tp: {rec0['op_calls']} kernel op calls recorded, "
+             f"expected {cfg.num_layers}")
+    i8 = r0["int8"]
+    log(f"4h fsdp+tp int8 AdamW update on the timed step's grads "
+        f"(clip_norm 0): {i8['update_ms']:.1f} ms on rank 0; against the "
+        f"single rank's on the gathered leaves ({i8['leaves']} leaves, "
+        f"{i8['int8_leaves']} int8, stacked leaves on their first layer): "
+        f"q mismatches {i8['q_mismatch']}, scale / float mismatches "
+        f"{i8['scale_mismatch']}; state bytes a rank: int8 "
+        f"{[r['int8']['int8_bytes'] for r in ranks]}, float32 "
+        f"{[r['int8']['float32_bytes'] for r in ranks]}")
+    if i8["q_mismatch"] or i8["scale_mismatch"] or not i8["int8_leaves"]:
+        fail("4h fsdp+tp: the sharded int8 AdamW state is not the single "
+             "rank's (q bit-identical, scale exact)")
     prof = r0["profile"]
     log(f"4h fsdp+tp profiled step (rank 0): wall {prof['wall_ms']:.1f} ms, "
         f"kernels {prof['kernel_ms']:.1f} ms, idle {prof['idle']:.3f}; "
         f"device ms by kind: " + ", ".join(
             f"{k} {v:.3f}" for k, v in prof["by_kind"].items() if v))
     out["fsdp_tp"] = {"order": order, "step_ms": step_ms,
+                      "recorded": rec0, "int8": {
+                          k: i8[k] for k in ("update_ms", "leaves",
+                                             "int8_leaves", "int8_bytes",
+                                             "float32_bytes")},
+                      "peak_bytes": [r["peak_bytes"] for r in ranks],
                       "tokens_per_s": tokens / step_ms * 1e3,
                       "losses": r0["losses"], "grad_norms": r0["grad_norms"],
                       "launches_per_step": r0["launches"][0],
@@ -3370,6 +3518,158 @@ def distributed_phase(smi: str) -> dict:
     # state, then decode steps
     out["serve"] = {arch: mesh_serve_step(dev, arch, order, smi, label)
                     for arch in MESH_SERVE}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7. the dry run
+# ---------------------------------------------------------------------------
+
+def dryrun_argv(arch: str, tag: str, layers=None, opt=None) -> list:
+    """The dry run's CLI arguments for a train_4k pod cell."""
+    argv = ["--arch", arch, "--shape", "train_4k", "--mesh", "pod",
+            "--device", DRYRUN_DEVICE, "--force", "--tag", tag]
+    if layers:
+        argv += ["--layers", str(layers)]
+    return argv + (["--opt-state-dtype", opt] if opt else [])
+
+
+def dryrun_child(out_path: str) -> None:
+    """The background process of phase 7: (a) step (3)'s cell on a fake (2,
+    2) mesh through ``lower_cell``; (b), (c) through the CLI's ``main``
+    into ``artifacts/dryrun_torch/``.  Writes what phase 7 reads."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    quiet_dtensor()
+    out = {}
+    shape = ShapeConfig(f"smoke_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                        TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    cell = dryrun.lower_cell(
+        "tinyllama-1.1b", shape.name, False,
+        {"remat": "none", "sequence_parallel": False, "microbatches": 1,
+         "param_dtype": "float32", "skip_aux": True},
+        shape_cfg=shape, mesh_shape=(2, 2), device=DRYRUN_DEVICE)
+    out["a"] = {"cell": cell, "wall_s": time.perf_counter() - t0,
+                "launches": fa.launches + 0,
+                "cuda_initialized": torch.cuda.is_initialized()}
+    tag_c = f"{DRYRUN_TAG}-l{DRYRUN_NEMOTRON_LAYERS}"
+    for key, arch, argv in (
+            ("b", "tinyllama-1.1b", dryrun_argv("tinyllama-1.1b",
+                                                DRYRUN_TAG)),
+            ("c", "nemotron-4-340b", dryrun_argv(
+                "nemotron-4-340b", tag_c, DRYRUN_NEMOTRON_LAYERS, "int8"))):
+        t0 = time.perf_counter()
+        dryrun.main(argv)
+        out[key] = {"arch": arch, "wall_s": time.perf_counter() - t0,
+                    "artifact": dryrun.artifact_path(
+                        arch, "train_4k", "pod",
+                        argv[argv.index("--tag") + 1])}
+    out["launches"] = fa.launches
+    Path(out_path).write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """Phase 7's background process (daemonic: it ends with the script)."""
+    import multiprocessing as mp
+    path = dist_workdir() / "dryrun.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    proc = mp.get_context("spawn").Process(target=dryrun_child,
+                                           args=(str(path),), daemon=True)
+    proc.start()
+    return proc, path, time.perf_counter()
+
+
+def dryrun_phase(started, dist: dict, smi: str) -> dict:
+    """Phase 7: wait for the background dry run and hold it: (a) against
+    step (3)'s warm-up step (FLOPs a rank and collectives by op equal, 22
+    attention op calls in both, 0 launches in the dry run and 22 in the
+    step), (b) and (c) status ok with their roofline terms."""
+    proc, path, t_start = started
+    t0 = time.perf_counter()
+    proc.join(max(1.0, DRYRUN_TIMEOUT - (t0 - t_start)))
+    if proc.is_alive():
+        proc.terminate()
+        fail(f"7 dryrun: the background dry run missed its "
+             f"{DRYRUN_TIMEOUT} s deadline")
+    if proc.exitcode != 0 or not path.exists():
+        fail(f"7 dryrun: the background dry run exited {proc.exitcode}")
+    got = json.loads(path.read_text())
+    waited = time.perf_counter() - t0
+    cell, real = got["a"]["cell"], dist["fsdp_tp"]["recorded"]
+    coll = cell["collectives"]["count"]
+    log(f"7 dryrun (a) phase 4h step (3)'s cell on a fake (2, 2) mesh "
+        f"(tinyllama-1.1b, {TRAIN_BATCH} x {TRAIN_SEQ}, float32 masters, "
+        f"remat none, cuda fake tensors): {cell['status']}, "
+        f"{got['a']['wall_s']:.1f} s (run {cell.get('compile_s')} s); FLOPs "
+        f"a device {cell['cost']['flops']:.6e} vs the real warm-up step's "
+        f"{real['flops']:.6e}; collectives {coll} vs {real['collectives']}; "
+        f"wire bytes {cell['collectives']['total_wire_bytes']:.6e} vs "
+        f"{real['wire_bytes']:.6e}; bytes accessed "
+        f"{cell['cost']['bytes accessed']:.6e} vs {real['bytes']:.6e}; "
+        f"attention op calls {cell['kernel_op_calls']} vs "
+        f"{real['op_calls']}; launches {got['a']['launches']} vs "
+        f"{real['launches']}; CUDA initialised in the dry run's process "
+        f"{got['a']['cuda_initialized']}; peak a device: dry run arguments "
+        f"{cell['memory']['argument_size_in_bytes'] / 2**30:.2f} GiB + temp "
+        f"{cell['memory']['temp_size_in_bytes'] / 2**30:.2f} GiB, real "
+        f"max_memory_allocated by rank "
+        f"{['%.2f' % (b / 2**30) for b in dist['fsdp_tp']['peak_bytes']]} "
+        f"GiB; {smi}")
+    if cell["status"] != "ok":
+        fail(f"7 dryrun (a): {cell.get('error')}")
+    if cell["cost"]["flops"] != real["flops"] or coll != real["collectives"]:
+        fail("7 dryrun (a): the dry run's FLOPs a device or collectives by "
+             "op differ from the real warm-up step's")
+    want = {"flash_attention_fwd": 22}
+    if cell["kernel_op_calls"] != want or real["op_calls"] != want:
+        fail(f"7 dryrun (a): attention op calls {cell['kernel_op_calls']} / "
+             f"{real['op_calls']}, expected 22 in both")
+    if got["a"]["launches"] != 0 or got["launches"] != 0 or \
+            real["launches"] != 22:
+        fail(f"7 dryrun (a): launches {got['a']['launches']} / "
+             f"{got['launches']} in the dry run (expected 0) and "
+             f"{real['launches']} in the step (expected 22)")
+    out = {"a": {"flops": cell["cost"]["flops"], "collectives": coll,
+                 "op_calls": cell["kernel_op_calls"], "launches": 0,
+                 "memory": cell["memory"], "wall_s": got["a"]["wall_s"]}}
+    for key, what in (("b", "tinyllama-1.1b train_4k pod, 16 x 16 fake "
+                            "ranks, full depth"),
+                      ("c", f"nemotron-4-340b train_4k pod, int8 AdamW "
+                            f"state, cut to {DRYRUN_NEMOTRON_LAYERS} of 96 "
+                            f"layers")):
+        art = json.loads(Path(got[key]["artifact"]).read_text())
+        if art.get("status") != "ok":
+            fail(f"7 dryrun ({key}) {what}: {art.get('status')} "
+                 f"{art.get('error')}")
+        roof, ext = art["roofline"], art.get("extrapolation", {})
+        log(f"7 dryrun ({key}) {what}: ok in {got[key]['wall_s']:.1f} s "
+            f"(set-up {art['lower_s']} s, run {art['compile_s']} s, "
+            f"extrapolation's depths {ext.get('aux_compile_s')} s); "
+            f"microbatches {art.get('microbatches')}, remat "
+            f"{art['run_cfg']['remat']}, AdamW "
+            f"{art['run_cfg']['opt_state_dtype']} ({art.get('opt_state_bytes')} "
+            f"bytes a device); FLOPs a device {roof['hlo_flops']:.6e}, bytes "
+            f"{roof['hbm_bytes']:.6e}, wire {roof['wire_bytes']:.6e}; "
+            f"t_compute {roof['t_compute']:.6e} s, t_memory "
+            f"{roof['t_memory']:.6e} s, t_collective "
+            f"{roof['t_collective']:.6e} s, dominant {roof['dominant']}, "
+            f"useful FLOPs {roof['useful_flops_ratio']:.4f}; temp "
+            f"{art['memory']['temp_size_in_bytes'] / 2**30:.2f} GiB a "
+            f"device; collectives {art['collectives']['count']}; kernel op "
+            f"calls {art['kernel_op_calls']}; extrapolation / count: FLOPs "
+            f"{ext.get('flops', 0) / roof['hlo_flops']:.6f}, bytes "
+            f"{ext.get('bytes', 0) / roof['hbm_bytes']:.6f}")
+        out[key] = {"wall_s": got[key]["wall_s"], "lower_s": art["lower_s"],
+                    "run_s": art["compile_s"], "roofline": roof,
+                    "memory": art["memory"],
+                    "opt_state_bytes": art.get("opt_state_bytes"),
+                    "reduced": art.get("reduced")}
+    log(f"phase 7 waited {waited:.1f} s for the background dry run")
     return out
 
 
@@ -4344,6 +4644,9 @@ def main() -> None:
                      f"{fa.built_variant(dtype, hd)} for {dtype} head_dim "
                      f"{hd}, not {want}")
 
+    # 7 (started here, held at the end). the dry run, in the background ---
+    dryrun_started = start_dryrun()
+
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -4683,6 +4986,11 @@ def main() -> None:
     del mq, mk, mv, mld
     log_ptxas("rwkv6", report["rwkv6"])
 
+    # 7. the dry run: step (3)'s cell on fake ranks, the production cells --
+    t0 = time.perf_counter()
+    dry = dryrun_phase(dryrun_started, dist, smi)
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -4723,6 +5031,11 @@ def main() -> None:
                 "launches_per_rank": dist["ep"]["launches"],
                 "local_shape": dist["ep"]["local_shape"]},
             "world1_nccl_launches": dist["world1"]["launches"],
+            "dryrun_fake_2x2": {
+                "op": "repro_torch::flash_attention_fwd",
+                "op_calls": dry["a"]["op_calls"]["flash_attention_fwd"],
+                "launches": dry["a"]["launches"],
+                "flops_per_device": dry["a"]["flops"]},
             "hybrid_zamba2": {
                 "mesh": "(data 2, model 2)",
                 "layers": dist["zamba2-2.7b"]["layers"],

@@ -19,9 +19,12 @@ Optimizer state crosses the same way: the reference's ``AdamWState(step,
 m, v)`` as numpy (``jax.tree_util.tree_map(np.asarray, state)``; an int8
 leaf is a (q, scale) tuple, a bf16 leaf an ``ml_dtypes`` array) becomes the
 port's ``train.optimizer.AdamWState`` and back, so both packages take one
-update from the same state.  The error-feedback state is a float32 tree
-like the params and crosses with ``params_from_numpy`` /
-``params_to_numpy``.
+update from the same state.  Under a mesh (``params=`` DTensors) a state
+leaf is laid out as its param's state (an int8 leaf's q (*lead, blocks,
+128) in ``optimizer.int8_layout``'s placements), and a sharded state comes
+back gathered, int8 leaves in the reference's (rows, blocks, 128).  The
+error-feedback state is a float32 tree like the params and crosses with
+``params_from_numpy`` / ``params_to_numpy``.
 
 Under a mesh, ``place_params`` lays a bridged (or port-initialised) tree
 out by ``launch.dryrun.sharded_param_specs``, leaf by leaf: each rank keeps
@@ -59,8 +62,10 @@ def _from_numpy(x, dev, dtype=None):
 def _to_numpy(x):
     if isinstance(x, dict):
         return {k: _to_numpy(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(_to_numpy(p) for p in x)
+    if isinstance(x, tuple):              # int8 (q, scale): (rows, b, *)
+        return tuple(_to_numpy(p).reshape(-1, *p.shape[-2:]) for p in x)
+    if is_dtensor(x):
+        x = x.full_tensor()
     t = x.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -78,17 +83,35 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     return _to_numpy(params)
 
 
-def opt_state_from_numpy(state, *, device="cuda") -> AdamWState:
+def opt_state_from_numpy(state, *, device="cuda",
+                         params=None) -> AdamWState:
     """The reference's ``AdamWState`` as numpy -> the port's on ``device``,
     every leaf in its dtype (float32, bf16, or int8 q with float32
-    scale)."""
+    scale); with ``params`` (DTensors, every rank the same ``state``) laid
+    out as each param's state on its mesh."""
     dev = resolve_device(device)
-    return AdamWState(*(_from_numpy(x, dev) for x in state))
+    out = AdamWState(*(_from_numpy(x, dev) for x in state))
+    if params is None:
+        return out
+    from .parallel.sharding import distribute_local
+    from .train.optimizer import int8_layout, int8_shapes
+
+    def place(path, leaf):
+        p = get_path(params, path)
+        if not isinstance(leaf, tuple):
+            return _place(leaf, p)
+        mesh = p.device_mesh
+        pl = int8_layout(p.shape, mesh, p.placements)
+        return tuple(distribute_local(part.reshape(shape), mesh, pl)
+                     for part, shape in zip(leaf, int8_shapes(p.shape)))
+    return AdamWState(out.step, tree_map_with_path(place, out.m),
+                      tree_map_with_path(place, out.v))
 
 
 def opt_state_to_numpy(state: AdamWState) -> AdamWState:
     """The port's ``AdamWState`` -> numpy leaves in the same tree (bf16
-    leaves come back as float32, which holds them exactly)."""
+    leaves come back as float32, which holds them exactly; DTensor leaves
+    gathered, every rank taking part)."""
     return AdamWState(*(_to_numpy(x) for x in state))
 
 

@@ -111,6 +111,24 @@ class ModelConfig:
         total += v * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        nq, nkv = self.num_heads, self.num_kv_heads
+        attn = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+        ef = self.moe_d_ff or f
+        active_mlp = 3 * d * ef * (self.moe_top_k + self.moe_shared_experts)
+        router = d * self.moe_num_experts
+        dense = self.moe_first_dense
+        total = dense * (attn + 3 * d * f + 2 * d)
+        total += (self.num_layers - dense) * (attn + active_mlp + router
+                                              + 2 * d)
+        total += v * d * (1 if self.tie_embeddings else 2)
+        return total
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -16,6 +16,10 @@ Both take q (B, Sq, Hq, hd) and k/v (B, Skv, Hkv, hd) with Hq a multiple of
 Hkv; q head h reads kv head h // (Hq // Hkv).  As in the reference kernel,
 the causal mask assumes q and k positions both start at 0, so this is the
 attention of a full-sequence pass (forward, one-pass prefill), not of decode.
+
+The model path reaches both through one registered op,
+``torch.ops.repro_torch.flash_attention_fwd`` (``kernels/ops.py``), whose
+FLOP formula is :func:`flops`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import build
@@ -65,7 +70,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1).clamp_min(1e-20)                        # (b, h, g, q)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(wide))
     o = o / l.permute(0, 3, 1, 2)[..., None]
-    return o.reshape(b, sq, hq, hd).to(q.dtype)
+    return o.reshape(b, sq, hq, hd).to(q.dtype).contiguous()
+
+
+def live_pairs(sq: int, skv: int, causal: bool,
+               window: Optional[int]) -> int:
+    """The (q, k) pairs the masks leave: q row i sees keys [max(0, i -
+    window + 1), min(Skv, i + 1)) causal, [.., Skv) otherwise."""
+    rows = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, rows + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, rows - window + 1) if window else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flops(b: int, sq: int, skv: int, hq: int, hd: int, causal: bool,
+          window: Optional[int]) -> int:
+    """The work of one call, as ``PERF.md`` §2 prices the kernel's bound:
+    4·B·Hq·hd per live (q, k) pair (QKᵀ and PV, a multiply and an add
+    each)."""
+    return 4 * b * hq * hd * live_pairs(sq, skv, causal, window)
 
 
 # The kernel variants of csrc/flash_attention.cu, by the code its
@@ -188,3 +211,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     last_variant = variant
     last_shape = (b, sq, hq, hkv, hd)
     return out
+

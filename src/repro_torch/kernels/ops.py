@@ -1,7 +1,15 @@
 """Public entry to the port's kernels, differentiable.
 
 A CUDA tensor goes to the Hopper kernel, a CPU tensor to the kernel's plain
-version.  There is no fallback: a CUDA input that the kernel refuses raises.
+version, both through the kernel's registered op
+(``torch.ops.repro_torch.flash_attention_fwd`` / ``rwkv6_fused_fwd``,
+below): its ``cuda`` kernel is the wrapper, its ``cpu`` kernel the plain
+version, its fake kernel the outputs' shapes, dtypes and strides, and a
+FLOP formula is registered for it (``flash_attention.flops``,
+``rwkv6.flops``).  So dispatch modes (``launch/hlo_analysis.py``'s
+recorder, fake tensors) see each call as one op, and a fake tensor never
+reaches a ctypes call.  There is no fallback: a CUDA input that the kernel
+refuses raises.
 Each model kernel sits inside an autograd ``Function`` whose backward
 recomputes through the reference's differentiable plain formulation, as the
 reference trains its Pallas forward (``repro/kernels/ops.py:41-72``): the
@@ -20,7 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from ..device import is_dtensor
+from . import flash_attention as _fa
+from . import rwkv6 as _kr
 from .flash_attention import flash_attention, flash_attention_plain
 from .rwkv6 import kernel_chunk, rwkv6_fused, rwkv6_fused_plain
 
@@ -36,6 +48,79 @@ def _check_device(name: str, *xs: Optional[torch.Tensor]) -> None:
                 f"rank's shard through local_map")
         if not x.is_cuda and x.device.type != "cpu":
             raise ValueError(f"{name}: no path for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# the registered ops
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The attention forward as one op: the plain version on the CPU, the
+    kernel on CUDA; a contiguous (B, Sq, Hq, hd) in q's dtype."""
+    return flash_attention_plain(q, k, v, causal, window)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, causal, window):
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *,
+                           out_shape=None, **kwargs) -> int:
+    b, sq, hq, hd = q_shape
+    return _fa.flops(b, sq, k_shape[1], hq, hd, causal, window)
+
+
+def _rwkv6_out(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An empty (B, H, T, V) output in q's dtype laid out as the kernel
+    writes it: a view of a (B, T, H, V) tensor."""
+    b, h, t, _ = q.shape
+    return q.new_empty((b, t, h, dv)).transpose(1, 2)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_fused_fwd", mutates_args=(),
+                         device_types="cpu")
+def rwkv6_fused_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_decay: torch.Tensor, bonus: Optional[torch.Tensor],
+                   initial_state: Optional[torch.Tensor], chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused recurrence as one op at ``chunk``, the chunk the kernel
+    runs (``kernel_chunk``'s on the card): the plain version on the CPU,
+    the kernel on CUDA; (out (B, H, T, V) in q's dtype in the kernel's
+    layout, final S (B, H, K, V))."""
+    out, s = rwkv6_fused_plain(q, k, v, log_decay, bonus=bonus, chunk=chunk,
+                               initial_state=initial_state)
+    return _rwkv6_out(q, v.shape[-1]).copy_(out), s.contiguous()
+
+
+@rwkv6_fused_op.register_kernel("cuda")
+def _rwkv6_fused_cuda(q, k, v, log_decay, bonus, initial_state, chunk):
+    return rwkv6_fused(q, k, v, log_decay, bonus=bonus, chunk=chunk,
+                       initial_state=initial_state)
+
+
+@rwkv6_fused_op.register_fake
+def _rwkv6_fused_fake(q, k, v, log_decay, bonus, initial_state, chunk):
+    b, h, _, dk = q.shape
+    dv = v.shape[-1]
+    wide = torch.promote_types(q.dtype, torch.float32)
+    return _rwkv6_out(q, dv), q.new_empty((b, h, dk, dv), dtype=wide)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_fused_fwd)
+def _rwkv6_fused_flops(q_shape, k_shape, v_shape, ld_shape, bonus_shape,
+                       s0_shape, chunk, *, out_shape=None, **kwargs) -> int:
+    b, h, t, dk = q_shape
+    return _kr.flops(b, h, t, dk, v_shape[-1], chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -127,9 +212,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if q.is_cuda:
-            return flash_attention(q, k, v, causal=causal, window=window)
-        return flash_attention_plain(q, k, v, causal, window)
+        return flash_attention_op(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, g):
@@ -202,12 +285,8 @@ class _Rwkv6Mix(torch.autograd.Function):
     def forward(ctx, q, k, v, log_decay, bonus, initial_state, chunk: int):
         ctx.save_for_backward(q, k, v, log_decay, bonus, initial_state)
         ctx.chunk = chunk
-        if q.is_cuda:
-            return rwkv6_fused(q, k, v, log_decay, bonus=bonus,
-                               chunk=kernel_chunk(q.shape[2], chunk),
-                               initial_state=initial_state)
-        return rwkv6_fused_plain(q, k, v, log_decay, bonus=bonus,
-                                 chunk=chunk, initial_state=initial_state)
+        run = kernel_chunk(q.shape[2], chunk) if q.is_cuda else chunk
+        return rwkv6_fused_op(q, k, v, log_decay, bonus, initial_state, run)
 
     @staticmethod
     def backward(ctx, g_out, g_state):

@@ -35,6 +35,10 @@ design.
 ``rwkv6_chunked_plain`` → the bonus diagonal, for the CPU path and the
 on-card comparisons.  ``rwkv6_chunked_plain`` on its own is the
 counterpart of ``_rwkv_kernel``, on the precomputed float32 inputs.
+
+The model path reaches both through one registered op,
+``torch.ops.repro_torch.rwkv6_fused_fwd`` (``kernels/ops.py``), whose FLOP
+formula is :func:`flops`.
 """
 
 from __future__ import annotations
@@ -76,6 +80,15 @@ def kernel_chunk(t: int, chunk: int) -> int:
         raise ValueError(f"chunk must be >= 1 and divide T={t}, got {chunk}")
     return max(d for d in range(1, min(chunk, MAX_CHUNK) + 1)
                if chunk % d == 0)
+
+
+def flops(b: int, h: int, t: int, dk: int, dv: int, chunk: int) -> int:
+    """The work of one call at the kernel's chunk c, per (B, H) T·(2c·(K +
+    V) + 4·K·V): each chunk's c x c scores against K and their product with
+    V (the whole square, as the tensor cores run it), and per token the
+    cross-chunk read q·S and the state update kᵀ·v (K·V multiply-adds
+    each)."""
+    return b * h * t * (2 * chunk * (dk + dv) + 4 * dk * dv)
 
 
 # ---------------------------------------------------------------------------
@@ -274,3 +287,4 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  "loads": "ring" if plan[2] else "direct", "smem": plan[3],
                  "chunk": chunk}
     return out.transpose(1, 2), s_out
+

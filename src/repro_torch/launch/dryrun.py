@@ -1,29 +1,115 @@
-"""Parameter and decode-state placements for a sharded run: the part of the
-reference's ``repro/launch/dryrun.py`` that its distributed tests and the
-sharded serving path use (``_fsdp_spec``, ``sharded_param_specs``,
-``decode_state_specs``).
+"""Multi-pod dry run: every (arch × shape × mesh) cell counted at the work
+one device does, with no allocation and no launch.  The port of
+``repro/launch/dryrun.py``.
 
-The dry run itself (lower and compile every arch × shape × mesh cell, no
-allocation) is slice 7 of the port (compile-only analysis): ``python -m
-repro_torch.launch.dryrun`` exits 2 naming it, as ``sweep dryrun`` does.
+The reference lowers and compiles each cell with XLA against abstract
+inputs and reads the compiled module.  PyTorch compiles nothing, so a cell
+here runs its step once on fake tensors:
+
+  1. a fake process group of the production mesh's size (16 x 16 single pod,
+     2 x 16 x 16 multi-pod; the ``fake`` backend of
+     ``torch.testing._internal.distributed.fake_pg``) if none exists, and the
+     mesh on it (``launch/mesh.py``, ``cuda`` as the mesh device); the
+     group is destroyed on every way out, so a process that runs a cell can
+     run a real group afterwards;
+  2. the arch's mesh view and sharding rules (``parallel/sharding.py``), the
+     params as fake DTensors in their shards (bf16, as the reference's), the
+     shape's inputs or decode state, the AdamW state (float32, bf16 or
+     blockwise int8);
+  3. the train step (train shapes), a prefill forward or a decode step run
+     once under ``FakeTensorMode`` and ``launch/hlo_analysis.py``'s
+     :class:`Recorder`, which counts every op at the shapes rank 0 runs it:
+     FLOPs, bytes, collectives, the kernels' registered op calls, memory;
+  4. those counts, the roofline terms of the H100 and the cell's timings
+     into ``artifacts/dryrun_torch/<cell>.json``, under the reference's JSON
+     keys (``artifacts/dryrun/`` is the reference's).
+
+The modelled device is the H100.  A fake tensor holds no memory and a fake
+kernel call launches nothing (the kernels run behind registered ops whose
+fake kernels give only shapes, ``kernels/ops.py``), so a cell needs no card:
+``--device cuda`` needs a PyTorch built with CUDA, and ``--device cpu`` runs
+the same count on a CPU-only build (the ops dispatch alike; only the
+recurrence's chunk differs, the card's kernel running chunks above 64 at
+``kernels.rwkv6.kernel_chunk``'s divisor).
+
+Differences from the reference, each deliberate:
+  * The count is exact at full depth: the port's layers and microbatches are
+    a Python loop, and the recorder sees every iteration, where XLA's
+    ``cost_analysis`` counts a ``while`` body once.  ``roofline`` is that
+    count; ``extrapolate_roofline`` (the reference's formula from two small
+    depths, the reference's only source) is recorded under
+    ``extrapolation`` as a check that the count is linear in depth.
+  * The reference's XLA-tiling fields (``block_q``, ``block_k``,
+    ``full_unroll``) and ``_aux_ctx``'s larger chunk for the unrolled
+    variants exist to bound XLA's compile time.  The port has none of them
+    and no ``_aux_ctx``: its attention forward is the kernel (work = live
+    pairs, whatever the tiles) and its backward recomputes at
+    ``blocked_attention``'s own 512 tiles, so the variants run the cell's
+    own context.
+  * ``memory`` comes from the recorder, not ``MemTracker``: under DTensor
+    ``MemTracker`` also counts the global-shape tensors of DTensor's
+    sharding propagation, which no rank holds.
+  * ``compile_s`` is the recorded run's wall time and ``lower_s`` the
+    set-up's (mesh, fake params, state); ``hlo_bytes`` is absent, and
+    ``ops`` counts the recorded ops instead.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \
+      --shape train_4k --mesh pod            # one cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both]
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses as _dc
+import json
 import math
-import sys
-from typing import Any, Dict, Tuple
+import os
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..configs import SHAPES, get_config, list_configs
+from ..configs.base import RunConfig
 from ..parallel.sharding import (_STACKED, DP, NamedSharding, P, _path_str,
-                                 axis_sizes, param_spec, sanitize_spec)
-from ..train.tree import tree_map_with_path
+                                 abstract_params, axis_sizes, make_context,
+                                 param_spec, sanitize_spec)
+from ..train.tree import flatten, leaves, tree_map_with_path
+from .hlo_analysis import (Recorder, Roofline, cost_summary, memory_summary)
 
-REFUSAL = ("dryrun: lowering and compiling model cells is slice 7 of the "
-           "port (compile-only analysis, ROADMAP.md queue 1); this module "
-           "has only sharded_param_specs and decode_state_specs so far.  Run the reference's "
-           "`python -m repro.launch.dryrun` for the dry run")
+ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / \
+    "dryrun_torch"
+
+
+def cell_supported(cfg, shape_name: str) -> Optional[str]:
+    """long_500k is only runnable on sub-quadratic archs (DESIGN.md §5)."""
+    if shape_name == "long_500k" and not get_config(cfg.name).sub_quadratic:
+        return ("full-attention arch: 500k-token KV cache/score matrix is "
+                "unbounded — skipped per DESIGN.md §5")
+    return None
+
+
+def default_microbatches(cfg, shape_cfg, dp: int) -> int:
+    """Grad-accumulation factor: one microbatch of a row per DP shard for
+    the memory-bound cells (over 100 B params, or sequences over 8192),
+    else an eighth of a shard's rows."""
+    per_dp = max(shape_cfg.global_batch // dp, 1)
+    if cfg.param_count() > 100e9 or shape_cfg.seq_len > 8192:
+        return per_dp
+    return max(per_dp // 8, 1)
+
+
+def default_run_overrides(cfg) -> Dict[str, Any]:
+    """Per-arch execution defaults: full remat for 100B+ archs and the ssm
+    and hybrid families, ``dots`` for the other dense and moe archs."""
+    big = cfg.param_count() > 100e9
+    if big or cfg.family in ("ssm", "hybrid"):
+        return {"remat": "full"}
+    return {"remat": "dots"}
 
 
 # ---------------------------------------------------------------------------
@@ -110,9 +196,493 @@ def decode_state_specs(cfg, shape_cfg, view
                    for k, v in state.items()}
 
 
+# ---------------------------------------------------------------------------
+# the fake world: a process group, tensors and state that hold nothing
+# ---------------------------------------------------------------------------
+
+class FakeWorld:
+    """A fake process group of ``world`` ranks, this process rank 0, for
+    the block.  It is made only if no group exists, and then destroyed when
+    the block is left, however it is left.  Meshes are made inside it and
+    outside ``FakeTensorMode`` (a mesh reads its rank tensor's values)."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.made = False
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        if not dist.is_initialized():
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=self.world)
+            self.made = True
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        if self.made:
+            dist.destroy_process_group()
+        return False
+
+
+class Failure:
+    """Records an ``Exception`` raised in its block as ``error`` and
+    ``traceback`` (the reference records a failed cell as an artifact with
+    status "error": a bug to fix) and lets anything else through."""
+
+    def __init__(self):
+        self.error = None
+        self.traceback = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, exc, tb):
+        if exc is None or not isinstance(exc, Exception):
+            return False
+        self.error = f"{typ.__name__}: {exc}"
+        self.traceback = "".join(
+            traceback.format_exception(typ, exc, tb))[-4000:]
+        return True
+
+
+def check_device(device: str) -> torch.device:
+    """The fake tensors' device: ``cuda`` (the H100 the cell models) needs a
+    PyTorch built with CUDA, not a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.backends.cuda.is_built():
+        raise RuntimeError(
+            "dryrun: --device cuda needs a PyTorch built with CUDA (a fake "
+            "cuda tensor needs no card); pass --device cpu on a CPU-only "
+            "build")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"dryrun: no path for device {dev}")
+    return dev
+
+
+def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            if out[p.dim] % mesh.size(i):
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split evenly {mesh.size(i)} ways")
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def fake_dtensor(shape, dtype, device, mesh, placements):
+    """An empty DTensor of global ``shape`` laid out as ``placements`` on
+    ``mesh`` (inside ``FakeWorld``: fake, each rank's shard)."""
+    from torch.distributed.tensor import DTensor
+    local = torch.empty(_local_shape(shape, mesh, placements), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def fake_params(cfg, view, device, dtype):
+    """(params as DTensors in their shards, their ``sharded_param_specs``);
+    with no ``view``, (plain fake params, None)."""
+    abstract = abstract_params(cfg, dtype=dtype)
+    if view is None:
+        return tree_map_with_path(lambda path, leaf: torch.empty(
+            leaf.shape, dtype=leaf.dtype, device=device), abstract), None
+    shard = sharded_param_specs(abstract, cfg, view)
+    shard_of = dict(flatten(shard))
+    params = tree_map_with_path(
+        lambda path, leaf: fake_dtensor(
+            leaf.shape, leaf.dtype, device, shard_of[path].device_mesh,
+            shard_of[path].placements), abstract)
+    return params, shard
+
+
+def fake_batch(cfg, shape_cfg, device) -> Dict[str, torch.Tensor]:
+    """The shape's inputs (``input_specs``' tensors) as fake tensors, every
+    rank holding the global batch, as ``SyntheticSource`` gives it."""
+    from ..parallel.sharding import input_specs
+    return {n: torch.zeros(x.shape, dtype=x.dtype, device=device)
+            for n, x in input_specs(cfg, shape_cfg).items()}
+
+
+def _local_bytes(tree) -> int:
+    """Bytes a rank holds of a tree's tensors (a DTensor's local shard)."""
+    from ..device import is_dtensor
+    total = 0
+    for x in leaves(tree) if isinstance(tree, dict) else tree:
+        for t in (x if isinstance(x, tuple) else (x,)):
+            if isinstance(t, torch.Tensor):
+                t = t.to_local() if is_dtensor(t) else t
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _state_bytes(state) -> int:
+    return _local_bytes([state.step, *leaves(state.m), *leaves(state.v)])
+
+
+# ---------------------------------------------------------------------------
+# roofline extrapolation: the reference's source, here a cross-check
+#
+# The reference compiles small fully-unrolled variants at two depths (and
+# two grad-accumulation factors) and extrapolates linearly, because
+# cost_analysis counts a `while` body once:
+#     total(L, mb) = opt + mb · [loss(L_a) + (L − L_a) · per_layer]
+# The port counts the full depth directly; the same formula over its counts
+# at the two depths agrees with it where the count is linear in depth.
+# ---------------------------------------------------------------------------
+
+def _aux_depths(cfg) -> Tuple[int, int]:
+    if cfg.family == "hybrid":
+        return cfg.attn_every, 2 * cfg.attn_every
+    if cfg.family == "moe" and cfg.moe_first_dense:
+        return cfg.moe_first_dense + 1, cfg.moe_first_dense + 2
+    return 1, 2
+
+
+def _small_cfg(cfg, L: int):
+    kw: Dict[str, Any] = {"num_layers": L}
+    if cfg.is_encoder_decoder:
+        kw["encoder_layers"] = L
+    return _dc.replace(cfg, **kw)
+
+
+def _measure(cfg_s, shape_cfg, mesh, run_cfg, mode: str, mb_aux: int,
+             batch_override: int, *, opt_dtype: str = "float32",
+             param_dtype=torch.bfloat16,
+             device="cuda") -> Dict[str, float]:
+    """One variant's per-device counts: flops, bytes, wire, operand_sum."""
+    ctx = make_context(mesh, cfg_s, run_cfg)
+    shape_aux = _dc.replace(shape_cfg, global_batch=batch_override)
+    rec = count_step(cfg_s, shape_aux, ctx, microbatches=mb_aux,
+                     opt_dtype=opt_dtype, param_dtype=param_dtype,
+                     device=device)["recorder"]
+    coll = rec.stats()
+    return {"flops": float(rec.flops), "bytes": float(rec.bytes),
+            "wire": coll.total_wire_bytes,
+            "operand_sum": coll.total_operand_sum}
+
+
+def extrapolate_roofline(cfg, shape_cfg, mesh, run_cfg, mb_real: int, *,
+                         opt_dtype: str = "float32",
+                         param_dtype=torch.bfloat16,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's per-step roofline inputs from two small depths (and,
+    for train, a second grad-accumulation factor), on ``mesh``."""
+    La, Lb = _aux_depths(cfg)
+    mode = shape_cfg.mode
+    kw = dict(opt_dtype=opt_dtype, param_dtype=param_dtype, device=device)
+    out: Dict[str, Any] = {"L_a": La, "L_b": Lb, "mb_real": mb_real}
+    t0 = time.time()
+    L = cfg.num_layers
+    terms = {}
+    if mode == "train":
+        b_micro = max(shape_cfg.global_batch // mb_real, 1)
+        A = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 1,
+                     b_micro, **kw)
+        B = _measure(_small_cfg(cfg, Lb), shape_cfg, mesh, run_cfg, mode, 1,
+                     b_micro, **kw)
+        C = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 2,
+                     2 * b_micro, **kw)
+        for k in ("flops", "bytes", "wire", "operand_sum"):
+            s = (B[k] - A[k]) / (Lb - La)
+            loss_a = max(C[k] - A[k], 0.0)
+            opt = max(A[k] - loss_a, 0.0)
+            terms[k] = opt + mb_real * (loss_a + (L - La) * s)
+    else:
+        A = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 1,
+                     shape_cfg.global_batch, **kw)
+        B = _measure(_small_cfg(cfg, Lb), shape_cfg, mesh, run_cfg, mode, 1,
+                     shape_cfg.global_batch, **kw)
+        for k in ("flops", "bytes", "wire", "operand_sum"):
+            s = (B[k] - A[k]) / (Lb - La)
+            terms[k] = A[k] + (L - La) * s
+    out.update(terms)
+    out["aux_compile_s"] = round(time.time() - t0, 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one step under the recorder
+# ---------------------------------------------------------------------------
+
+def _dp_size(view) -> int:
+    sizes = axis_sizes(view)
+    return math.prod(sizes[n] for n in sizes if n in DP)
+
+
+def count_step(cfg, shape_cfg, ctx, *, microbatches: int = 1,
+               opt_dtype: str = "float32", param_dtype=torch.bfloat16,
+               device="cuda") -> Dict[str, Any]:
+    """Build the cell's fake params and inputs on ``ctx``'s mesh (none: one
+    device) and run its step (``shape_cfg.mode``: the train step, a
+    prefill forward, a decode step) once under a :class:`Recorder`, all in
+    a ``FakeTensorMode`` (inside ``FakeWorld`` under a mesh).  Returns the
+    recorder, the run's seconds and the arguments' and outputs' bytes a
+    rank holds."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    # the mesh's rank tensors are real: ops on them stay allowed
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return _fake_step(cfg, shape_cfg, ctx, shape_cfg.mode, microbatches,
+                          opt_dtype, param_dtype, torch.device(device))
+
+
+def _fake_step(cfg, shape_cfg, ctx, mode, microbatches, opt_dtype,
+               param_dtype, device) -> Dict[str, Any]:
+    from ..train.optimizer import OptimizerConfig, adamw_init
+    view = ctx.mesh
+    if view is not None and shape_cfg.global_batch % _dp_size(view):
+        # a batch that does not split over dp is replicated, as the
+        # reference's input and state specs replicate it (long_500k's 1)
+        ctx = _dc.replace(ctx, axes={**ctx.axes, "dp": None})
+    params, pshard = fake_params(cfg, view, device, param_dtype)
+    extra = {}
+    if mode == "train":
+        from ..train.train_step import make_train_step
+        opt_cfg = OptimizerConfig(state_dtype=opt_dtype)
+        step = make_train_step(cfg, opt_cfg, ctx=ctx,
+                               microbatches=microbatches,
+                               grad_shardings=pshard)
+        opt = adamw_init(params, opt_cfg)
+        batch = fake_batch(cfg, shape_cfg, device)
+        arg_bytes = _local_bytes(params) + _state_bytes(opt) + \
+            _local_bytes(list(batch.values()))
+
+        def fn():
+            new_p, new_opt, _, _ = step(params, opt, None, batch)
+            return _local_bytes(new_p) + _state_bytes(new_opt)
+        extra["opt_state_bytes"] = _state_bytes(opt)
+    elif mode == "prefill":
+        from ..models.transformer import forward
+        from ..parallel.sharding import distribute_local
+        batch = fake_batch(cfg, shape_cfg, device)
+        arg_bytes = _local_bytes(params) + _local_bytes(list(batch.values()))
+
+        def fn():
+            with ctx.scope():
+                rows = batch if view is None else {
+                    n: distribute_local(x, ctx.dmesh, ctx.placements(
+                        "dp", *[None] * (x.dim() - 1)))
+                    for n, x in batch.items()}
+                rows = dict(rows)
+                tokens = rows.pop("tokens")
+                logits, _ = forward(params, cfg, tokens, ctx=ctx, **rows)
+            return _local_bytes([logits])
+    else:
+        from ..serve.decode import decode_step
+        from ..serve.kv_cache import init_decode_state
+        b, s = shape_cfg.global_batch, shape_cfg.seq_len
+        state = init_decode_state(cfg, b, s, dtype=torch.bfloat16,
+                                  device=device, view=view)
+        token = torch.zeros((b, 1), dtype=torch.int32, device=device)
+        arg_bytes = _local_bytes(params) + _local_bytes(
+            [token, *state.values()])
+
+        def fn():
+            logits, _ = decode_step(params, cfg, token, state, ctx=ctx)
+            return _local_bytes([logits])
+    rec = Recorder(device_type=device.type)
+    t0 = time.time()
+    with rec:
+        out_bytes = fn()
+    return {"recorder": rec, "run_s": time.time() - t0,
+            "argument_bytes": arg_bytes, "output_bytes": out_bytes, **extra}
+
+
+# ---------------------------------------------------------------------------
+# cell runners
+# ---------------------------------------------------------------------------
+
+def _mesh_name(multi_pod: bool) -> str:
+    return "multipod" if multi_pod else "pod"
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool,
+               run_overrides: Optional[Dict] = None, *, cfg=None,
+               shape_cfg=None, mesh_shape=None, layers: Optional[int] = None,
+               device: str = "cuda") -> Dict[str, Any]:
+    """One cell's record (the reference's keys; module docstring).
+    ``cfg`` / ``shape_cfg`` replace the registered config and shape (a
+    reduced config, a small shape), ``mesh_shape`` the production mesh (a
+    small mesh, axes ("data", "model") or ("pod", "data", "model")).
+    ``layers`` cuts the registered arch in depth (the encoder too), its
+    microbatches and remat still the full arch's; the record lists the cut
+    under ``reduced``.  ``run_overrides``: RunConfig fields, and
+    ``microbatches``, ``opt_state_dtype`` (float32 | bfloat16 | int8),
+    ``param_dtype`` (bfloat16 as the reference's, or float32) and
+    ``skip_aux``."""
+    from .mesh import make_production_mesh, make_smoke_mesh
+    full = cfg or get_config(arch)
+    cfg = _small_cfg(full, layers) if layers else full
+    shape_cfg = shape_cfg or SHAPES[shape_name]
+    overrides = dict(run_overrides or {})
+    mesh_name = _mesh_name(multi_pod)
+    skip = cell_supported(cfg, shape_name)
+    if skip:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                "status": "skipped", "reason": skip}
+    dev = check_device(device)
+    if mesh_shape is None:
+        mesh_shape = (2, 16, 16) if multi_pod else (16, 16)
+    chips = math.prod(mesh_shape)
+    rc_fields = {f.name for f in _dc.fields(RunConfig)}
+    merged = {**default_run_overrides(full), **overrides}
+    run_cfg = RunConfig(**{k: v for k, v in merged.items()
+                           if k in rc_fields and k != "param_dtype"})
+    opt_dtype = overrides.get("opt_state_dtype", "float32")
+    param_dtype = getattr(torch, overrides.get("param_dtype", "bfloat16"))
+    t0 = time.time()
+    with FakeWorld(chips):
+        if tuple(mesh_shape) in ((16, 16), (2, 16, 16)):
+            mesh = make_production_mesh(multi_pod=len(mesh_shape) == 3,
+                                        device=dev.type)
+        else:
+            axes = ("data", "model") if len(mesh_shape) == 2 else (
+                "pod", "data", "model")
+            mesh = make_smoke_mesh(tuple(mesh_shape), axes, device=dev.type)
+        ctx = make_context(mesh, cfg, run_cfg)
+        dp = _dp_size(ctx.mesh)
+        result: Dict[str, Any] = {
+            "arch": arch, "shape": shape_name, "mesh": mesh_name,
+            "mesh_shape": list(mesh_shape), "chips": chips,
+            "device": dev.type, "params_b": cfg.param_count() / 1e9,
+            "run_cfg": {"remat": run_cfg.remat,
+                        "sequence_parallel": run_cfg.sequence_parallel,
+                        "opt_state_dtype": opt_dtype,
+                        "param_dtype": str(param_dtype).split(".")[-1]},
+        }
+        mb = 1
+        if shape_cfg.mode == "train":
+            mb = overrides.get("microbatches") or default_microbatches(
+                full, shape_cfg, dp)
+            result["microbatches"] = mb
+        if layers:
+            result["reduced"] = {"num_layers": [full.num_layers, layers]}
+        run = count_step(cfg, shape_cfg, ctx, microbatches=mb,
+                         opt_dtype=opt_dtype, param_dtype=param_dtype,
+                         device=dev)
+        rec = run["recorder"]
+        t_lower = time.time() - t0 - run["run_s"]
+        tokens = shape_cfg.global_batch * (shape_cfg.seq_len if
+                                           shape_cfg.mode != "decode" else 1)
+        mf = (6 if shape_cfg.mode == "train" else 2) * \
+            cfg.active_param_count() * tokens
+        coll = rec.stats()
+        result.update(
+            status="ok", lower_s=round(t_lower, 1),
+            compile_s=round(run["run_s"], 1), cost=cost_summary(rec),
+            memory=memory_summary(rec, run["argument_bytes"],
+                                  run["output_bytes"]),
+            collectives=coll.to_json(), ops=rec.ops,
+            kernel_op_calls=dict(rec.op_calls))
+        if "opt_state_bytes" in run:
+            result["opt_state_bytes"] = run["opt_state_bytes"]
+        roof = Roofline(hlo_flops=float(rec.flops),
+                        hbm_bytes=float(rec.bytes),
+                        wire_bytes=coll.total_wire_bytes, chips=chips,
+                        model_flops=mf)
+        result["roofline"] = roof.to_json()
+        if not overrides.get("skip_aux"):
+            failure = Failure()
+            with failure:
+                result["extrapolation"] = extrapolate_roofline(
+                    cfg, shape_cfg, mesh, run_cfg, mb, opt_dtype=opt_dtype,
+                    param_dtype=param_dtype, device=dev.type)
+            if failure.error:
+                result["aux_error"] = failure.error
+    return result
+
+
+def artifact_path(arch: str, shape: str, mesh: str, tag: str = "") -> str:
+    ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
+    suffix = f"-{tag}" if tag else ""
+    return str(ARTIFACT_DIR / f"{arch}--{shape}--{mesh}{suffix}.json")
+
+
+def run_cell(arch: str, shape: str, multi_pod: bool, force: bool = False,
+             tag: str = "", run_overrides: Optional[Dict] = None,
+             device: str = "cuda", layers: Optional[int] = None) -> Dict:
+    """``lower_cell``'s record, written to (or, unless ``force``, read from)
+    its artifact; a failure is recorded with status "error"."""
+    mesh_name = _mesh_name(multi_pod)
+    path = artifact_path(arch, shape, mesh_name, tag)
+    if not force and os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    failure = Failure()
+    result = None
+    with failure:
+        result = lower_cell(arch, shape, multi_pod, run_overrides,
+                            layers=layers, device=device)
+    if failure.error:
+        result = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                  "status": "error", "error": failure.error,
+                  "traceback": failure.traceback}
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 def main(argv=None) -> None:
-    print(REFUSAL, file=sys.stderr)
-    raise SystemExit(2)
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.dryrun",
+        description="Count every arch x shape x mesh cell at the work one "
+                    "device does, on fake tensors and a fake process group "
+                    "(no card needed); artifacts in artifacts/dryrun_torch/")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="pod",
+                    choices=["pod", "multipod", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the fake tensors' device (cuda: the H100 the "
+                         "cells model; needs a CUDA build, not a card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this many layers (recorded "
+                         "under 'reduced'; name the artifacts with --tag)")
+    ap.add_argument("--opt-state-dtype", default=None,
+                    choices=["float32", "bfloat16", "int8"],
+                    help="AdamW state of the train cells (default float32)")
+    args = ap.parse_args(argv)
+    overrides = ({"opt_state_dtype": args.opt_state_dtype}
+                 if args.opt_state_dtype else None)
+    check_device(args.device)
+
+    archs = list_configs() if (args.all or not args.arch) else [args.arch]
+    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = (["pod", "multipod"] if args.mesh == "both" else [args.mesh])
+    errors = 0
+    for arch in archs:
+        for shape in shapes:
+            for mesh_name in meshes:
+                r = run_cell(arch, shape, mesh_name == "multipod",
+                             force=args.force, tag=args.tag,
+                             run_overrides=overrides, device=args.device,
+                             layers=args.layers)
+                status = r.get("status")
+                extra = ""
+                if status == "ok":
+                    roof = r["roofline"]
+                    extra = (f"run {r['compile_s']}s dominant="
+                             f"{roof['dominant']} "
+                             f"tc={roof['t_compute']:.3e} "
+                             f"tm={roof['t_memory']:.3e} "
+                             f"tx={roof['t_collective']:.3e}")
+                elif status == "error":
+                    errors += 1
+                    extra = r["error"][:160]
+                else:
+                    extra = r.get("reason", "")[:80]
+                print(f"[dryrun] {arch:18s} {shape:12s} {mesh_name:8s} "
+                      f"{status:7s} {extra}", flush=True)
+    if errors:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

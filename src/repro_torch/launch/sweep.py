@@ -13,9 +13,10 @@ to a JSON report.  Every cell's rate resolution runs on ``--device``
       --strategies ecmp,vclos --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep campaign --list-strategies
 
-``dryrun`` (the reference's default sub-command) compiles model cells and
-needs ``launch/dryrun.py``, which the port gets with slice 7 (compile-only
-analysis); until then it is refused with exit code 2.
+``dryrun`` (the reference's default sub-command) sweeps the dry run over
+every arch x shape x mesh cell.  One cell runs with ``python -m
+repro_torch.launch.dryrun``; the sweep is slice 7b of the port, and until
+then it is refused with exit code 2.
 
 Strategies resolve against the plugin registry
 (``repro_torch.core.strategies``) — ``--list-strategies`` prints every
@@ -32,10 +33,11 @@ import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-DRYRUN_REFUSAL = ("sweep: dryrun needs launch/dryrun.py, which the port gets "
-                  "with slice 7 (compile-only analysis); run `sweep "
-                  "campaign` here, or the reference's `repro.launch.sweep "
-                  "dryrun`")
+DRYRUN_REFUSAL = ("sweep: dryrun (the ten archs x four shapes x two meshes "
+                  "grid) is slice 7b of the port; run one cell with "
+                  "`python -m repro_torch.launch.dryrun --arch A --shape S`, "
+                  "`sweep campaign` here, or the reference's "
+                  "`repro.launch.sweep dryrun`")
 
 
 def csv_arg(kind):
@@ -423,8 +425,8 @@ def main(argv=None) -> None:
     if argv and argv[0] == "campaign":
         campaign_main(argv[1:])
         return
-    # the reference's default (and its "dryrun" sub-command) compiles model
-    # cells: that waits for slice 7
+    # the reference's default (and its "dryrun" sub-command) sweeps the
+    # dry-run grid: that waits for slice 7b
     print(DRYRUN_REFUSAL, file=sys.stderr)
     raise SystemExit(2)
 

@@ -167,11 +167,18 @@ def write_slots(cache: torch.Tensor, new: torch.Tensor, first: int) -> None:
         lo = shard_block(mesh, [d for d, p in enumerate(pl) if
                                 isinstance(p, Shard) and p.dim == 1]) \
             * local.shape[1]
-    slots = torch.arange(first, first + n) % cap
-    mine = (slots >= lo) & (slots < lo + local.shape[1])
-    dev = local.device
-    local[:, (slots[mine] - lo).to(dev)] = \
-        new[:, mine.nonzero()[:, 0].to(dev)].to(local.dtype)
+    # n <= cap, so the positions' slots are at most two runs of consecutive
+    # slots (one wrap); each run's overlap with this rank's block is one
+    # slice of the cache, computed from Python ints (no index tensor, no
+    # data-dependent op: a fake cache takes it too, the dry run)
+    s0 = first % cap
+    wrap = min(n, cap - s0)
+    for i0, slot0, length in ((0, s0, wrap), (wrap, 0, n - wrap)):
+        a = max(slot0, lo)
+        b = min(slot0 + length, lo + local.shape[1])
+        if a < b:
+            local[:, a - lo:b - lo] = \
+                new[:, i0 + a - slot0:i0 + b - slot0].to(local.dtype)
 
 
 def fill_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,

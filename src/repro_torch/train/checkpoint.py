@@ -20,9 +20,12 @@ skips torn ``.tmp`` directories.
 Under a mesh (DTensor leaves) every rank calls ``save``: each leaf is
 gathered in turn and rank 0 alone writes and commits, then the ranks meet
 at a barrier, so the files are the unsharded layout that restores with no
-mesh, on another mesh, or in the reference.  ``restore(..., shardings=)``
-lays each leaf out on the current mesh as it is read (the reference's
-elastic path); a DTensor template is restored in its own layout.
+mesh, on another mesh, or in the reference.  An int8 state leaf under a
+mesh (q (*lead, blocks, 128), ``train/optimizer.py``) is written in the
+reference's (rows, blocks, 128) / (rows, blocks, 1).  ``restore(...,
+shardings=)`` lays each leaf out on the current mesh as it is read (the
+reference's elastic path; an int8 leaf in ``optimizer.int8_layout``'s
+placements); a DTensor template is restored in its own layout.
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ def _arrays(tree: Tree, prefix: str, keep: bool = True
             if not keep:
                 continue
             t = part.detach().cpu()
+            if isinstance(leaf, tuple):     # int8 (q, scale): (rows, b, *)
+                t = t.reshape(-1, *t.shape[-2:])
             key = f"{prefix}/{path}" + (f"/{i}" if isinstance(leaf, tuple)
                                         else "")
             out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -132,14 +137,42 @@ def _tensor(arr: np.ndarray, like: torch.Tensor, key: str,
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _rebuild(data, template: Tree, prefix: str, shardings=None) -> Tree:
+def _int8_part(arr: np.ndarray, like: torch.Tensor, key: str, i: int,
+               sharding=None, shape=None) -> torch.Tensor:
+    """Part ``i`` (q or scale) of an int8 state leaf, read in the
+    reference's (rows, blocks, *): laid out on ``sharding``'s mesh (the
+    param's; ``shape`` the param's global shape) in the state's layout, or
+    in a DTensor ``like``'s, or as ``like`` is."""
+    from ..parallel.sharding import distribute_local
+    from .optimizer import int8_layout, int8_shapes
+    if sharding is None and not is_dtensor(like):
+        return _tensor(arr, like, key)
+    if sharding is not None:
+        mesh = sharding.device_mesh
+        target = int8_shapes(shape)[i]
+        placements = int8_layout(shape, mesh, sharding.placements)
+    else:
+        mesh, target, placements = (like.device_mesh, tuple(like.shape),
+                                    like.placements)
+    if arr.size != np.prod(target):
+        raise ValueError(f"{key}: ckpt {arr.shape} vs the state's {target}")
+    t = torch.from_numpy(np.array(arr)).reshape(target).to(like.dtype)
+    return distribute_local(t, mesh, placements)
+
+
+def _rebuild(data, template: Tree, prefix: str, shardings=None,
+             params=None) -> Tree:
     out = []
     where = (dict(flatten(shardings)) if shardings is not None else {})
+    shapes = {p: tuple(x.shape) for p, x in flatten(params)} if params \
+        is not None else {}
     for path, leaf in flatten(template):
         key = f"{prefix}/{path}"
         if isinstance(leaf, tuple):
-            out.append(tuple(_tensor(data[f"{key}/{i}"], part, f"{key}/{i}")
-                             for i, part in enumerate(leaf)))
+            out.append(tuple(
+                _int8_part(data[f"{key}/{i}"], part, f"{key}/{i}", i,
+                           where.get(path), shapes.get(path))
+                for i, part in enumerate(leaf)))
         else:
             out.append(_tensor(data[key], leaf, key, where.get(path)))
     return unflatten(template, out)
@@ -162,8 +195,10 @@ def restore(ckpt_dir: str, step: int, params_template: Tree,
         if opt_template is not None:
             opt = AdamWState(
                 _tensor(data["opt/.step"], opt_template.step, "opt/.step"),
-                _rebuild(data, opt_template.m, "opt/.m", shardings),
-                _rebuild(data, opt_template.v, "opt/.v", shardings))
+                _rebuild(data, opt_template.m, "opt/.m", shardings,
+                         params_template),
+                _rebuild(data, opt_template.v, "opt/.v", shardings,
+                         params_template))
     return params, opt, meta
 
 

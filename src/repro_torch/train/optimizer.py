@@ -10,9 +10,19 @@ axis, round half to even as ``jnp.round``); an int8 leaf is the pair
 
 On DTensor leaves (under a mesh) the state takes each param's layout,
 each leaf's update runs on its local shards (``local_map``) and the
-global norm adds the ranks' sums of squares.  The int8 state, whose blocks run along a leaf's last
-axis, is not laid out over a mesh yet (ROADMAP.md queue 1): it raises
-there.
+global norm adds the ranks' sums of squares.  The int8 state there keeps
+the leaf's leading dims and turns its last axis into (blocks, 128): q
+(*lead, blocks, 128), scale (*lead, blocks, 1), the blocks of the leaf's
+*global* last axis, so the values are the reference's (q bit-identical,
+scale exact).  The leading dims keep the param's placements.  A split of
+the last axis moves to the blocks where every shard's width is a multiple
+of 128 (the blocks then never straddle two shards); otherwise the state
+keeps that axis whole on each rank, and the leaf's update gathers its grad
+and param over those mesh dims and quantizes whole rows
+(:func:`int8_layout`).  Whether a leaf is stored int8 is decided on its
+global size, as the reference decides it.  ``bridge.py`` and the checkpoint
+reshape this layout to and from the reference's (rows, blocks, 128) /
+(rows, blocks, 1), which a leaf with no mesh keeps.
 """
 
 from __future__ import annotations
@@ -62,33 +72,83 @@ def lr_schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 _BLOCK = 128
 
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _q8(x: torch.Tensor, lead: bool = False
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise symmetric int8 quantisation along the last axis:
-    (q (rows, blocks, 128) int8, scale (rows, blocks, 1) float32)."""
+    (q (rows, blocks, 128) int8, scale (rows, blocks, 1) float32), or with
+    ``lead`` (*x.shape[:-1], blocks, 128) / (..., blocks, 1)."""
     n = x.shape[-1]
     pad = (-n) % _BLOCK
     xf = F.pad(x.reshape(-1, n).float(), (0, pad))
     xb = xf.reshape(xf.shape[0], -1, _BLOCK)
     scale = xb.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    if lead:
+        blocks = xb.shape[1]
+        return (q.reshape(*x.shape[:-1], blocks, _BLOCK),
+                scale.reshape(*x.shape[:-1], blocks, 1))
     return q, scale
 
 
 def _dq8(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
-    x = (q.float() * scale).reshape(q.shape[0], -1)
+    x = (q.float() * scale).reshape(-1, q.shape[-2] * q.shape[-1])
     return x[:, :shape[-1]].reshape(shape)
 
 
-def _store(x: torch.Tensor, dtype: str):
-    if dtype == "int8" and x.dim() >= 1 and x.numel() >= _BLOCK:
-        if is_dtensor(x):
-            raise NotImplementedError(
-                "AdamW state_dtype int8 under a mesh is not ported yet "
-                "(ROADMAP.md queue 1); use float32 or bfloat16 state")
-        return _q8(x)
+def stores_int8(x: torch.Tensor, dtype: str) -> bool:
+    """Whether a state leaf like ``x`` is stored as int8: ``x``'s global
+    size (a DTensor's ``numel`` is its global one) of at least a block."""
+    return dtype == "int8" and x.dim() >= 1 and x.numel() >= _BLOCK
+
+
+def _store(x: torch.Tensor, dtype: str, q8: bool = None, lead: bool = False):
+    """``x`` stored as ``dtype``; ``q8`` (int8 or not) as the global leaf
+    decides it, by default from ``x`` itself (a leaf with no mesh)."""
+    if q8 is None:
+        q8 = stores_int8(x, dtype)
+    if q8:
+        return _q8(x, lead)
     if dtype == "bfloat16":
         return x.to(torch.bfloat16)
     return x.float()
+
+
+def int8_layout(shape, mesh, placements) -> list:
+    """The placements of the int8 state (q (*lead, blocks, 128), scale
+    (*lead, blocks, 1)) of a leaf of global ``shape`` laid out as
+    ``placements`` on ``mesh``: the leaf's own, where its last axis is
+    whole or split into shards whose widths are multiples of 128
+    (``Shard(ndim - 1)`` then splits the blocks); else with the last axis's
+    splits replicated, so each rank holds whole rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = len(shape) - 1
+    cuts = [i for i, pl in enumerate(placements)
+            if isinstance(pl, Shard) and pl.dim == last]
+    width = shape[-1] // math.prod(mesh.size(i) for i in cuts)
+    if not cuts or width % _BLOCK == 0:
+        return list(placements)
+    return [Replicate() if i in cuts else pl
+            for i, pl in enumerate(placements)]
+
+
+def int8_shapes(shape) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The global (q, scale) shapes of a leaf of ``shape`` under a mesh."""
+    blocks = -(-shape[-1] // _BLOCK)
+    lead = tuple(shape[:-1])
+    return (*lead, blocks, _BLOCK), (*lead, blocks, 1)
+
+
+def _int8_zeros(p):
+    """The int8 state of zeros for DTensor leaf ``p``: q 0, scale 1e-12,
+    as the reference's ``_q8`` stores a zero block."""
+    from torch.distributed.tensor import full
+    mesh = p.device_mesh
+    pl = int8_layout(p.shape, mesh, p.placements)
+    q_shape, s_shape = int8_shapes(p.shape)
+    return (full(q_shape, 0, dtype=torch.int8, device_mesh=mesh,
+                 placements=pl),
+            full(s_shape, 1e-12, dtype=torch.float32, device_mesh=mesh,
+                 placements=pl))
 
 
 def _load(stored, shape, dtype: str) -> torch.Tensor:
@@ -109,6 +169,8 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Tree, cfg: OptimizerConfig) -> AdamWState:
     def zeros(p):
+        if is_dtensor(p) and stores_int8(p, cfg.state_dtype):
+            return _int8_zeros(p)
         return _store(torch.zeros_like(p, dtype=torch.float32),
                       cfg.state_dtype)
     first = leaves(params)[0]
@@ -149,7 +211,9 @@ def _sharded_global_norm(ls) -> torch.Tensor:
 def adamw_update(grads: Tree, state: AdamWState, params: Tree,
                  cfg: OptimizerConfig) -> Tuple[Tree, AdamWState, Dict]:
     """On DTensor leaves each leaf's update runs on its local shards
-    (``local_map``): the grad, param and moments share its layout."""
+    (``local_map``): the grad, param and moments share its layout (an int8
+    state's, :func:`int8_layout`, where it keeps the last axis
+    whole)."""
     step = state.step + 1
     stepf = step.float()
     lr = lr_schedule(cfg, step)
@@ -157,7 +221,7 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
     scale = (torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
              if cfg.clip_norm > 0 else 1.0)
 
-    def upd(g, p, m_s, v_s):
+    def upd(g, p, m_s, v_s, q8=None, lead=False):
         g = g.float() * scale
         m = _load(m_s, g.shape, cfg.state_dtype)
         v = _load(v_s, g.shape, cfg.state_dtype)
@@ -170,16 +234,33 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
         if p.dim() >= 2:
             u = u + cfg.weight_decay * p.float()
         new_p = (p.float() - lr * u).to(p.dtype)
-        return new_p, _store(m, cfg.state_dtype), _store(v, cfg.state_dtype)
+        return (new_p, _store(m, cfg.state_dtype, q8, lead),
+                _store(v, cfg.state_dtype, q8, lead))
 
     def upd_leaf(g, p, m_s, v_s):
         if not is_dtensor(p):
             return upd(g, p, m_s, v_s)
         from torch.distributed.tensor.experimental import local_map
         pl, mesh = p.placements, p.device_mesh
-        return local_map(upd, out_placements=(pl, pl, pl),
-                         in_placements=(pl, pl, pl, pl), device_mesh=mesh)(
-            g.redistribute(mesh, pl), p, m_s, v_s)
+        if not isinstance(m_s, tuple):
+            return local_map(upd, out_placements=(pl, pl, pl),
+                             in_placements=(pl, pl, pl, pl),
+                             device_mesh=mesh)(g.redistribute(mesh, pl), p,
+                                               m_s, v_s)
+        # int8: the moments' (q, scale) pass as four tensors, and where the
+        # state keeps the last axis whole the grad and param come whole too
+        spl = int8_layout(p.shape, mesh, pl)
+
+        def run(g_, p_, mq, ms, vq, vs):
+            new_p, m, v = upd(g_, p_, (mq, ms), (vq, vs), True, True)
+            return (new_p, *m, *v)
+        out = local_map(run, out_placements=(spl,) * 5,
+                        in_placements=(spl,) * 6, device_mesh=mesh)(
+            g.redistribute(mesh, spl), p.redistribute(mesh, spl), *m_s,
+            *v_s)
+        new_p = out[0] if list(spl) == list(pl) else \
+            out[0].redistribute(mesh, pl)
+        return new_p, out[1:3], out[3:5]
 
     out = [upd_leaf(g, p, m, v) for (_, g), p, m, v in zip(
         flatten(grads), leaves(params), leaves(state.m), leaves(state.v))]

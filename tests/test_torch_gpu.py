@@ -1585,3 +1585,103 @@ def test_sharded_attention_on_a_one_rank_mesh(cuda, name, tmp_path):
     b, sq, skv, hq, hkv, hd, _ = case
     assert r["equal"] and r["launches"] == 1
     assert tuple(r["shape"]) == (b, sq, hq, hkv, hd)
+
+
+# ---------------------------------------------------------------------------
+# the kernels as registered ops; the dry run's counts on the card
+# ---------------------------------------------------------------------------
+
+OPCHECK_ATTENTION = [  # (B, Sq, Skv, Hq, Hkv, hd, dtype, causal, window)
+    (2, 300, 300, 8, 2, 64, torch.bfloat16, True, None),
+    (2, 129, 129, 8, 8, 80, torch.bfloat16, True, 48),
+    (2, 224, 1500, 4, 4, 64, torch.bfloat16, False, None),
+    (1, 127, 127, 8, 2, 96, torch.float32, True, None),
+]
+
+
+@pytest.mark.parametrize("case", OPCHECK_ATTENTION,
+                         ids=lambda c: f"{c[1]}x{c[2]}-hd{c[5]}-"
+                                       f"{str(c[6]).split('.')[-1]}")
+def test_attention_op_passes_opcheck_on_card(cuda, case):
+    """``repro_torch::flash_attention_fwd`` on CUDA tensors: the schema,
+    the fake kernel against the kernel's output (shape, dtype, strides) and
+    the op through AOT dispatch; its output is the wrapper's."""
+    b, sq, skv, hq, hkv, hd, dtype, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, sq, hq, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, hd), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    torch.library.opcheck(ops.flash_attention_op, (q, k, v, causal, window))
+    fa.launches = 0
+    got = ops.flash_attention_op(q, k, v, causal, window)
+    assert fa.launches == 1
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+
+
+OPCHECK_RECURRENCE = [  # (B, H, T, K, V, dtype, bonus, state, chunk)
+    (2, 4, 128, 64, 64, torch.bfloat16, True, False, 16),
+    (1, 4, 96, 64, 128, torch.float32, False, True, 16),
+    (1, 2, 64, 32, 32, torch.float32, True, True, 64),
+]
+
+
+@pytest.mark.parametrize("case", OPCHECK_RECURRENCE,
+                         ids=lambda c: f"K{c[3]}-V{c[4]}-"
+                                       f"{str(c[5]).split('.')[-1]}")
+def test_recurrence_op_passes_opcheck_on_card(cuda, case):
+    """``repro_torch::rwkv6_fused_fwd`` on CUDA tensors: opcheck, and the
+    op's output is the wrapper's, in the kernel's (B, T, H, V) layout."""
+    b, h, t, dk, dv, dtype, bonus, state, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=cuda)
+    q, k = (normal(b, h, t, dk).to(dtype) for _ in range(2))
+    v = normal(b, h, t, dv).to(dtype)
+    ld = (-torch.rand((b, h, t, dk), generator=gen, device=cuda)).to(dtype)
+    u = normal(h, dk) if bonus else None
+    s0 = normal(b, h, dk, dv) if state else None
+    torch.library.opcheck(ops.rwkv6_fused_op, (q, k, v, ld, u, s0, chunk))
+    kr.launches = 0
+    out, s = ops.rwkv6_fused_op(q, k, v, ld, u, s0, chunk)
+    assert kr.launches == 1
+    want, want_s = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=chunk,
+                                  initial_state=s0)
+    assert torch.equal(out, want) and torch.equal(s, want_s)
+    assert out.stride() == want.stride()
+
+
+def test_recorder_counts_the_kernels_on_card(cuda):
+    """The dry run's recorder around a real CUDA forward of reduced
+    tinyllama: one attention op call a layer at its FLOP formula, and as
+    many launches; the same forward on fake cuda tensors counts the same
+    FLOPs with no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import Recorder
+    from repro_torch.models.transformer import init_lm
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
+                          num_heads=4, num_kv_heads=2, d_model=256,
+                          head_dim=64, d_ff=512, vocab_size=512)
+    params = init_lm(cfg, 0, device=cuda)
+    toks = torch.randint(0, 512, (2, 128), device=cuda)
+    fa.launches = 0
+    real = Recorder(device_type="cuda")
+    with real, torch.no_grad():
+        forward(params, cfg, toks)
+    assert fa.launches == cfg.num_layers
+    assert real.op_calls == {"flash_attention_fwd": cfg.num_layers}
+    fa.launches = 0
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fparams = init_lm(cfg, 0, device="meta")
+        fparams = {k: v for k, v in fparams.items()}
+        from repro_torch.train.tree import tree_map
+        fparams = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                 device="cuda"), fparams)
+        ftoks = torch.zeros((2, 128), dtype=torch.long, device="cuda")
+        fake = Recorder(device_type="cuda")
+        with fake, torch.no_grad():
+            forward(fparams, cfg, ftoks)
+    assert fa.launches == 0
+    assert fake.flops == real.flops and fake.op_calls == real.op_calls

@@ -358,8 +358,48 @@ def test_decode_state_specs_match_reference(arch, mesh_shape, shape_name,
             assert ref_state[name].shape == (), name
 
 
-def test_dryrun_cli_refuses_until_slice_7(capsys):
-    with pytest.raises(SystemExit) as e:
-        TD.main([])
-    assert e.value.code == 2
-    assert "slice 7" in capsys.readouterr().err
+# the keys of the reference's dry-run artifact that the port's carries
+# (``hlo_bytes`` and ``roofline_raw`` read XLA's module, which the port has
+# not: it counts the step once, ``launch/dryrun.py``)
+ARTIFACT_KEYS = {"arch", "shape", "mesh", "chips", "params_b", "run_cfg",
+                 "status", "lower_s", "compile_s", "cost", "memory",
+                 "collectives", "roofline", "extrapolation"}
+
+
+def test_dryrun_cli_writes_the_cell(tmp_path, monkeypatch, capsys):
+    """``python -m repro_torch.launch.dryrun`` on a production cell (256
+    fake ranks, no card): exit 0, one line a cell, and the artifact with
+    the reference's keys, status "ok" and the H100's roofline terms."""
+    import json
+    monkeypatch.setattr(TD, "ARTIFACT_DIR", tmp_path)
+    TD.main(["--arch", "olmo-1b", "--shape", "decode_32k", "--mesh", "pod",
+             "--device", "cpu", "--force"])
+    out = capsys.readouterr().out
+    assert "olmo-1b" in out and " ok " in out
+    cell = json.loads((tmp_path / "olmo-1b--decode_32k--pod.json")
+                      .read_text())
+    assert ARTIFACT_KEYS <= set(cell)
+    assert cell["status"] == "ok" and cell["chips"] == 256
+    assert set(cell["cost"]) == {"flops", "bytes accessed"}
+    assert set(cell["roofline"]) == {
+        "hlo_flops", "hbm_bytes", "wire_bytes", "chips", "model_flops",
+        "t_compute", "t_memory", "t_collective", "dominant",
+        "useful_flops_ratio"}
+    assert set(cell["collectives"]) == {"count", "operand_sum",
+                                        "wire_bytes", "total_wire_bytes",
+                                        "total_operand_sum"}
+
+
+def test_dryrun_cli_records_a_skipped_cell(tmp_path, monkeypatch, capsys):
+    import json
+    monkeypatch.setattr(TD, "ARTIFACT_DIR", tmp_path)
+    TD.main(["--arch", "tinyllama-1.1b", "--shape", "long_500k",
+             "--device", "cpu", "--tag", "t"])
+    assert "skipped" in capsys.readouterr().out
+    cell = json.loads((tmp_path / "tinyllama-1.1b--long_500k--pod-t.json")
+                      .read_text())
+    assert cell["status"] == "skipped" and "full-attention" in cell["reason"]
+
+
+def test_dryrun_artifacts_are_the_ports_own():
+    assert TD.ARTIFACT_DIR.parts[-2:] == ("artifacts", "dryrun_torch")
