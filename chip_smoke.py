@@ -327,16 +327,35 @@ Phases, in order; any failure exits non-zero before the result line:
                both, 0 launches in the dry run and 22 in the step; its peak
                a device logged beside the ranks' max_memory_allocated;
                (b) tinyllama-1.1b train_4k on the 16 x 16 production mesh
-               (256 fake ranks) at full depth and (c) nemotron-4-340b
-               train_4k pod with int8 AdamW state, cut in depth
-               (DRYRUN_NEMOTRON_LAYERS), both through the CLI into
+               (256 fake ranks) at full depth, counted in full, and (c)
+               nemotron-4-340b
+               train_4k pod with int8 AdamW state at full depth, its count
+               scaled from two depths, both through the CLI into
                ``artifacts/dryrun_torch/``: status ok, seconds, roofline
-               terms.
+               terms; (d) ``python -m repro_torch.launch.sweep dryrun``
+               over the pod cells where the production mesh once failed
+               (whisper-base, rwkv6-3b, zamba2-2.7b, qwen1.5-32b train_4k;
+               zamba2's other three shapes) at a depth cut
+               (DRYRUN_SWEEP_LAYERS), every artifact ok as
+               ``sweep.check_grid`` reads it, in a second background
+               process started after phase 4h.
+  8. examples — the port's four examples (``examples/*_torch.py``) as
+               subprocesses on the card, started when phase 4h ends and
+               held after phase 5e: quickstart (the grant is
+               contention-free, the attention kernel launches layers x
+               steps times, the 5 losses are finite and fall),
+               multi_tenant_cluster ``--jobs 12`` (segment-max launches
+               equal the engines' solves; its table equals the ``--device
+               cpu`` run's, wall seconds aside), contention_analysis, and
+               train_lm ``--tiny --steps 2`` (a checkpoint is written) then
+               ``--steps 4`` on the same directory (it resumes from step
+               2).
 The last three lines are ``nvidia-smi``'s name and power limit,
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -554,12 +573,23 @@ MESH_DECODE = 4
 # needs only the host's CPU), while the card runs phases 3-6; phase 7 waits
 # for it and holds its results.  (a) phase 4h step (3)'s cell on a fake
 # (2, 2) mesh; (b) tinyllama-1.1b train_4k on the 16 x 16 production mesh
-# at full depth; (c) nemotron-4-340b train_4k pod with int8 AdamW state,
-# cut from 96 to DRYRUN_NEMOTRON_LAYERS layers for the script's time (its
-# 16 microbatches of one row stay the full arch's)
-DRYRUN_NEMOTRON_LAYERS = 2
+# at full depth, counted in full; (c) nemotron-4-340b train_4k pod with
+# int8 AdamW state at full depth (96 layers x 16 microbatches), its count
+# scaled from two depths; (d) ``sweep dryrun`` over the pod cells where the
+# production mesh once failed, cut to DRYRUN_SWEEP_LAYERS layers (zamba2's
+# rounded up to its 6), every artifact held by ``sweep.check_grid``, in a
+# second background process started when phase 4h ends
 DRYRUN_TAG, DRYRUN_DEVICE = "chip", "cuda"
 DRYRUN_TIMEOUT = 900
+DRYRUN_SWEEP_LAYERS = 1
+# (archs, shapes) of the sweep's sub-grids
+DRYRUN_SWEEP = ((("whisper-base", "rwkv6-3b", "zamba2-2.7b", "qwen1.5-32b"),
+                 ("train_4k",)),
+                (("zamba2-2.7b",), ("decode_32k", "long_500k",
+                                    "prefill_32k")))
+# Phase 8: the port's examples as subprocesses (``examples/*_torch.py``),
+# started when phase 4h ends, held after phase 5e
+EXAMPLES_TIMEOUT = 400
 # the distributed profiles split gloo's host staging (device <-> host
 # copies) from the other copies
 DIST_KINDS = {"attention": ("attn_fwd",),
@@ -3525,13 +3555,60 @@ def distributed_phase(smi: str) -> dict:
 # 7. the dry run
 # ---------------------------------------------------------------------------
 
-def dryrun_argv(arch: str, tag: str, layers=None, opt=None) -> list:
+def dryrun_argv(arch: str, tag: str, opt=None, extra=()) -> list:
     """The dry run's CLI arguments for a train_4k pod cell."""
     argv = ["--arch", arch, "--shape", "train_4k", "--mesh", "pod",
-            "--device", DRYRUN_DEVICE, "--force", "--tag", tag]
-    if layers:
-        argv += ["--layers", str(layers)]
+            "--device", DRYRUN_DEVICE, "--force", "--tag", tag, *extra]
     return argv + (["--opt-state-dtype", opt] if opt else [])
+
+
+def src_env() -> dict:
+    """The environment of a subprocess that imports the port."""
+    import os
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def dryrun_sweep() -> dict:
+    """Phase 7 (d): ``sweep dryrun`` as a user runs it, over the sub-grids
+    of ``DRYRUN_SWEEP`` (a subprocess a sub-grid, one a cell inside it),
+    then ``check_grid`` over every cell of them."""
+    from repro_torch.launch import sweep
+    art = dist_workdir() / "sweep"
+    tag = sweep.cut_tag(DRYRUN_SWEEP_LAYERS)
+    out = {"rcs": [], "lines": [], "problems": [], "cells": []}
+    t0 = time.perf_counter()
+    # the sub-grids side by side, each sweep one cell at a time
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "dryrun",
+         "--mesh", "pod", "--device", DRYRUN_DEVICE, "--force",
+         "--layers", str(DRYRUN_SWEEP_LAYERS), "--archs", ",".join(archs),
+         "--shapes", ",".join(shapes), "--artifact-dir", str(art)],
+        env=src_env(), cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+        for archs, shapes in DRYRUN_SWEEP]
+    for proc in procs:
+        stdout, _ = proc.communicate()
+        out["rcs"].append(proc.returncode)
+        out["lines"] += stdout.strip().splitlines()
+    for archs, shapes in DRYRUN_SWEEP:
+        out["problems"] += sweep.check_grid(art, ["pod"], archs, shapes,
+                                            tag)
+        for arch in archs:
+            for shape in shapes:
+                cell = json.loads(Path(dryrun_artifact(
+                    art, arch, shape, tag)).read_text())
+                out["cells"].append({
+                    k: cell.get(k) for k in (
+                        "arch", "shape", "status", "roofline_count",
+                        "compile_s", "lower_s", "reduced",
+                        "kernel_op_calls")})
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_artifact(art, arch: str, shape: str, tag: str) -> str:
+    from repro_torch.launch import dryrun
+    return dryrun.artifact_path(arch, shape, "pod", tag, art)
 
 
 def dryrun_child(out_path: str) -> None:
@@ -3556,12 +3633,11 @@ def dryrun_child(out_path: str) -> None:
     out["a"] = {"cell": cell, "wall_s": time.perf_counter() - t0,
                 "launches": fa.launches + 0,
                 "cuda_initialized": torch.cuda.is_initialized()}
-    tag_c = f"{DRYRUN_TAG}-l{DRYRUN_NEMOTRON_LAYERS}"
     for key, arch, argv in (
             ("b", "tinyllama-1.1b", dryrun_argv("tinyllama-1.1b",
                                                 DRYRUN_TAG)),
             ("c", "nemotron-4-340b", dryrun_argv(
-                "nemotron-4-340b", tag_c, DRYRUN_NEMOTRON_LAYERS, "int8"))):
+                "nemotron-4-340b", DRYRUN_TAG, "int8"))):
         t0 = time.perf_counter()
         dryrun.main(argv)
         out[key] = {"arch": arch, "wall_s": time.perf_counter() - t0,
@@ -3572,33 +3648,46 @@ def dryrun_child(out_path: str) -> None:
     Path(out_path).write_text(json.dumps(out))
 
 
-def start_dryrun():
-    """Phase 7's background process (daemonic: it ends with the script)."""
+def sweep_child(out_path: str) -> None:
+    """Phase 7 (d)'s background process: ``dryrun_sweep``'s record."""
+    Path(out_path).write_text(json.dumps(dryrun_sweep()))
+
+
+def start_background(target, name: str):
+    """A background process of phase 7 (daemonic: it ends with the
+    script), writing ``<name>.json`` for phase 7 to read."""
     import multiprocessing as mp
-    path = dist_workdir() / "dryrun.json"
+    path = dist_workdir() / f"{name}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.unlink(missing_ok=True)
-    proc = mp.get_context("spawn").Process(target=dryrun_child,
+    proc = mp.get_context("spawn").Process(target=target,
                                            args=(str(path),), daemon=True)
     proc.start()
     return proc, path, time.perf_counter()
 
 
-def dryrun_phase(started, dist: dict, smi: str) -> dict:
-    """Phase 7: wait for the background dry run and hold it: (a) against
-    step (3)'s warm-up step (FLOPs a rank and collectives by op equal, 22
-    attention op calls in both, 0 launches in the dry run and 22 in the
-    step), (b) and (c) status ok with their roofline terms."""
+def join_background(started, what: str) -> dict:
+    """Wait for a background process of phase 7 (at most DRYRUN_TIMEOUT
+    seconds from its start) and read its record."""
     proc, path, t_start = started
-    t0 = time.perf_counter()
-    proc.join(max(1.0, DRYRUN_TIMEOUT - (t0 - t_start)))
+    proc.join(max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_start)))
     if proc.is_alive():
         proc.terminate()
-        fail(f"7 dryrun: the background dry run missed its "
-             f"{DRYRUN_TIMEOUT} s deadline")
+        fail(f"7 dryrun: {what} missed its {DRYRUN_TIMEOUT} s deadline")
     if proc.exitcode != 0 or not path.exists():
-        fail(f"7 dryrun: the background dry run exited {proc.exitcode}")
-    got = json.loads(path.read_text())
+        fail(f"7 dryrun: {what} exited {proc.exitcode}")
+    return json.loads(path.read_text())
+
+
+def dryrun_phase(started, sweep_started, dist: dict, smi: str) -> dict:
+    """Phase 7: wait for the background dry runs and hold them: (a)
+    against step (3)'s warm-up step (FLOPs a rank and collectives by op
+    equal, 22 attention op calls in both, 0 launches in the dry run and 22
+    in the step), (b) and (c) status ok with their roofline terms, (d)
+    every cell of the sweep ok."""
+    t0 = time.perf_counter()
+    got = join_background(started, "the background dry run")
+    got["d"] = join_background(sweep_started, "the background sweep")
     waited = time.perf_counter() - t0
     cell, real = got["a"]["cell"], dist["fsdp_tp"]["recorded"]
     coll = cell["collectives"]["count"]
@@ -3639,9 +3728,8 @@ def dryrun_phase(started, dist: dict, smi: str) -> dict:
                  "memory": cell["memory"], "wall_s": got["a"]["wall_s"]}}
     for key, what in (("b", "tinyllama-1.1b train_4k pod, 16 x 16 fake "
                             "ranks, full depth"),
-                      ("c", f"nemotron-4-340b train_4k pod, int8 AdamW "
-                            f"state, cut to {DRYRUN_NEMOTRON_LAYERS} of 96 "
-                            f"layers")):
+                      ("c", "nemotron-4-340b train_4k pod, int8 AdamW "
+                            "state, full depth (96 layers)")):
         art = json.loads(Path(got[key]["artifact"]).read_text())
         if art.get("status") != "ok":
             fail(f"7 dryrun ({key}) {what}: {art.get('status')} "
@@ -3649,6 +3737,7 @@ def dryrun_phase(started, dist: dict, smi: str) -> dict:
         roof, ext = art["roofline"], art.get("extrapolation", {})
         log(f"7 dryrun ({key}) {what}: ok in {got[key]['wall_s']:.1f} s "
             f"(set-up {art['lower_s']} s, run {art['compile_s']} s, "
+            f"counted {art['roofline_count']}, the reference's "
             f"extrapolation's depths {ext.get('aux_compile_s')} s); "
             f"microbatches {art.get('microbatches')}, remat "
             f"{art['run_cfg']['remat']}, AdamW "
@@ -3668,9 +3757,136 @@ def dryrun_phase(started, dist: dict, smi: str) -> dict:
                     "run_s": art["compile_s"], "roofline": roof,
                     "memory": art["memory"],
                     "opt_state_bytes": art.get("opt_state_bytes"),
+                    "roofline_count": art["roofline_count"],
                     "reduced": art.get("reduced")}
-    log(f"phase 7 waited {waited:.1f} s for the background dry run")
+    d = got["d"]
+    for line in d["lines"]:
+        log(f"7 dryrun (d) {line}")
+    log(f"7 dryrun (d) sweep dryrun over the once-failing pod cells at "
+        f"--layers {DRYRUN_SWEEP_LAYERS}: {len(d['cells'])} cells in "
+        f"{d['wall_s']:.1f} s, exit codes {d['rcs']}, check_grid "
+        f"problems {d['problems']}")
+    if d["problems"] or any(d["rcs"]) or \
+            any(c["status"] != "ok" for c in d["cells"]):
+        fail(f"7 dryrun (d): {d['problems']} (exit codes {d['rcs']})")
+    out["d"] = d
+    log(f"phase 7 waited {waited:.1f} s for the background dry runs")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 8. the port's examples
+# ---------------------------------------------------------------------------
+
+def start_example(name: str, *argv: str):
+    """``examples/<name>`` in a subprocess, its stdout in a file."""
+    out = dist_workdir() / f"example-{name}-{len(argv)}-{argv[-1]}.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    f = out.open("w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / name),
+                             *argv], env=src_env(), cwd=str(ROOT), stdout=f,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, f, out
+
+
+def finish_example(started, deadline: float) -> str:
+    proc, f, out = started
+    while proc.poll() is None and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    f.close()
+    text = out.read_text()
+    if proc.returncode != 0:
+        fail(f"8 examples: {' '.join(proc.args[1:])} exited "
+             f"{proc.returncode}:\n{text[-2000:]}")
+    return text
+
+
+def table_rows(text: str) -> list:
+    """multi_tenant_cluster's table without its wall-seconds column."""
+    return [re.sub(r" \[[0-9.]+s\]$", "", line) for line in
+            text.splitlines() if re.search(r" \[[0-9.]+s\]$", line)]
+
+
+def start_examples():
+    """Phase 8's first runs, started when phase 4h ends and read after
+    phase 5e: five examples at once."""
+    import shutil
+    ckpt = dist_workdir() / "example-train-lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = {"quickstart": start_example("quickstart_torch.py", "--device",
+                                        "cuda"),
+            "mt_cuda": start_example("multi_tenant_cluster_torch.py",
+                                     "--jobs", "12", "--device", "cuda"),
+            "mt_cpu": start_example("multi_tenant_cluster_torch.py",
+                                    "--jobs", "12", "--device", "cpu"),
+            "contention": start_example("contention_analysis_torch.py",
+                                        "--device", "cuda"),
+            "train": start_example("train_lm_torch.py", "--tiny", "--steps",
+                                   "2", "--ckpt-dir", str(ckpt),
+                                   "--device", "cuda")}
+    return runs, ckpt, time.perf_counter()
+
+
+def examples_phase(started, smi: str) -> dict:
+    """Phase 8: the four examples of the port on the card (module
+    docstring): the runs ``start_examples`` began, then train_lm's
+    resume."""
+    runs, ckpt, t_start = started
+    t0 = time.perf_counter()
+    deadline = t_start + EXAMPLES_TIMEOUT
+    text = {k: finish_example(r, deadline) for k, r in runs.items()}
+    resumed = finish_example(start_example(
+        "train_lm_torch.py", "--tiny", "--steps", "4", "--ckpt-dir",
+        str(ckpt), "--device", "cuda"), deadline)
+    wall = time.perf_counter() - t0
+    qs = text["quickstart"]
+    losses = [float(x) for x in re.findall(r"step \d: loss ([-0-9.naif]+)",
+                                           qs)]
+    launches = re.search(r"attention kernel launches: (\d+) \((\d+) layers "
+                         r"x (\d+) steps on cuda\)", qs)
+    free = re.findall(r"contention-free: (\w+)", qs)
+    log(f"8 examples: quickstart: {qs.splitlines()[0]}; contention-free "
+        f"lines {free}; losses {losses}; "
+        f"{launches.group(0) if launches else 'no launch line'}")
+    need(free == ["True"] * 3,
+         "8 examples: quickstart's grant is not contention-free")
+    need(len(losses) == 5 and all(math.isfinite(x) for x in losses)
+         and losses[-1] < losses[0],
+         f"8 examples: quickstart's losses {losses} are not finite and "
+         f"falling")
+    need(launches is not None and int(launches.group(1)) ==
+         int(launches.group(2)) * int(launches.group(3)) > 0,
+         "8 examples: quickstart's attention launches are not layers x "
+         "steps")
+    mt = re.search(r"segment-max kernel launches: (\d+) of (\d+) solves on "
+                   r"cuda", text["mt_cuda"])
+    rows_cuda, rows_cpu = table_rows(text["mt_cuda"]), table_rows(
+        text["mt_cpu"])
+    log(f"8 examples: multi_tenant_cluster --jobs 12: "
+        f"{mt.group(0) if mt else 'no launch line'}; {len(rows_cuda)} table "
+        f"rows, equal to the cpu run's: {rows_cuda == rows_cpu}")
+    for row in rows_cuda:
+        log(f"8 examples:   {row}")
+    need(mt is not None and int(mt.group(1)) == int(mt.group(2)) > 0,
+         "8 examples: segment-max launches differ from the solves")
+    need(len(rows_cuda) == 7 and rows_cuda == rows_cpu,
+         "8 examples: multi_tenant_cluster's cuda table differs from cpu's")
+    need("§3.3" in text["contention"],
+         "8 examples: contention_analysis printed no §3.3 section")
+    saved = sorted(p.name for p in ckpt.glob("step_*"))
+    log(f"8 examples: train_lm --tiny: "
+        f"{text['train'].strip().splitlines()[-2]}; checkpoints {saved}; "
+        f"resumed: {resumed.strip().splitlines()[-2]}")
+    need("step_00000002" in saved and "resumed_from=2" in resumed,
+         "8 examples: train_lm did not write step 2 and resume from it")
+    log(f"phase 8 took {wall:.1f} s in the foreground, "
+        f"{time.perf_counter() - t_start:.1f} s from its start; {smi}")
+    return {"wall_s": wall, "quickstart_losses": losses,
+            "segment_max": [int(mt.group(1)), int(mt.group(2))],
+            "checkpoints": saved}
 
 
 def grid_lanes():
@@ -4363,11 +4579,14 @@ def service_phase() -> dict:
                 for dev, v in lat.items()}}
 
 
-def kernel_device_ms(fn, name: str, n: int = 50) -> float:
+def kernel_device_ms(fn, name: str, launch, n: int = 50):
     """Mean device time of the kernel ``name`` over ``n`` calls of ``fn``,
-    from torch.profiler (launch overhead excluded).  A trace that holds no
-    kernel of that name (seen once for the route's launches from the
-    plain-C library) is taken again, up to three times in all."""
+    from torch.profiler (launch overhead excluded), and how it was timed.
+    A trace often holds no kernel of that name (the plain-C library's
+    launches go missing from CUPTI's records, now and then from three
+    traces in a row), so it is taken up to three times; after that the
+    time is ``queued_device_ms`` of ``launch``, the same kernel on the same
+    inputs.  Returns ``(ms, "profiler" or "cuda events")``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4382,9 +4601,58 @@ def kernel_device_ms(fn, name: str, n: int = 50) -> float:
                 if e.device_type == DeviceType.CUDA and name in e.key]
         count = sum(e.count for e in rows)
         if count:
-            return sum(e.self_device_time_total for e in rows) / count / 1e3
+            return (sum(e.self_device_time_total for e in rows) / count / 1e3,
+                    "profiler")
         log(f"profile of {name}: trace {attempt + 1} holds no such kernel")
-    fail(f"torch.profiler recorded no {name} kernel in three traces")
+    ms = queued_device_ms(launch, n)
+    log(f"profile of {name}: no trace held it; {ms:.4f} ms from CUDA events "
+        f"around {n} launches queued behind a spin")
+    return ms, "cuda events"
+
+
+def queued_device_ms(launch, n: int = 50) -> float:
+    """Mean device time of one of ``n`` calls of ``launch`` (one kernel
+    launch on the current stream, no wait), between two CUDA events, with
+    the launches queued behind a spin kernel (``torch.cuda._sleep``) so
+    that they reach the device back to back: the host's launch overhead is
+    not in the time, the device's gap between two kernels is.  The spin is
+    lengthened until it still runs when the last launch has been queued."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    fail("queued_device_ms: the spin ended before the launches were queued")
+
+
+def route_launch(vals, ptr):
+    """The engines' route's kernel launch alone, without its wait: the
+    segment-max kernel on ``vals`` / ``ptr`` packed into the device's
+    page-locked staging (read there in place), on the current stream."""
+    import torch
+    from repro_torch.core.fairshare import phase_worst_loads
+    from repro_torch.kernels import phase_max as pm
+    phase_worst_loads(vals, ptr)   # packs them and makes the staging
+    index = torch.cuda.current_device()
+    st, fn = pm._staging[index], pm._c("phase_max_launch")
+    at, out_at = st.packed_at, st.out_at
+
+    def launch():
+        stream = torch.cuda.current_stream(index).cuda_stream
+        pm._raise_on(fn(at + 8 * len(ptr), at, out_at, len(ptr) - 1,
+                        len(vals), stream, index), "kernel launch")
+    return launch
 
 
 class StagedRoute:
@@ -4495,17 +4763,19 @@ def time_phase_max(picks, smi: str):
     one_v = torch.ones(1, dtype=torch.int64, device=dev)
     one_p = torch.tensor([0, 1], dtype=torch.int64, device=dev)
     floor_ms = time_ms(lambda: pm.phase_max(one_v, one_p), iters=200)
-    floor_dev = kernel_device_ms(lambda: pm.phase_max(one_v, one_p),
-                                 "segment_max")
+    floor_dev, floor_by = kernel_device_ms(
+        lambda: pm.phase_max(one_v, one_p), "segment_max",
+        lambda: pm.phase_max(one_v, one_p))
     v1, p1 = np.ones(1, np.int64), np.asarray([0, 1], np.int64)
     floor_route = host_ms(lambda: phase_worst_loads(v1, p1))
-    floor_route_dev = kernel_device_ms(lambda: phase_worst_loads(v1, p1),
-                                       "segment_max")
+    floor_route_dev, floor_route_by = kernel_device_ms(
+        lambda: phase_worst_loads(v1, p1), "segment_max",
+        route_launch(v1, p1))
     log(f"phase_max floor (1 value, 1 segment): on device tensors issue "
         f"{floor_ms:.4f} ms back to back (CUDA events), kernel "
-        f"{floor_dev:.4f} ms on the device; engines' "
+        f"{floor_dev:.4f} ms on the device ({floor_by}); engines' "
         f"route {floor_route:.4f} ms numpy -> numpy, kernel "
-        f"{floor_route_dev:.4f} ms on the device (profiler)")
+        f"{floor_route_dev:.4f} ms on the device ({floor_route_by})")
     staged = StagedRoute(dev, max(len(v) + len(p) for v, p in picks.values()),
                          max(len(p) for _, p in picks.values()))
     routes = {"pr16": pr16_route(dev), "staged": staged,
@@ -4535,11 +4805,19 @@ def time_phase_max(picks, smi: str):
         ops = {name: device_ops(lambda: routes[name](vals, ptr))
                for name in ("staged", "zero-copy")}
         nbytes = 8 * nvals + 16 * nseg
+        on_route = route_launch(vals, ptr)
+        kernel_ms, kernel_by = kernel_device_ms(
+            lambda: phase_worst_loads(vals, ptr), "segment_max", on_route)
+        resident_ms, resident_by = kernel_device_ms(
+            lambda: pm.phase_max(tv, tp), "segment_max",
+            lambda: pm.phase_max(tv, tp))
         row = {
-            "kernel_ms": kernel_device_ms(lambda: phase_worst_loads(vals, ptr),
-                                          "segment_max"),
-            "resident_kernel_ms": kernel_device_ms(
-                lambda: pm.phase_max(tv, tp), "segment_max"),
+            "kernel_ms": kernel_ms, "kernel_ms_by": kernel_by,
+            "resident_kernel_ms": resident_ms,
+            "resident_kernel_ms_by": resident_by,
+            "queued_kernel_ms": queued_device_ms(route_launch(vals, ptr)),
+            "queued_resident_kernel_ms": queued_device_ms(
+                lambda: pm.phase_max(tv, tp)),
             "issue_ms": time_ms(lambda: pm.phase_max(tv, tp), iters=200),
             "roundtrip_ms": rt["zero-copy"], "staged_ms": rt["staged"],
             "pr16_roundtrip_ms": rt["pr16"],
@@ -4564,8 +4842,11 @@ def time_phase_max(picks, smi: str):
             f"{row['staged_ms']:.4f} ms, PR 16's route "
             f"{row['pr16_roundtrip_ms']:.4f} ms; kernel on the device "
             f"{row['kernel_ms']:.4f} ms on the route (reading page-locked "
-            f"host memory), {row['resident_kernel_ms']:.4f} ms on device "
-            f"tensors (profiler); issue on device tensors "
+            f"host memory; {kernel_by}), {row['resident_kernel_ms']:.4f} ms "
+            f"on device tensors ({resident_by}); queued behind a spin "
+            f"(CUDA events) {row['queued_kernel_ms']:.4f} ms on the route, "
+            f"{row['queued_resident_kernel_ms']:.4f} ms on device tensors; "
+            f"issue on device tensors "
             f"{row['issue_ms']:.4f} ms (CUDA events, back to back); plain "
             f"{row['plain_ms']:.4f} ms, library scatter_reduce "
             f"{row['library_ms']:.4f} ms, host numpy reduceat "
@@ -4645,7 +4926,7 @@ def main() -> None:
                      f"{hd}, not {want}")
 
     # 7 (started here, held at the end). the dry run, in the background ---
-    dryrun_started = start_dryrun()
+    dryrun_started = start_background(dryrun_child, "dryrun")
 
     # 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4836,6 +5117,10 @@ def main() -> None:
     t0 = time.perf_counter()
     dist = distributed_phase(smi)
     log(f"phase 4h took {time.perf_counter() - t0:.1f} s")
+    # phase 7 (d) in the background from here: its cell processes each
+    # hold a CUDA context, kept off the card while phase 4h's ranks use it
+    sweep_started = start_background(sweep_child, "sweep")
+    examples_started = start_examples()
 
     # 5. the simulator's path: golden trace, then the 72-lane grid ---------
     fa.launches = pm.launches = kr.launches = 0
@@ -4868,6 +5153,9 @@ def main() -> None:
     if fa.launches or kr.launches:
         fail(f"the figures and the service launched flash attention "
              f"{fa.launches} and the recurrence {kr.launches} times")
+
+    # 8. the port's examples, as subprocesses on the card since phase 4h ---
+    examples_phase(examples_started, smi)
 
     # 6. timing at the paths' shapes ----------------------------------------
     q, k, v = qkv(BATCH, PROMPT, 32, 4, 64, torch.bfloat16)
@@ -4988,7 +5276,7 @@ def main() -> None:
 
     # 7. the dry run: step (3)'s cell on fake ranks, the production cells --
     t0 = time.perf_counter()
-    dry = dryrun_phase(dryrun_started, dist, smi)
+    dry = dryrun_phase(dryrun_started, sweep_started, dist, smi)
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     print(smi, flush=True)
@@ -5073,8 +5361,11 @@ def main() -> None:
         "campaign": campaign, "figures": figures, "schedd": schedd,
         "max_abs_err": pm_err,
         "ms": pm_row["kernel_ms"], "kernel_ms": pm_row["kernel_ms"],
+        "ms_by": pm_row["kernel_ms_by"],
+        "queued_kernel_ms": pm_row["queued_kernel_ms"],
         "issue_ms": pm_row["issue_ms"], "design": "zero-copy",
         "resident_kernel_ms": pm_row["resident_kernel_ms"],
+        "queued_resident_kernel_ms": pm_row["queued_resident_kernel_ms"],
         "roundtrip_ms": pm_row["roundtrip_ms"],
         "staged_roundtrip_ms": pm_row["staged_ms"],
         "pr16_roundtrip_ms": pm_row["pr16_roundtrip_ms"],

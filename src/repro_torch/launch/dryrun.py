@@ -36,9 +36,14 @@ Differences from the reference, each deliberate:
   * The count is exact at full depth: the port's layers and microbatches are
     a Python loop, and the recorder sees every iteration, where XLA's
     ``cost_analysis`` counts a ``while`` body once.  ``roofline`` is that
-    count; ``extrapolate_roofline`` (the reference's formula from two small
-    depths, the reference's only source) is recorded under
-    ``extrapolation`` as a check that the count is linear in depth.
+    count (``roofline_count`` "full"), or, where the full-depth step would
+    run more than ``FULL_COUNT_LIMIT`` layer-microbatches, the step counted
+    at two depths and up to three microbatch counts and scaled
+    (``roofline_count`` "scaled", :func:`scale_counts`): equal to the full
+    count in FLOPs, bytes and collectives by op, since every layer and every
+    microbatch after the first runs the same ops.  The reference's formula
+    (``extrapolate_roofline``, its only source) is recorded under
+    ``extrapolation`` as a check.
   * The reference's XLA-tiling fields (``block_q``, ``block_k``,
     ``full_unroll``) and ``_aux_ctx``'s larger chunk for the unrolled
     variants exist to bound XLA's compile time.  The port has none of them
@@ -68,7 +73,9 @@ import math
 import os
 import time
 import traceback
+from fractions import Fraction
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -79,7 +86,8 @@ from ..parallel.sharding import (_STACKED, DP, NamedSharding, P, _path_str,
                                  abstract_params, axis_sizes, make_context,
                                  param_spec, sanitize_spec)
 from ..train.tree import flatten, leaves, tree_map_with_path
-from .hlo_analysis import (Recorder, Roofline, cost_summary, memory_summary)
+from .hlo_analysis import (CollectiveStats, Recorder, Roofline, cost_summary,
+                           memory_summary)
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / \
     "dryrun_torch"
@@ -116,11 +124,15 @@ def default_run_overrides(cfg) -> Dict[str, Any]:
 # FSDP augmentation of parameter specs
 # ---------------------------------------------------------------------------
 
-def _fsdp_spec(spec: P, leaf, view, stacked_hint: bool) -> P:
+def _fsdp_spec(spec: P, leaf, view, stacked_hint: bool,
+               numel: Optional[int] = None) -> P:
     """Insert the "data" (FSDP) axis into the first unsharded dim that
-    divides evenly: ZeRO-3-style weight sharding on top of TP."""
+    divides evenly: ZeRO-3-style weight sharding on top of TP.  ``numel``:
+    the size that decides whether the leaf is large enough (default the
+    leaf's own)."""
     data = axis_sizes(view).get("data", 1)
-    if data <= 1 or leaf.ndim == 0 or leaf.numel() < (1 << 16):
+    numel = leaf.numel() if numel is None else numel
+    if data <= 1 or leaf.ndim == 0 or numel < (1 << 16):
         return spec
     entries = list(spec) + [None] * (leaf.ndim - len(spec))
     start = 1 if stacked_hint and leaf.ndim >= 2 else 0
@@ -131,14 +143,18 @@ def _fsdp_spec(spec: P, leaf, view, stacked_hint: bool) -> P:
     return spec
 
 
-def sharded_param_specs(params_abs, cfg, view, fsdp: bool = True) -> Any:
+def sharded_param_specs(params_abs, cfg, view, fsdp: bool = True,
+                        numels: Optional[Dict[str, int]] = None) -> Any:
     """:class:`NamedSharding` tree of the parameter tree: the TP rules,
-    sanitized, then FSDP over "data" (``fsdp``)."""
+    sanitized, then FSDP over "data" (``fsdp``).  ``numels`` ({path: size})
+    decides FSDP by other sizes than the leaves' own: a cell counted at a
+    cut depth is laid out as the full depth is."""
     def one(path, leaf):
         spec = sanitize_spec(param_spec(path, leaf, cfg), leaf, view)
         if fsdp:
             stacked = bool(_STACKED.search(_path_str(path)))
-            spec = _fsdp_spec(spec, leaf, view, stacked)
+            spec = _fsdp_spec(spec, leaf, view, stacked,
+                              None if numels is None else numels[path])
         return NamedSharding(view, spec)
     return tree_map_with_path(one, params_abs)
 
@@ -285,14 +301,18 @@ def fake_dtensor(shape, dtype, device, mesh, placements):
                               .stride())
 
 
-def fake_params(cfg, view, device, dtype):
+def fake_params(cfg, view, device, dtype, layout_cfg=None):
     """(params as DTensors in their shards, their ``sharded_param_specs``);
-    with no ``view``, (plain fake params, None)."""
+    with no ``view``, (plain fake params, None).  ``layout_cfg``: the config
+    whose leaf sizes decide FSDP (the full depth of a cut config)."""
     abstract = abstract_params(cfg, dtype=dtype)
     if view is None:
         return tree_map_with_path(lambda path, leaf: torch.empty(
             leaf.shape, dtype=leaf.dtype, device=device), abstract), None
-    shard = sharded_param_specs(abstract, cfg, view)
+    numels = None if layout_cfg is None else {
+        path: leaf.numel() for path, leaf in flatten(abstract_params(
+            layout_cfg, dtype=dtype))}
+    shard = sharded_param_specs(abstract, cfg, view, numels=numels)
     shard_of = dict(flatten(shard))
     params = tree_map_with_path(
         lambda path, leaf: fake_dtensor(
@@ -326,15 +346,37 @@ def _state_bytes(state) -> int:
 
 
 # ---------------------------------------------------------------------------
-# roofline extrapolation: the reference's source, here a cross-check
+# counts at two depths: the scaled count, and the reference's extrapolation
+#
+# The port's layers and microbatches are a Python loop whose every iteration
+# runs the same ops, so a cell's counts are linear in depth (per layer, or
+# per group of ``attn_every`` layers), and from the second microbatch on
+# linear in microbatches (the first has no accumulator to add into).  The
+# scaled count runs the step at two depths (``_scale_depths``: each with
+# layers before and after the one that repeats), and at up to three
+# microbatch counts, and scales them to the full cell exactly:
+#     f(L, m) = f(L_a, m) + (L − L_a)·(f(L_b, m) − f(L_a, m)) / (L_b − L_a)
+#     f(L, k) = f(L, 2) + (k − 2) · (f(L, 3) − f(L, 2))        (k ≥ 3)
+# for every count: FLOPs, bytes, ops, kernel op calls, collectives by op
+# and the argument and state bytes.  The peak memory is scaled the same
+# way, which is exact only where it grows linearly with depth.  Each
+# variant is laid out as the full depth is (FSDP decides by the full
+# leaves' sizes).
 #
 # The reference compiles small fully-unrolled variants at two depths (and
 # two grad-accumulation factors) and extrapolates linearly, because
 # cost_analysis counts a `while` body once:
 #     total(L, mb) = opt + mb · [loss(L_a) + (L − L_a) · per_layer]
-# The port counts the full depth directly; the same formula over its counts
-# at the two depths agrees with it where the count is linear in depth.
+# Its formula over its own depths (``_aux_depths``) is recorded under
+# ``extrapolation`` beside either count unless ``skip_aux``; it misses the
+# eager step's grad accumulators in bytes.
 # ---------------------------------------------------------------------------
+
+# A cell counts its step at full depth when that runs at most this many
+# layer-microbatches, and is scaled from two depths otherwise (a layer and
+# microbatch costs about 2.5 s of host time on fake tensors).
+FULL_COUNT_LIMIT = 64
+
 
 def _aux_depths(cfg) -> Tuple[int, int]:
     if cfg.family == "hybrid":
@@ -351,57 +393,146 @@ def _small_cfg(cfg, L: int):
     return _dc.replace(cfg, **kw)
 
 
-def _measure(cfg_s, shape_cfg, mesh, run_cfg, mode: str, mb_aux: int,
-             batch_override: int, *, opt_dtype: str = "float32",
-             param_dtype=torch.bfloat16,
-             device="cuda") -> Dict[str, float]:
-    """One variant's per-device counts: flops, bytes, wire, operand_sum."""
-    ctx = make_context(mesh, cfg_s, run_cfg)
-    shape_aux = _dc.replace(shape_cfg, global_batch=batch_override)
-    rec = count_step(cfg_s, shape_aux, ctx, microbatches=mb_aux,
-                     opt_dtype=opt_dtype, param_dtype=param_dtype,
-                     device=device)["recorder"]
-    coll = rec.stats()
-    return {"flops": float(rec.flops), "bytes": float(rec.bytes),
-            "wire": coll.total_wire_bytes,
-            "operand_sum": coll.total_operand_sum}
+def _layer_steps(cfg, microbatches: int) -> int:
+    """Layers (the encoder's too) times microbatches: what a count costs."""
+    layers = cfg.num_layers + (cfg.encoder_layers if cfg.is_encoder_decoder
+                               else 0)
+    return layers * microbatches
 
 
-def extrapolate_roofline(cfg, shape_cfg, mesh, run_cfg, mb_real: int, *,
+def choose_count(cfg, microbatches: int, count: str = "auto") -> str:
+    """"full" or "scaled": ``count`` itself, or under "auto" "scaled" where
+    the full-depth step would run more than ``FULL_COUNT_LIMIT``
+    layer-microbatches.  A config no deeper than its second variant
+    depth is always counted in full."""
+    if count not in ("auto", "full", "scaled"):
+        raise ValueError(f"dryrun: unknown count {count!r}")
+    if cfg.num_layers <= _scale_depths(cfg)[1]:
+        return "full"
+    if count == "auto":
+        return "scaled" if _layer_steps(cfg, microbatches) > \
+            FULL_COUNT_LIMIT else "full"
+    return count
+
+
+def counts_of(run: Dict[str, Any]) -> Dict[str, float]:
+    """One recorded run (:func:`count_step`) as a flat {name: number}."""
+    rec = run["recorder"]
+    stats = rec.stats()
+    out = {"flops": rec.flops, "bytes": rec.bytes, "ops": rec.ops,
+           "temp": rec.peak_bytes,
+           "argument_bytes": run["argument_bytes"],
+           "output_bytes": run["output_bytes"],
+           "opt_state_bytes": run.get("opt_state_bytes", 0)}
+    out.update({f"op_calls/{k}": n for k, n in rec.op_calls.items()})
+    for field in ("count", "operand_sum", "wire_bytes"):
+        out.update({f"{field}/{k}": v
+                    for k, v in getattr(stats, field).items()})
+    return out
+
+
+def stats_of(counts: Dict[str, float]) -> CollectiveStats:
+    """The collectives by op of :func:`counts_of`'s (or scaled) counts."""
+    stats = CollectiveStats()
+    for key, v in counts.items():
+        field, _, kind = key.partition("/")
+        if field in ("count", "operand_sum", "wire_bytes"):
+            getattr(stats, field)[kind] = v
+    return stats
+
+
+def _line(a: Dict, b: Dict, t) -> Dict[str, float]:
+    """a + t·(b − a) per key, exactly (``Fraction``), ints kept ints."""
+    out = {}
+    for k in set(a) | set(b):
+        x, y = Fraction(a.get(k, 0)), Fraction(b.get(k, 0))
+        v = x + t * (y - x)
+        out[k] = int(v) if v.denominator == 1 else float(v)
+    return out
+
+
+def scale_counts(at: Dict[Tuple[int, int], Dict], L: int, La: int, Lb: int,
+                 mb: int) -> Dict[str, float]:
+    """The counts at depth ``L`` and ``mb`` microbatches from the variants
+    ``at[(depth, microbatches)]`` (the section's formula)."""
+    def depth(m):
+        return _line(at[(La, m)], at[(Lb, m)], Fraction(L - La, Lb - La))
+    if mb <= 2:
+        return depth(mb)
+    return _line(depth(2), depth(3), mb - 2)
+
+
+def _scale_depths(cfg) -> Tuple[int, int]:
+    """The scaled count's two depths: one step of :func:`_aux_depths`
+    deeper, so that the slope between them is a layer (or group) with
+    layers on both sides, as most of the full depth's are."""
+    La, Lb = _aux_depths(cfg)
+    return Lb, 2 * Lb - La
+
+
+def count_variants(cfg, shape_cfg, ctx, mb_real: int, microbatch_counts,
+                   depths, *, opt_dtype: str = "float32",
+                   param_dtype=torch.bfloat16, device="cuda"
+                   ) -> Tuple[Dict[Tuple[int, int], Dict[str, float]], float]:
+    """:func:`counts_of` of the step at each of the two ``depths`` and each
+    of ``microbatch_counts``, a microbatch of the full cell's rows each,
+    laid out as ``cfg``'s full depth is, on the full depth's context
+    ``ctx`` (its mesh view does not depend on depth).  The first variant
+    runs twice and its first count is dropped: a process's first backward
+    records a few hundred one-off ops (fake-tensor work on first sight of
+    an op), which a slope between two variants would multiply by the
+    depth.  Returns the counts by (depth, microbatches) and the recorded
+    runs' seconds."""
+    b_micro = max(shape_cfg.global_batch // mb_real, 1)
+    plan = [(L, m) for L in depths for m in microbatch_counts]
+    out, run_s = {}, 0.0
+    for L, m in plan[:1] + plan:
+        small = _small_cfg(cfg, L)
+        rows = m * b_micro if shape_cfg.mode == "train" else \
+            shape_cfg.global_batch
+        run = count_step(small, _dc.replace(shape_cfg, global_batch=rows),
+                         ctx, microbatches=m, opt_dtype=opt_dtype,
+                         param_dtype=param_dtype, device=device,
+                         layout_cfg=cfg)
+        out[(L, m)] = counts_of(run)
+        run_s += run["run_s"]
+    return out, run_s
+
+
+def extrapolate_roofline(cfg, shape_cfg, ctx, mb_real: int, *,
                          opt_dtype: str = "float32",
                          param_dtype=torch.bfloat16,
                          device="cuda") -> Dict[str, Any]:
-    """The reference's per-step roofline inputs from two small depths (and,
-    for train, a second grad-accumulation factor), on ``mesh``."""
-    La, Lb = _aux_depths(cfg)
-    mode = shape_cfg.mode
-    kw = dict(opt_dtype=opt_dtype, param_dtype=param_dtype, device=device)
-    out: Dict[str, Any] = {"L_a": La, "L_b": Lb, "mb_real": mb_real}
+    """The reference's per-step roofline inputs (flops, bytes, wire and
+    operand sums) by its formula (the section's) from two small depths at
+    one microbatch and, for train, the shallower at two, on ``ctx``'s
+    mesh."""
     t0 = time.time()
+    mode = shape_cfg.mode
+    La, Lb = _aux_depths(cfg)
+    at, _ = count_variants(cfg, shape_cfg, ctx, mb_real,
+                           (1, 2) if mode == "train" else (1,), (La, Lb),
+                           opt_dtype=opt_dtype, param_dtype=param_dtype,
+                           device=device)
+
+    def totals(c):
+        return {"flops": c["flops"], "bytes": c["bytes"],
+                "wire": sum(v for k, v in c.items()
+                            if k.startswith("wire_bytes/")),
+                "operand_sum": sum(v for k, v in c.items()
+                                   if k.startswith("operand_sum/"))}
+    A, B = totals(at[(La, 1)]), totals(at[(Lb, 1)])
     L = cfg.num_layers
-    terms = {}
-    if mode == "train":
-        b_micro = max(shape_cfg.global_batch // mb_real, 1)
-        A = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 1,
-                     b_micro, **kw)
-        B = _measure(_small_cfg(cfg, Lb), shape_cfg, mesh, run_cfg, mode, 1,
-                     b_micro, **kw)
-        C = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 2,
-                     2 * b_micro, **kw)
-        for k in ("flops", "bytes", "wire", "operand_sum"):
-            s = (B[k] - A[k]) / (Lb - La)
+    out: Dict[str, Any] = {"L_a": La, "L_b": Lb, "mb_real": mb_real}
+    for k in A:
+        s = (B[k] - A[k]) / (Lb - La)
+        if mode == "train":
+            C = totals(at[(La, 2)])
             loss_a = max(C[k] - A[k], 0.0)
             opt = max(A[k] - loss_a, 0.0)
-            terms[k] = opt + mb_real * (loss_a + (L - La) * s)
-    else:
-        A = _measure(_small_cfg(cfg, La), shape_cfg, mesh, run_cfg, mode, 1,
-                     shape_cfg.global_batch, **kw)
-        B = _measure(_small_cfg(cfg, Lb), shape_cfg, mesh, run_cfg, mode, 1,
-                     shape_cfg.global_batch, **kw)
-        for k in ("flops", "bytes", "wire", "operand_sum"):
-            s = (B[k] - A[k]) / (Lb - La)
-            terms[k] = A[k] + (L - La) * s
-    out.update(terms)
+            out[k] = opt + mb_real * (loss_a + (L - La) * s)
+        else:
+            out[k] = A[k] + (L - La) * s
     out["aux_compile_s"] = round(time.time() - t0, 1)
     return out
 
@@ -417,29 +548,30 @@ def _dp_size(view) -> int:
 
 def count_step(cfg, shape_cfg, ctx, *, microbatches: int = 1,
                opt_dtype: str = "float32", param_dtype=torch.bfloat16,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", layout_cfg=None) -> Dict[str, Any]:
     """Build the cell's fake params and inputs on ``ctx``'s mesh (none: one
     device) and run its step (``shape_cfg.mode``: the train step, a
     prefill forward, a decode step) once under a :class:`Recorder`, all in
     a ``FakeTensorMode`` (inside ``FakeWorld`` under a mesh).  Returns the
     recorder, the run's seconds and the arguments' and outputs' bytes a
-    rank holds."""
+    rank holds.  ``layout_cfg``: see :func:`fake_params`."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     # the mesh's rank tensors are real: ops on them stay allowed
     with FakeTensorMode(allow_non_fake_inputs=True):
         return _fake_step(cfg, shape_cfg, ctx, shape_cfg.mode, microbatches,
-                          opt_dtype, param_dtype, torch.device(device))
+                          opt_dtype, param_dtype, torch.device(device),
+                          layout_cfg)
 
 
 def _fake_step(cfg, shape_cfg, ctx, mode, microbatches, opt_dtype,
-               param_dtype, device) -> Dict[str, Any]:
+               param_dtype, device, layout_cfg) -> Dict[str, Any]:
     from ..train.optimizer import OptimizerConfig, adamw_init
     view = ctx.mesh
     if view is not None and shape_cfg.global_batch % _dp_size(view):
         # a batch that does not split over dp is replicated, as the
         # reference's input and state specs replicate it (long_500k's 1)
         ctx = _dc.replace(ctx, axes={**ctx.axes, "dp": None})
-    params, pshard = fake_params(cfg, view, device, param_dtype)
+    params, pshard = fake_params(cfg, view, device, param_dtype, layout_cfg)
     extra = {}
     if mode == "train":
         from ..train.train_step import make_train_step
@@ -513,8 +645,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     microbatches and remat still the full arch's; the record lists the cut
     under ``reduced``.  ``run_overrides``: RunConfig fields, and
     ``microbatches``, ``opt_state_dtype`` (float32 | bfloat16 | int8),
-    ``param_dtype`` (bfloat16 as the reference's, or float32) and
-    ``skip_aux``."""
+    ``param_dtype`` (bfloat16 as the reference's, or float32), ``count``
+    (auto | full | scaled, :func:`choose_count`; the record's
+    ``roofline_count`` says which ran) and ``skip_aux`` (no reference
+    extrapolation beside the count; a cell no deeper than the
+    extrapolation's second depth has none either)."""
     from .mesh import make_production_mesh, make_smoke_mesh
     full = cfg or get_config(arch)
     cfg = _small_cfg(full, layers) if layers else full
@@ -562,54 +697,69 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             result["microbatches"] = mb
         if layers:
             result["reduced"] = {"num_layers": [full.num_layers, layers]}
-        run = count_step(cfg, shape_cfg, ctx, microbatches=mb,
-                         opt_dtype=opt_dtype, param_dtype=param_dtype,
-                         device=dev)
-        rec = run["recorder"]
-        t_lower = time.time() - t0 - run["run_s"]
+        kind = choose_count(cfg, mb, overrides.get("count", "auto"))
+        kw = dict(opt_dtype=opt_dtype, param_dtype=param_dtype,
+                  device=dev.type)
+        if kind == "full":
+            run = count_step(cfg, shape_cfg, ctx, microbatches=mb, **kw)
+            counts, run_s = counts_of(run), run["run_s"]
+        else:
+            depths = _scale_depths(cfg)
+            at, run_s = count_variants(cfg, shape_cfg, ctx, mb,
+                                       (2, 3) if mb > 2 else (mb,), depths,
+                                       **kw)
+            counts = scale_counts(at, cfg.num_layers, *depths, mb)
         tokens = shape_cfg.global_batch * (shape_cfg.seq_len if
                                            shape_cfg.mode != "decode" else 1)
         mf = (6 if shape_cfg.mode == "train" else 2) * \
             cfg.active_param_count() * tokens
-        coll = rec.stats()
+        coll = stats_of(counts)
+        tally = SimpleNamespace(flops=counts["flops"], bytes=counts["bytes"],
+                                peak_bytes=counts["temp"])
         result.update(
-            status="ok", lower_s=round(t_lower, 1),
-            compile_s=round(run["run_s"], 1), cost=cost_summary(rec),
-            memory=memory_summary(rec, run["argument_bytes"],
-                                  run["output_bytes"]),
-            collectives=coll.to_json(), ops=rec.ops,
-            kernel_op_calls=dict(rec.op_calls))
-        if "opt_state_bytes" in run:
-            result["opt_state_bytes"] = run["opt_state_bytes"]
-        roof = Roofline(hlo_flops=float(rec.flops),
-                        hbm_bytes=float(rec.bytes),
+            status="ok", roofline_count=kind,
+            lower_s=round(time.time() - t0 - run_s, 1),
+            compile_s=round(run_s, 1), cost=cost_summary(tally),
+            memory=memory_summary(tally, counts["argument_bytes"],
+                                  counts["output_bytes"]),
+            collectives=coll.to_json(), ops=counts["ops"],
+            kernel_op_calls={k.split("/", 1)[1]: n for k, n in counts.items()
+                             if k.startswith("op_calls/")})
+        if shape_cfg.mode == "train":
+            result["opt_state_bytes"] = counts["opt_state_bytes"]
+        roof = Roofline(hlo_flops=float(counts["flops"]),
+                        hbm_bytes=float(counts["bytes"]),
                         wire_bytes=coll.total_wire_bytes, chips=chips,
                         model_flops=mf)
         result["roofline"] = roof.to_json()
-        if not overrides.get("skip_aux"):
+        if not overrides.get("skip_aux") and \
+                cfg.num_layers > _aux_depths(cfg)[1]:
             failure = Failure()
             with failure:
                 result["extrapolation"] = extrapolate_roofline(
-                    cfg, shape_cfg, mesh, run_cfg, mb, opt_dtype=opt_dtype,
-                    param_dtype=param_dtype, device=dev.type)
+                    cfg, shape_cfg, ctx, mb, **kw)
             if failure.error:
                 result["aux_error"] = failure.error
     return result
 
 
-def artifact_path(arch: str, shape: str, mesh: str, tag: str = "") -> str:
-    ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
+def artifact_path(arch: str, shape: str, mesh: str, tag: str = "",
+                  root=None) -> str:
+    """The cell's artifact in ``root`` (default ``ARTIFACT_DIR``)."""
+    root = Path(root or ARTIFACT_DIR)
+    root.mkdir(parents=True, exist_ok=True)
     suffix = f"-{tag}" if tag else ""
-    return str(ARTIFACT_DIR / f"{arch}--{shape}--{mesh}{suffix}.json")
+    return str(root / f"{arch}--{shape}--{mesh}{suffix}.json")
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, force: bool = False,
              tag: str = "", run_overrides: Optional[Dict] = None,
-             device: str = "cuda", layers: Optional[int] = None) -> Dict:
+             device: str = "cuda", layers: Optional[int] = None,
+             artifact_dir=None) -> Dict:
     """``lower_cell``'s record, written to (or, unless ``force``, read from)
     its artifact; a failure is recorded with status "error"."""
     mesh_name = _mesh_name(multi_pod)
-    path = artifact_path(arch, shape, mesh_name, tag)
+    path = artifact_path(arch, shape, mesh_name, tag, artifact_dir)
     if not force and os.path.exists(path):
         with open(path) as f:
             return json.load(f)
@@ -646,6 +796,9 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut each arch to this many layers (recorded "
                          "under 'reduced'; name the artifacts with --tag)")
+    ap.add_argument("--artifact-dir", default=None,
+                    help="where the artifacts go (default "
+                         "artifacts/dryrun_torch/)")
     ap.add_argument("--opt-state-dtype", default=None,
                     choices=["float32", "bfloat16", "int8"],
                     help="AdamW state of the train cells (default float32)")
@@ -664,12 +817,14 @@ def main(argv=None) -> None:
                 r = run_cell(arch, shape, mesh_name == "multipod",
                              force=args.force, tag=args.tag,
                              run_overrides=overrides, device=args.device,
-                             layers=args.layers)
+                             layers=args.layers,
+                             artifact_dir=args.artifact_dir)
                 status = r.get("status")
                 extra = ""
                 if status == "ok":
                     roof = r["roofline"]
-                    extra = (f"run {r['compile_s']}s dominant="
+                    extra = (f"run {r['compile_s']}s "
+                             f"{r['roofline_count']} dominant="
                              f"{roof['dominant']} "
                              f"tc={roof['t_compute']:.3e} "
                              f"tm={roof['t_memory']:.3e} "

@@ -13,10 +13,20 @@ to a JSON report.  Every cell's rate resolution runs on ``--device``
       --strategies ecmp,vclos --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep campaign --list-strategies
 
-``dryrun`` (the reference's default sub-command) sweeps the dry run over
-every arch x shape x mesh cell.  One cell runs with ``python -m
-repro_torch.launch.dryrun``; the sweep is slice 7b of the port, and until
-then it is refused with exit code 2.
+``dryrun`` (the default sub-command, as the reference's) — every (arch ×
+shape × mesh) cell of the dry run (``launch/dryrun.py``) in its own
+subprocess (crash isolation, bounded memory), cheap archs first, each
+cell's last line printed with its seconds and the running total.  Cells
+whose artifact already says ok or skipped are skipped unless ``--force``;
+a cell past ``--timeout`` is written as an error artifact.  ``--device``
+and ``--layers`` pass through to each cell (a hybrid cut rounds up to a
+multiple of ``attn_every``; a cut cell's artifact is tagged ``l<N>``, so a
+full-depth sweep never takes it for its own).  At the end
+:func:`check_grid` reads the grid's artifacts back, and the sweep exits 1
+if any cell is missing, failed or has a non-finite roofline term.
+
+  PYTHONPATH=src python -m repro_torch.launch.sweep dryrun \
+      [--mesh pod|multipod|both] [--device cpu] [--layers 2]
 
 Strategies resolve against the plugin registry
 (``repro_torch.core.strategies``) — ``--list-strategies`` prints every
@@ -29,15 +39,189 @@ follow the reference: a bad strategy, scheduler or size mix raises
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import os
+import subprocess
 import sys
+import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
-DRYRUN_REFUSAL = ("sweep: dryrun (the ten archs x four shapes x two meshes "
-                  "grid) is slice 7b of the port; run one cell with "
-                  "`python -m repro_torch.launch.dryrun --arch A --shape S`, "
-                  "`sweep campaign` here, or the reference's "
-                  "`repro.launch.sweep dryrun`")
+ARCH_COST_ORDER = [  # ascending estimated compile cost
+    "whisper-base", "tinyllama-1.1b", "olmo-1b", "rwkv6-3b",
+    "phi-3-vision-4.2b", "zamba2-2.7b", "deepseek-moe-16b",
+    "qwen1.5-32b", "mixtral-8x22b", "nemotron-4-340b",
+]
+SHAPE_ORDER = ["decode_32k", "long_500k", "train_4k", "prefill_32k"]
+MESHES = ("pod", "multipod")
+SRC = Path(__file__).resolve().parents[2]
+
+
+# ---------------------------------------------------------------------------
+# dryrun
+# ---------------------------------------------------------------------------
+
+def cell_layers(arch: str, layers: Optional[int]) -> Optional[int]:
+    """The depth a ``--layers`` cut gives ``arch``: a hybrid's rounded up to
+    a multiple of ``attn_every``, none deeper than the arch."""
+    if not layers:
+        return None
+    from ..configs import get_config
+    cfg = get_config(arch)
+    k = cfg.attn_every or 1
+    return min(math.ceil(layers / k) * k, cfg.num_layers)
+
+
+def cut_tag(layers: Optional[int]) -> str:
+    """The artifact tag of a depth cut (none at full depth)."""
+    return f"l{layers}" if layers else ""
+
+
+def _read_artifact(path: Path) -> Optional[Dict]:
+    """A cell's artifact, or None where it is missing or torn."""
+    from ..core.runtime import is_json
+    if not path.exists():
+        return None
+    text = path.read_text()
+    return json.loads(text) if is_json(text) else None
+
+
+def check_grid(artifact_dir, meshes=MESHES, archs=None, shapes=None,
+               tag: str = "") -> List[str]:
+    """Every problem of a grid's artifacts, one line each: a cell that is
+    missing, whose status is neither ok nor skipped, that is skipped where
+    ``cell_supported`` runs it (or ok where it skips it), or whose
+    roofline has a term that is not finite."""
+    from ..configs import get_config
+    from .dryrun import artifact_path, cell_supported
+    out = []
+    for mesh in meshes:
+        for arch in archs or ARCH_COST_ORDER:
+            for shape in shapes or SHAPE_ORDER:
+                cell = f"{arch} {shape} {mesh}"
+                r = _read_artifact(Path(artifact_path(arch, shape, mesh, tag,
+                                                      artifact_dir)))
+                if r is None:
+                    out.append(f"{cell}: missing")
+                    continue
+                status = r.get("status")
+                skip = cell_supported(get_config(arch), shape)
+                if status not in ("ok", "skipped"):
+                    out.append(f"{cell}: {status}: "
+                               f"{str(r.get('error', ''))[:200]}")
+                elif (status == "skipped") != bool(skip):
+                    out.append(f"{cell}: {status}, where cell_supported "
+                               f"{'skips' if skip else 'runs'} it")
+                elif status == "ok":
+                    roof = r.get("roofline", {})
+                    bad = [k for k in ("t_compute", "t_memory",
+                                       "t_collective")
+                           if not math.isfinite(float(roof.get(k, "nan")))]
+                    if bad:
+                        out.append(f"{cell}: roofline {', '.join(bad)} not "
+                                   f"finite")
+    return out
+
+
+def _run_with_timeout(cmd, env, timeout: float) -> Tuple[Optional[int], str]:
+    """(exit code, or None past ``timeout`` seconds (the process killed);
+    its stdout).  The output goes through a file, never a pipe that a
+    chatty cell could fill."""
+    with tempfile.TemporaryFile("w+") as out:
+        proc = subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.DEVNULL, text=True)
+        deadline = time.monotonic() + timeout
+        while proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            return None, ""
+        out.seek(0)
+        return proc.returncode, out.read()
+
+
+def dryrun_main(argv) -> None:
+    from .dryrun import artifact_path
+    ap = argparse.ArgumentParser(
+        prog="sweep dryrun",
+        description="the dry run of every arch x shape x mesh cell, each in "
+                    "its own subprocess")
+    ap.add_argument("--mesh", default="both",
+                    choices=["pod", "multipod", "both"])
+    ap.add_argument("--timeout", type=int, default=2400,
+                    help="seconds a cell may take (default 2400)")
+    ap.add_argument("--force", action="store_true",
+                    help="rerun cells whose artifact says ok or skipped")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the fake tensors' device (cuda: the H100 the "
+                         "cells model; needs a CUDA build, not a card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this depth (a hybrid's rounded "
+                         "up to a multiple of attn_every); artifacts tagged "
+                         "l<N>")
+    ap.add_argument("--archs", type=_csv(str), default=None,
+                    help="a sub-grid's archs (default all, cheapest first)")
+    ap.add_argument("--shapes", type=_csv(str), default=None,
+                    help="a sub-grid's shapes (default all)")
+    ap.add_argument("--artifact-dir", default=None,
+                    help="default artifacts/dryrun_torch/")
+    args = ap.parse_args(argv)
+    meshes = list(MESHES) if args.mesh == "both" else [args.mesh]
+    archs = [a for a in ARCH_COST_ORDER if a in (args.archs or
+                                                 ARCH_COST_ORDER)]
+    shapes = [s for s in SHAPE_ORDER if s in (args.shapes or SHAPE_ORDER)]
+    unknown = set(args.archs or ()) - set(archs) | \
+        set(args.shapes or ()) - set(shapes)
+    if unknown:
+        ap.error(f"unknown archs or shapes: {sorted(unknown)}")
+    tag = cut_tag(args.layers)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    t00 = time.time()
+    for mesh in meshes:
+        for arch in archs:
+            for shape in shapes:
+                path = Path(artifact_path(arch, shape, mesh, tag,
+                                          args.artifact_dir))
+                old = _read_artifact(path)
+                if old and old.get("status") in ("ok", "skipped") and \
+                        not args.force:
+                    continue
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", mesh,
+                       "--force", "--device", args.device]
+                if args.layers:
+                    cmd += ["--layers", str(cell_layers(arch, args.layers)),
+                            "--tag", tag]
+                if args.artifact_dir:
+                    cmd += ["--artifact-dir", str(args.artifact_dir)]
+                t0 = time.time()
+                rc, out = _run_with_timeout(cmd, env, args.timeout)
+                if rc is None:
+                    path.write_text(json.dumps({
+                        "arch": arch, "shape": shape, "mesh": mesh,
+                        "status": "error",
+                        "error": f"timeout>{args.timeout}s"}))
+                    print(f"[sweep] {arch} {shape} {mesh} TIMEOUT",
+                          flush=True)
+                    continue
+                tail = out.strip().splitlines()
+                print(tail[-1] if tail else f"(no output rc={rc})",
+                      f"[{time.time() - t0:.0f}s, total "
+                      f"{time.time() - t00:.0f}s]", flush=True)
+    problems = check_grid(args.artifact_dir, meshes, archs, shapes, tag)
+    print(f"[sweep] {len(meshes) * len(archs) * len(shapes) - len(problems)}"
+          f" of {len(meshes) * len(archs) * len(shapes)} cells ok or "
+          f"skipped", flush=True)
+    for line in problems:
+        print(f"[sweep]   {line}", flush=True)
+    if problems:
+        raise SystemExit(1)
 
 
 def csv_arg(kind):
@@ -422,13 +606,14 @@ def campaign_main(argv) -> None:
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] == "campaign":
-        campaign_main(argv[1:])
-        return
-    # the reference's default (and its "dryrun" sub-command) sweeps the
-    # dry-run grid: that waits for slice 7b
-    print(DRYRUN_REFUSAL, file=sys.stderr)
-    raise SystemExit(2)
+    if argv and argv[0] in ("dryrun", "campaign"):
+        cmd, argv = argv[0], argv[1:]
+    else:
+        cmd = "dryrun"   # the reference's default
+    if cmd == "campaign":
+        campaign_main(argv)
+    else:
+        dryrun_main(argv)
 
 
 if __name__ == "__main__":

@@ -115,7 +115,21 @@ def kv_project(params: Params, x: torch.Tensor, num_kv_heads: int,
 
 def out_project(params: Params, o: torch.Tensor) -> torch.Tensor:
     b, s, h, d = o.shape
-    return o.reshape(b, s, h * d) @ params["wo"].to(o.dtype)
+    return laid_out_as(o.reshape(b, s, h * d)) @ params["wo"].to(o.dtype)
+
+
+def laid_out_as(y: torch.Tensor, like: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Under a mesh, ``y`` redistributed to ``like``'s placements.  With no
+    ``like`` (``y``'s own) it is the identity whose grad comes back to
+    ``y``'s own layout: after whole heads are merged into columns, the ops
+    that follow may return a grad split finer (over every TP dim, cutting a
+    head), which DTensor's rule for the merge's backward view would take as
+    it is and unflatten into the wrong local width."""
+    if not is_dtensor(y):
+        return y
+    return y.redistribute(y.device_mesh, (y if like is None else
+                                          like).placements)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from ..device import is_dtensor
 from ..kernels import ops
 from ..kernels.rwkv6 import LOG_DECAY_MIN
-from .attention import whole_head_placements, whole_heads
+from .attention import laid_out_as, whole_head_placements, whole_heads
 from .common import Params, dense_init, norm_apply, norm_init
 
 
@@ -205,13 +205,28 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     if state is None:
         state = torch.zeros_like(x[:, :1]).expand(b, kw - 1, d)
     else:
-        state = _laid_out_as(state, x)
+        state = laid_out_as(state, x)
     xp = torch.cat([state.to(x.dtype), x], dim=1)
-    wx = w.to(x.dtype)
+    wx = _columns_as(w, x).to(x.dtype)
     y = xp[:, :t] * wx[0]
     for i in range(1, kw):
         y = y + xp[:, i:i + t] * wx[i]
     return y, xp[:, -(kw - 1):]
+
+
+def _columns_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, a per-channel weight (..., D) laid out with its columns
+    split as ``x``'s last dim is and replicated otherwise, so that ``x * w``
+    keeps ``x``'s layout: where the TP split does not divide the heads,
+    ``x``'s columns are whole and a TP-split weight would split them again,
+    cutting heads."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    pl = [Shard(w.ndim - 1) if isinstance(p, Shard) and p.dim == last
+          else Replicate() for p in x.placements]
+    return w.redistribute(w.device_mesh, pl)
 
 
 def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
@@ -242,8 +257,8 @@ def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
     # split, the rest whole); dt is read transposed below, and under a mesh
     # its grad reaches the product's DTensor view as it is, which needs it
     # contiguous
-    B_, C_ = _laid_out_as(x @ params["w_bc"].to(x.dtype), x).chunk(2, dim=-1)
-    dt = F.softplus(ops.contiguous_grad(_laid_out_as(
+    B_, C_ = laid_out_as(x @ params["w_bc"].to(x.dtype), x).chunk(2, dim=-1)
+    dt = F.softplus(ops.contiguous_grad(laid_out_as(
         x @ params["w_dt"].to(x.dtype), x)).float()
         + params["dt_bias"].float())                              # (B,T,H)
     a = -torch.exp(params["a_log"].float())                      # (H,) < 0
@@ -265,7 +280,7 @@ def mamba2_apply(params: Params, x: torch.Tensor, heads: int, d_state: int,
         out = o[:, :, None]
     out = out + params["d_skip"].to(out.dtype)[:, None, None] * vals
     y = out.transpose(1, 2).reshape(b, t, d_inner)
-    y = _laid_out_as(y, y)
+    y = laid_out_as(y)
     y = norm_apply("rmsnorm", params["norm"], y) * F.silu(z)
     return y @ params["w_out"].to(x.dtype), {"ssm": S, "conv": conv_state}
 
@@ -292,19 +307,23 @@ def _in_project(x: torch.Tensor, w_in: torch.Tensor, heads: int
                  xz.redistribute(mesh, rows).chunk(2, dim=-1))
 
 
-def _laid_out_as(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Under a mesh, ``y`` redistributed to ``like``'s placements.  With
-    ``like`` = ``y`` it is the identity whose grad comes back to ``y``'s own
-    layout: after heads are merged into columns, the ops that follow may
-    return a grad split finer (over every TP dim, cutting a head), which
-    DTensor's rule for the merge's backward view would take as it is."""
-    return y.redistribute(y.device_mesh, like.placements) if is_dtensor(y) \
-        else y
-
-
 # ---------------------------------------------------------------------------
 # RWKV6 block (time-mix + channel-mix)
 # ---------------------------------------------------------------------------
+
+def _sum_partials(y: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, ``y`` with its partial sums reduced.  A product whose
+    contracted dim FSDP splits over "data" (``w_decay_b``'s 64 rows) comes
+    back a partial sum over "data" when the rows it multiplies are whole
+    there (a batch of one, which does not split over dp), and PyTorch
+    2.11's DTensor cannot add such a sum to a vector split over "data"
+    (``decay_base``)."""
+    if not is_dtensor(y) or not any(p.is_partial() for p in y.placements):
+        return y
+    from torch.distributed.tensor import Replicate
+    return y.redistribute(y.device_mesh, [
+        Replicate() if p.is_partial() else p for p in y.placements])
+
 
 def rwkv6_init(gen: torch.Generator, d_model: int, head_dim: int, *,
                lead=(), dtype=torch.float32) -> Params:
@@ -352,8 +371,13 @@ def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
     k = xs[1] @ params["w_k"].to(x.dtype)
     v = xs[2] @ params["w_v"].to(x.dtype)
     g = F.silu(xs[3] @ params["w_g"].to(x.dtype))
-    dec = (torch.tanh(xs[4] @ params["w_decay_a"].to(x.dtype))
-           @ params["w_decay_b"].to(x.dtype)).float()
+    # the low-rank decay path, each product laid out as its forward is:
+    # their grads would otherwise reach the weight-grad products of
+    # w_decay_a and w_decay_b split over the tokens (a strided split of the
+    # flattened batch and sequence), which DTensor cannot lay out
+    low = laid_out_as(torch.tanh(xs[4] @ params["w_decay_a"].to(x.dtype)))
+    dec = _sum_partials(laid_out_as(
+        low @ params["w_decay_b"].to(x.dtype))).float()
     log_decay = -torch.exp(params["decay_base"] + dec)        # (B,T,D) < 0
 
     def split_heads(y):
@@ -371,7 +395,7 @@ def rwkv6_time_mix(params: Params, x: torch.Tensor, head_dim: int,
                                      bonus=params["bonus_u"])
         out = o[:, :, None]
     y = out.transpose(1, 2).reshape(b, t, d)
-    y = _laid_out_as(y, y)
+    y = laid_out_as(y)
     y = norm_apply("layernorm", params["ln_x"], y) * g
     # the reference's einsum("btd,de->btd", y, w_o) sums w_o over e: each
     # channel is scaled by a row sum of w_o; it is not a matrix product

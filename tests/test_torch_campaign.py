@@ -189,14 +189,6 @@ def test_journal_mismatch_exits_2(tmp_path, capsys):
     assert "different campaign" in got[2]
 
 
-def test_main_refuses_dryrun_until_slice_7(capsys):
-    for argv in ([], ["dryrun"], ["--mesh", "pod"]):
-        with pytest.raises(SystemExit) as ei:
-            TS.main(argv)
-        assert ei.value.code == 2
-        assert "slice 7" in capsys.readouterr().err
-
-
 def test_list_strategies_matches_reference(capsys):
     TS.campaign_main(["--list-strategies"])
     got = capsys.readouterr().out

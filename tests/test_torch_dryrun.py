@@ -20,7 +20,17 @@ fake group is made and destroyed by each cell; none is left behind):
 * the twin of ``tests/test_distributed.py::test_small_mesh_dryrun_cell``
   and ``lower_cell`` at reduced size for every mode and family, the int8
   state, the 16 x 16 production mesh, ``cell_supported``'s skip;
-* ``extrapolate_roofline`` agrees with the direct count within 1e-6.
+* ``extrapolate_roofline`` agrees with the direct count within 1e-6;
+* the scaled count (two depths, up to three microbatch counts, scaled to
+  the full depth) equals the full count in FLOPs, bytes accessed, ops,
+  kernel op calls, collectives by op and argument and state bytes, for the
+  dense, moe, hybrid and audio families at 1, 2 and 3 microbatches and for
+  decode; its peak memory ``temp`` is scaled too and lands 2.8-9.9% under
+  the full count's at these sizes (the peak does not grow linearly with
+  depth), held within 15%.  The full count runs after the scaled one in
+  the same process, both warm: a process's first backward records a few
+  hundred one-off ops (319 on reduced zamba2), which the scaled count
+  leaves out by a discarded warm-up variant.
 """
 
 import numpy as np
@@ -455,3 +465,67 @@ def test_depth_cut_keeps_the_full_archs_defaults():
     assert r["reduced"] == {"num_layers": [big.num_layers, 1]}
     assert r["microbatches"] == 4 and r["run_cfg"]["remat"] == "full"
     assert r["kernel_op_calls"] == {"flash_attention_fwd": 8}
+
+
+# case: (arch, mode, microbatches, reduced-config overrides); each depth
+# past the scaled count's second variant depth (hybrid: attn_every 2, so
+# depths 4 and 6; moe with a first dense layer: 3 and 4; others 2 and 3)
+SCALED_CASES = {
+    "tinyllama-1.1b/train-mb1": ("tinyllama-1.1b", "train", 1,
+                                 dict(num_layers=5)),
+    "tinyllama-1.1b/train-mb3": ("tinyllama-1.1b", "train", 3,
+                                 dict(num_layers=5)),
+    "tinyllama-1.1b/decode": ("tinyllama-1.1b", "decode", 1,
+                              dict(num_layers=5)),
+    "deepseek-moe-16b/train-mb2": ("deepseek-moe-16b", "train", 2,
+                                   dict(num_layers=6)),
+    "zamba2-2.7b/train-mb2": ("zamba2-2.7b", "train", 2,
+                              dict(num_layers=8)),
+    "whisper-base/train-mb2": ("whisper-base", "train", 2,
+                               dict(num_layers=4, encoder_layers=4)),
+}
+
+
+@pytest.mark.parametrize("case", list(SCALED_CASES))
+def test_scaled_count_equals_the_full_count(case):
+    arch, mode, mb, over = SCALED_CASES[case]
+    kw = dict(cfg=tcfg.reduced(tcfg.get_config(arch), **over),
+              shape_cfg=tcfg.ShapeConfig("t", 32, 12, mode),
+              mesh_shape=(2, 2), device="cpu")
+    scaled = TD.lower_cell(arch, "t", False,
+                           {"count": "scaled", "microbatches": mb}, **kw)
+    full = TD.lower_cell(arch, "t", False,
+                         {"count": "full", "microbatches": mb,
+                          "skip_aux": True}, **kw)
+    assert (scaled["status"], full["status"]) == ("ok", "ok")
+    assert scaled["roofline_count"] == "scaled"
+    assert full["roofline_count"] == "full"
+    for key in ("cost", "collectives", "kernel_op_calls", "ops",
+                "roofline"):
+        assert scaled[key] == full[key], key
+    assert scaled.get("opt_state_bytes") == full.get("opt_state_bytes")
+    sm, fm = scaled["memory"], full["memory"]
+    for key in ("argument_size_in_bytes", "output_size_in_bytes"):
+        assert sm[key] == fm[key], key
+    temp = fm["temp_size_in_bytes"]
+    assert 0.85 * temp <= sm["temp_size_in_bytes"] <= temp
+    assert _no_group()
+
+
+def test_choose_count_scales_only_deep_cells():
+    """auto: the full count up to ``FULL_COUNT_LIMIT`` layer-microbatches
+    (tinyllama-1.1b train_4k pod: 22 x 2), scaled past it (qwen1.5-32b
+    64 x 2, nemotron-4-340b 96 x 16 and its 96-layer prefill); a config no
+    deeper than the second variant depth is always counted in full."""
+    get = tcfg.get_config
+    assert TD.FULL_COUNT_LIMIT == 64
+    assert TD.choose_count(get("tinyllama-1.1b"), 2) == "full"
+    assert TD.choose_count(get("qwen1.5-32b"), 2) == "scaled"
+    assert TD.choose_count(get("nemotron-4-340b"), 16) == "scaled"
+    assert TD.choose_count(get("nemotron-4-340b"), 1) == "scaled"
+    assert TD.choose_count(get("tinyllama-1.1b"), 2, "scaled") == "scaled"
+    assert TD.choose_count(get("nemotron-4-340b"), 16, "full") == "full"
+    assert TD.choose_count(tcfg.reduced(get("tinyllama-1.1b")), 1,
+                           "scaled") == "full"
+    with pytest.raises(ValueError):
+        TD.choose_count(get("tinyllama-1.1b"), 1, "both")

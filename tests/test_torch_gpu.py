@@ -48,6 +48,8 @@ collectives on CUDA tensors, and the recurrence on a (1, 1) NCCL mesh
 equal to the call with no mesh (both masks, float32 and bf16).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -1685,3 +1687,120 @@ def test_recorder_counts_the_kernels_on_card(cuda):
             forward(fparams, cfg, ftoks)
     assert fa.launches == 0
     assert fake.flops == real.flops and fake.op_calls == real.op_calls
+
+
+# ---------------------------------------------------------------------------
+# the local head counts that whole heads under an uneven split hand the
+# kernels (the production mesh's model axis of 16 over 8, 40 or 40 SSM
+# heads; tests/test_torch_distributed_heads.py holds the mesh path on the
+# CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,hd", [(3, 1, 64), (5, 5, 128), (1, 1, 64),
+                                       (2, 2, 80)],
+                         ids=["gqa3-1", "qwen5-5", "whisper1-1",
+                              "zamba2-2-2"])
+def test_attention_function_grads_at_local_heads(cuda, hq, hkv, hd, dtype):
+    """``_FlashAttention`` at the local heads a rank takes where the tp
+    split does not divide the heads (6 / 2 heads on a split of 2;
+    qwen1.5-32b's 40 on "a" 8; whisper-base's 8 on "a" 8; zamba2's shared
+    block, 32 on 16): one launch, the output against the plain version and
+    the grads against autograd through ``blocked_attention``, at the gates
+    of ``test_attention_function_grads_on_the_card``."""
+    from repro_torch.models.attention import blocked_attention
+    q, k, v = _qkv(cuda, 2, 256, hq, hkv, hd, dtype, seed=hq * hd)
+    w = torch.randn(q.shape, device=cuda)
+    before = fa.launches
+    (out,), got = _grads(lambda *x: ops.attention(*x), (q, k, v), (w,))
+    assert fa.launches == before + 1
+    _, want = _grads(lambda *x: blocked_attention(*x), (q, k, v), (w,))
+    ref = fa.flash_attention_plain(q, k, v, True, None)
+    pairs = list(zip(got, want)) + [(out, ref)]
+    for g, r in pairs:
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        if dtype == torch.bfloat16:
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= bf16_bound(r.float())).all()), err.max()
+        else:
+            torch.testing.assert_close(g, r, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("h,dv,exclusive", [(5, 64, True), (40, 128, False),
+                                            (1, 64, True)],
+                         ids=["rwkv6-5", "zamba2-40", "rwkv6-1"])
+def test_rwkv6_function_grads_at_local_heads(cuda, h, dv, exclusive):
+    """``_Rwkv6Mix`` at the local heads a rank takes: rwkv6-3b's 40 heads on
+    "a" 8 (5, the bonus), zamba2's 40 SSM heads whole on a split of 16
+    that does not divide them (40, inclusive, V 128), one head: output
+    and final state 1e-4 of the plain version, grads 1e-4 of autograd
+    through the chunk scan."""
+    from repro_torch.models.ssm import chunked_linear_attention_scan
+    q, k, v, ld, u = _rwkv_inputs(cuda, 2, h, 128, 64, dv, seed=h)
+    u = u if exclusive else None
+    ws = (torch.randn(2, h, 128, dv, device=cuda),
+          torch.randn(2, h, 64, dv, device=cuda))
+    before = kr.launches
+    (out, S), got = _grads(lambda *x: ops.rwkv6_mix_state(
+        *x[:4], bonus=x[4], chunk=16), (q, k, v, ld, u), ws)
+    assert kr.launches == before + 1
+    (rout, rS), want = _grads(lambda *x: chunked_linear_attention_scan(
+        *x[:4], bonus=x[4], chunk=16), (q, k, v, ld, u), ws)
+    plain, plain_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=16)
+    for a, b in ((out, rout), (S, rS), (out, plain), (S, plain_S)):
+        torch.testing.assert_close(a.float(), b.float(), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    for g, r in zip(got, want):
+        if r is not None:
+            torch.testing.assert_close(g, r, atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the port's examples on the card
+# ---------------------------------------------------------------------------
+
+def _example(name, *argv):
+    import os
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, str(root / "examples" / name),
+                        *argv], env={**os.environ,
+                                     "PYTHONPATH": str(root / "src")},
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return r.stdout
+
+
+def test_quickstart_example_launches_layers_times_steps(cuda):
+    import re
+    out = _example("quickstart_torch.py", "--device", "cuda")
+    m = re.search(r"attention kernel launches: (\d+) \((\d+) layers x "
+                  r"(\d+) steps on cuda\)", out)
+    assert m and int(m.group(1)) == int(m.group(2)) * int(m.group(3)) == 10
+    losses = [float(x) for x in re.findall(r"step \d: loss (\S+)", out)]
+    assert len(losses) == 5 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+
+
+def test_multi_tenant_example_launches_once_a_solve(cuda):
+    import re
+    out = _example("multi_tenant_cluster_torch.py", "--jobs", "12",
+                   "--device", "cuda")
+    m = re.search(r"segment-max kernel launches: (\d+) of (\d+) solves on "
+                  r"cuda", out)
+    assert m and int(m.group(1)) == int(m.group(2)) > 0
+
+
+def test_rwkv6_batch_of_one_decode_cell_on_the_production_mesh(cuda):
+    """rwkv6-3b's long_500k cell (a decode step at a batch of one, which
+    does not split over dp) on 16 x 16 fake ranks with cuda fake tensors,
+    at full depth, where FSDP splits the stacked ``decay_base`` (32 x 2560
+    values) over "data": the low-rank decay's product is a partial sum over
+    "data" there (``w_decay_b``'s rows split by FSDP), which the card's
+    DTensor could not add to the split ``decay_base``; the sum is reduced
+    first (``models/ssm.py::_sum_partials``)."""
+    from repro_torch.launch import dryrun
+    r = dryrun.lower_cell("rwkv6-3b", "long_500k", False,
+                          {"skip_aux": True}, device="cuda")
+    assert r["status"] == "ok" and r["chips"] == 256

@@ -1,7 +1,7 @@
 """The port stands alone and has no silent fallbacks.
 
-* no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
-  or anything of ``repro``;
+* no module of ``src/repro_torch``, not ``chip_smoke.py`` and no
+  ``examples/*_torch.py`` imports ``jax`` or anything of ``repro``;
 * the port has no ``try`` at all (so none around a kernel launch that could
   fall back to the plain version) and calls no library attention or
   ``torch.compile``;
@@ -39,7 +39,8 @@ from repro_torch.service import LiveCluster  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "torch.compile",
                    "cudnn_attention", "flash_attn")
