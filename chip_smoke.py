@@ -29,8 +29,9 @@ Phases, in order; any failure exits non-zero before the result line:
                heads (B 1, S 2048, 96 / 8 of 192), and at head_dim 96 and
                192 with S 1, 127, 129, 300 (GQA 4), a window of 48, Sq x
                Skv 224 x 1500 and 1 x 1500 non-causal and fused-projection
-               views, in bf16 and float32, each on the mma kernel (the
-               built library's dispatch is held to name it too),
+               views, in bf16 and float32: head_dim 80, 96 and 192 on the
+               wgmma kernel in bf16, on the FMA kernel in float32 (the
+               built library's dispatch is held to name them too),
                on both kernels of the source (bf16 within one bf16 ulp of the
                output, float32 1e-4); the segment
                max at the lane engine's dispatch shapes, empty segments and
@@ -106,8 +107,9 @@ Phases, in order; any failure exits non-zero before the result line:
                parameters, float32 masters, bf16 compute, seed 0): 4 x 2048
                prompt, 32 greedy decode steps.  A prefill and the
                teacher-forced forward must launch flash attention 9 times
-               (mma_sync) and the recurrence 54 times, decode neither, the
-               segment max never; teacher forcing within 0.15 / 0.05.  Logs
+               (every bf16 launch wgmma_tma) and the recurrence 54 times,
+               decode neither, the segment max never; teacher forcing
+               within 0.15 / 0.05.  Logs
                the bounds by part (``hybrid_prefill_parts``,
                ``hybrid_decode_bytes``).  The model is freed before phase 4f.
   4f. serve-audio — the same for full-width, full-depth whisper-base (6
@@ -130,10 +132,10 @@ Phases, in order; any failure exits non-zero before the result line:
                greedy decode steps, served on tokens alone as the reference
                serves it.  A prefill alone, the main run and the
                teacher-forced forward must launch flash attention 32 times,
-               every launch mma_sync, decode never, the other kernels
+               every launch wgmma_tma, decode never, the other kernels
                never; teacher forcing within 0.15 / 0.05 in bf16.  Then the
                patch path (``patch_path``): a forward with 256 bf16 patch
-               embeddings (seeded normals) must launch 32 times (mma_sync),
+               embeddings (seeded normals) must launch 32 times (wgmma_tma),
                give finite logits and move every position's logits past
                the patches against the patch-free forward; timed.  Logs the
                bounds by part (``dense_prefill_parts``).  The model is
@@ -208,7 +210,7 @@ Phases, in order; any failure exits non-zero before the result line:
                single rank's; finite losses; whisper 18 attention launches
                a rank a step (6 encoder, 6 self, 6 cross), `wgmma_tma`, at
                4 of 8 local heads; phi-3 2 a layer a step (forward and
-               remat's recompute), `mma_sync`, at 16 of 32 heads of 96.
+               remat's recompute), `wgmma_tma`, at 16 of 32 heads of 96.
                (9) tinyllama-1.1b (full width and depth, bf16 weights, 4 x
                2048 prompt) and (10) whisper-base (16 x 1500 bf16 frames, a
                224-token prompt, caches of 1536 rows) served on (data 2,
@@ -557,7 +559,7 @@ MESH_TRAIN = {"whisper-base": dict(layers=None, batch=16, seq=448,
                                    variant="wgmma_tma"),
               "phi-3-vision-4.2b": dict(layers=8, batch=4, seq=1024,
                                         patches=256, remat="full",
-                                        variant="mma_sync")}
+                                        variant="wgmma_tma")}
 MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 1, 1
 # Phase 4h (9), (10): serving on (data 2, model 2): tinyllama-1.1b's phase
 # 4 prompt and whisper-base's phase 4f shape; greedy decode steps cut from
@@ -4915,11 +4917,12 @@ def main() -> None:
         sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per CTA "
             f"(bytes, by head_dim): {sizes}")
-    # head_dim 96 (phi-3-vision) and 192 (nemotron-4-340b) on the mma
-    # kernel, as the wrapper's check_layout names it
-    for dtype, want in ((torch.bfloat16, "mma_sync"),
+    # head_dim 80 (zamba2), 96 (phi-3-vision) and 192 (nemotron-4-340b) on
+    # the wgmma kernel in bf16 and the FMA kernel in float32, as the
+    # wrapper's check_layout names them
+    for dtype, want in ((torch.bfloat16, "wgmma_tma"),
                         (torch.float32, "mma_fma")):
-        for hd in (96, 192):
+        for hd in (80, 96, 192):
             if fa.built_variant(dtype, hd) != want:
                 fail(f"the built library launches "
                      f"{fa.built_variant(dtype, hd)} for {dtype} head_dim "
@@ -4971,8 +4974,8 @@ def main() -> None:
         ("hd32", (1, 300, 4, 2, 32), bf16, True, None),
         ("hd128", (1, 300, 4, 2, 128), bf16, True, None),
         ("hd128-f32", (1, 300, 4, 2, 128), f32, True, None),
-        # zamba2-2.7b's shared attention (head_dim 80, MHA 32 / 32) on the
-        # mma kernel, its tile edges, GQA and windows
+        # zamba2-2.7b's shared attention (head_dim 80, MHA 32 / 32), its
+        # tile edges, GQA and windows
         ("zamba2-bf16", ZAMBA_ATTN, bf16, True, None),
         ("zamba2-f32", ZAMBA_ATTN, f32, True, None),
         ("hd80-s1", (2, 1, 8, 8, 80), bf16, True, None),
@@ -5001,8 +5004,8 @@ def main() -> None:
         ("nc-gqa-129x63-hd80", (2, 129, 8, 2, 80, 63), bf16, False, None),
         ("nc-gqa-129x63-f32", (2, 129, 8, 2, 64, 63), f32, False, None),
         # phi-3-vision-4.2b's attention (MHA 32 / 32, head_dim 96) and
-        # nemotron-4-340b's heads (96 / 8 of 192), both on the mma kernel:
-        # at their shapes, ragged S, a window, GQA, non-causal Sq != Skv
+        # nemotron-4-340b's heads (96 / 8 of 192): at their shapes, ragged
+        # S, a window, GQA, non-causal Sq != Skv
         ("phi3-bf16", PHI3_ATTN, bf16, True, None),
         ("phi3-f32", PHI3_ATTN, f32, True, None),
         ("nemotron-bf16", NEMOTRON_ATTN, bf16, True, None),
@@ -5052,14 +5055,12 @@ def main() -> None:
                 fail(f"deepseek's attention shape ran {fa.last_variant}")
         if name == "zamba2-bf16":
             zamba_err = err
-            if fa.last_variant != "mma_sync":
-                fail(f"zamba2's attention shape ran {fa.last_variant}")
         if name in ("whisper-enc", "whisper-cross"):
             whisper_err[name] = err
             if fa.last_variant != "wgmma_tma":
                 fail(f"whisper's {name} shape ran {fa.last_variant}")
-        if shape[4] in (96, 192) and fa.last_variant != (
-                "mma_sync" if dtype == bf16 else "mma_fma"):
+        if shape[4] in (80, 96, 192) and fa.last_variant != (
+                "wgmma_tma" if dtype == bf16 else "mma_fma"):
             fail(f"{name} (head_dim {shape[4]}) ran {fa.last_variant}")
         if name == "phi3-bf16":
             phi3_err = err
@@ -5097,11 +5098,9 @@ def main() -> None:
 
     # 4e. the hybrid family: full-width zamba2-2.7b, both model kernels -----
     hybrid_launches = serve_phase(dev, "zamba2-2.7b", {"flash_attention": 9,
-                                                       "rwkv6_chunked": 54})
+                                                       "rwkv6_chunked": 54},
+                                  variant="wgmma_tma")
     hybrid_variant = fa.last_variant
-    if hybrid_variant != "mma_sync":
-        fail(f"zamba2 prefill ran the {hybrid_variant} attention variant, "
-             f"not mma_sync")
 
     # 4f. the audio family: full-width whisper-base on 1500 frames ----------
     audio_launches = serve_phase(
@@ -5111,7 +5110,7 @@ def main() -> None:
 
     # 4g. the vlm family: full-width phi-3-vision-4.2b, head_dim 96 --------
     vlm_launches = serve_phase(dev, "phi-3-vision-4.2b",
-                               {"flash_attention": 32}, variant="mma_sync")
+                               {"flash_attention": 32}, variant="wgmma_tma")
 
     # 4h. distributed: ranks sharing the card -----------------------------
     t0 = time.perf_counter()

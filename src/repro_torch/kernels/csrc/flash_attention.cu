@@ -20,9 +20,10 @@
 //
 // Variants, chosen by dtype and head_dim in dispatch_hd (never one for another):
 //
-//   attn_fwd_wgmma_kernel — bf16, head_dim 64 and 128.  One CTA of three
-//     warpgroups takes 128 q rows.  What held the mma.sync design back, and
-//     what this one does about it:
+//   attn_fwd_wgmma_kernel — bf16, head_dim 64, 80, 96, 128 and 192 (80 is
+//     zamba2's heads, 96 phi-3-vision's, 192 nemotron-4-340b's).  One CTA of
+//     three warpgroups takes 128 q rows.  What held the mma.sync design back,
+//     and what this one does about it:
 //     * mma.sync m16n8k16 with fragments read from shared memory by 32-bit
 //       loads reaches a fraction of the tensor cores' rate.  Both products are
 //       wgmma.mma_async m64nNk16: S = Q K^T with Q and K read from shared
@@ -34,13 +35,26 @@
 //       conflicts.  Q, K and V come in by TMA (cp.async.bulk.tensor, 4-D maps
 //       over (hd, S, H, B) with the inputs' byte strides) into 128-byte
 //       swizzled shared memory, complete on mbarriers, and TMA's zero fill
-//       past Sq / Skv replaces the masked loads.  head_dim 128 is two
-//       64-column boxes.
+//       past Sq / Skv replaces the masked loads.
+//     * Head dims that are not a multiple of 64.  A row is ceil(hd / 64)
+//       boxes of 64 columns (two at hd 80, 96 and 128, three at 192), each a
+//       128-byte swizzle atom wide; the map's first dimension stays hd, so TMA
+//       reads only hd columns and zero-fills the rest of the last box.  This
+//       keeps one descriptor layout for every head dim, where a narrower last
+//       box would need its own swizzle (32 or 64 bytes), its own maps and a
+//       second PV product.  S = Q K^T runs exactly hd / 16 k16 steps (5 at
+//       80, 6 at 96, 12 at 192), so the zero columns cost no product; O +=
+//       P V is one m64n80 / n96 / n192 wgmma a k16 step, whose B descriptor
+//       reads the first 16 or 32 columns of the second atom (n128 over the
+//       zero columns does 1.6x / 1.33x the PV products and is slower on the
+//       card: scripts/attention_pv_width.py), and only hd columns of O are
+//       stored.
 //     * Load -> sync -> compute -> sync on every tile let no copy overlap a
-//       product.  A ring of 4 K/V stages (16 KB of Q and 16 KB a stage at
-//       hd 64, 81 KB in all; 32 and 32 KB at hd 128) with full and empty
-//       mbarriers is fed by one producer warp (its warpgroup gives registers
-//       to the consumers with setmaxnreg).
+//       product.  A ring of K/V stages with full and empty mbarriers is fed
+//       by one producer warp (its warpgroup gives registers to the consumers
+//       with setmaxnreg): 4 stages at hd 64 (16 KB of Q and 16 KB a stage, 81
+//       KB in all) and at 80 / 96 / 128 (32 and 32 KB, 161 KB); 3 at 192 (48
+//       and 48 KB, 193 KB: 4 would take 240 KB of the card's 227).
 //     * 64 q rows a CTA loaded every K/V tile for little work.  Two consumer
 //       warpgroups of 64 rows share each K/V tile.
 //     * The softmax left the tensor cores idle.  A warpgroup issues tile n's
@@ -49,30 +63,26 @@
 //       at issuing (named barriers), so one's softmax overlaps the other's
 //       products.  The K/V tiles are 64 rows, not 128: at 128, S, P_hi +
 //       P_lo and O in flight at once need more registers than ptxas gives
-//       the consumers, and it serialises the wgmmas.
+//       the consumers, and it serialises the wgmmas.  For the same reason a
+//       warpgroup at hd 192 (O alone is 96 registers a thread) lets its P V
+//       complete before it issues S = Q K^T (Plan::OVERLAP); the turns
+//       still overlap one warpgroup's softmax with the other's products.
 //     Online softmax runs on the accumulator registers, in base 2 with
 //     log2(e) folded into the scale (one FFMA and one ex2.approx a score,
 //     the ex2 on the special-function unit, which then bounds the softmax).
 //     Tiles the masks leave dead are never loaded, and only tiles
 //     that a mask cuts are masked element by element.  Longest causal rows
 //     first.
-//   attn_fwd_mma_kernel — bf16 head_dim 16, 32, 80, 96 and 192 (mma.sync
-//     m16n8k16, P as P_hi + P_lo from registers, V transposed into shared
-//     memory), and all of float32 (plain FMAs, no TF32, P through shared
+//   attn_fwd_mma_kernel — bf16 head_dim 16 and 32 (mma.sync m16n8k16, P as
+//     P_hi + P_lo from registers, V transposed into shared memory), and all
+//     of float32 at every head dim (plain FMAs, no TF32, P through shared
 //     memory): 64 q rows a CTA of 4 warps, 64-row K/V tiles loaded
 //     synchronously.  Every loop runs over HD / 16 k-steps and HD / 8
 //     n-tiles and every tile row is HD / 8 (bf16) or HD / 4 (float32) 16-byte
-//     chunks, so any multiple of 16 works; 80 (zamba2's heads) is 5 k-steps
-//     and 10 n-tiles, 96 (phi-3-vision's) 6 and 12, 192 (nemotron-4-340b's)
-//     12 and 24.  The padded rows (HD + 8 bf16, HD + 4 float32 elements)
-//     keep a warp's fragment reads on distinct banks.  At 192 a thread holds
-//     48 registers of Q fragments and 96 float32 O accumulators before S and
-//     P (CUDA 12.8's ptxas fits the bf16 instance in 254 registers without
-//     a spill; the build's -Xptxas -v report says for each build); the
-//     shared memory is 53,248 bytes in bf16 and 167,936 in float32, both
-//     above the 48 KB default, which launch() opts into.  The wgmma kernel's
-//     TMA boxes are 64 columns with a 128-byte swizzle, which 80 and 96 do
-//     not fill.
+//     chunks, so any multiple of 16 works.  The padded rows (HD + 8 bf16, HD
+//     + 4 float32 elements) keep a warp's fragment reads on distinct banks.
+//     float32 above head_dim 32 (69,632 bytes at 64, 167,936 at 192) takes
+//     more shared memory than the 48 KB default, which launch() opts into.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -112,7 +122,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
 }
 
 // ---------------------------------------------------------------------------
-// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 / 80 / 96 / 192 and float32
+// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 and float32
 // ---------------------------------------------------------------------------
 
 namespace mma {
@@ -414,7 +424,7 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// attn_fwd_wgmma_kernel: bf16 head_dim 64 / 128
+// attn_fwd_wgmma_kernel: bf16 head_dim 64 / 80 / 96 / 128 / 192
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -431,8 +441,17 @@ constexpr float DEAD_MAX = -1e28f;
 
 template <int HD>
 struct Plan {
-  static constexpr int NBOX = HD / 64;              // 64-column boxes per row
-  static constexpr int STAGES = 4;                  // K/V ring depth
+  // 64-column boxes a row; at hd 80 and 96 TMA zero-fills the last past hd
+  static constexpr int NBOX = (HD + 63) / 64;
+  // K/V ring depth: at hd 192 four stages would take 240 KB of the 227
+  static constexpr int STAGES = NBOX > 2 ? 3 : 4;
+  // Whether tile n's S and tile n - 1's P are in flight together.  ptxas
+  // allocates a consumer the 168 registers of a 384-thread block (not the
+  // 240 that setmaxnreg gives it at run time): at hd 192, O (96 float32 a
+  // thread), S (32) and P_hi + P_lo (32) together spilled 200 bytes, so
+  // there P V completes before S = Q K^T is issued (32 bytes still spill,
+  // and ptxas still serialises the wgmmas: the build's -Xptxas -v report).
+  static constexpr bool OVERLAP = HD <= 128;
   static constexpr int Q_TILE = NBOX * Q_BOX;
   static constexpr int KV_TILE = NBOX * KV_BOX;     // a K or a V tile
   static constexpr int Q_OFF = 0;
@@ -538,6 +557,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // D(64 x N, f32) (+)= A * B: m64nNk16 bf16.  _ss: A and B from shared
 // memory, both K-major.  _rs: A from registers (the m16n8k16 A-fragment
 // layout, per warp), B from shared memory, MN-major (transposed B).
+#define ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -547,62 +569,77 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N> struct Rs;
-template <> struct Rs<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    wgmma_rs_n64(d, a, db);
+// The RS product at the N of O += P V: head_dim 64, 80, 96, 128 or 192.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 192, "no RS instance");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
+          ACC8(48), ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
+          ACC8(48), ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
-};
-template <> struct Rs<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    wgmma_rs_n128(d, a, db);
-  }
-};
+}
+#undef ACC8
 
 // The softmax state of one consumer thread's two rows (qpos[0] and
 // qpos[0] + 8 of its warpgroup): the keys each may see, [klo, khi], its
@@ -615,8 +652,9 @@ struct Rows {
   float m[2], l[2];
 };
 
-// S = Q K^T for one warpgroup's 64 rows against a BK-key tile: hd / 16
-// k16 steps, the second 64-column box (hd 128) one box further.
+// S = Q K^T for one warpgroup's 64 rows against a BK-key tile: exactly
+// hd / 16 k16 steps (4, 5, 6, 8 or 12), four to a 64-column box, so the
+// zero-filled columns of a last box (hd 80, 96) cost no product.
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q, uint32_t k) {
   static_assert(BK == 64, "S is one m64n64 accumulator");
@@ -629,15 +667,15 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q, uint32_
 }
 
 // O += P V with P as P_hi then P_lo: V (kv, hd) is MN-major B, 16 kv rows a
-// k16 step, the second 64-column box (hd 128) one leading offset away.
+// k16 step, each further 64-column box one leading offset away.
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&a_hi)[BK / 16][4],
                                          const uint32_t (&a_lo)[BK / 16][4], uint32_t v) {
 #pragma unroll
   for (int kt = 0; kt < BK / 16; ++kt) {
     const uint64_t db = sw128_desc(v + kt * 16 * 128, KV_BOX, 1024);
-    Rs<HD>::run(o, a_hi[kt], db);
-    Rs<HD>::run(o, a_lo[kt], db);
+    wgmma_rs<HD>(o, a_hi[kt], db);
+    wgmma_rs<HD>(o, a_lo[kt], db);
   }
 }
 
@@ -816,9 +854,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   // Tile n's S = Q K^T and tile n - 1's O += P V are issued together, in
   // this warpgroup's turn (warpgroup 0 first); the softmax of tile n runs
-  // while the PV product is still on the tensor cores.  Each warpgroup takes
-  // ntiles + 1 turns, and each turn's pass is awaited, so no arrival is left
-  // at exit.
+  // while the PV product is still on the tensor cores (at hd 192, P V
+  // completes first: Plan::OVERLAP).  Each warpgroup takes ntiles + 1
+  // turns, and each turn's pass is awaited, so no arrival is left at exit.
   mbar_wait(q_full, 0);
   if (ntiles > 0) {
     if (cw == 1) turn_pass(cw);
@@ -839,16 +877,30 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     mbar_wait(v_full(prev), ((n - 1) / STAGES) & 1);
     turn_wait(cw);
     wgmma_fence();
-    issue_qk<HD>(s, q_wg, k_s(st));
-    wgmma_commit();
-    issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
-    wgmma_commit();
-    turn_pass(cw);
-    wgmma_wait<1>();                             // S of tile n is in
-    fence_regs(s);
-    softmax(s, alpha, rows, p, (j_lo + n) * BK);
-    wgmma_wait<0>();                             // PV of tile n - 1 is done
-    fence_regs(o);
+    if constexpr (P::OVERLAP) {
+      issue_qk<HD>(s, q_wg, k_s(st));
+      wgmma_commit();
+      issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<1>();                           // S of tile n is in
+      fence_regs(s);
+      softmax(s, alpha, rows, p, (j_lo + n) * BK);
+      wgmma_wait<0>();                           // PV of tile n - 1 is done
+      fence_regs(o);
+    } else {
+      issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
+      wgmma_commit();
+      wgmma_wait<0>();                           // PV of tile n - 1 is done
+      fence_regs(o);
+      wgmma_fence();
+      issue_qk<HD>(s, q_wg, k_s(st));
+      wgmma_commit();
+      turn_pass(cw);
+      wgmma_wait<0>();                           // S of tile n is in
+      fence_regs(s);
+      softmax(s, alpha, rows, p, (j_lo + n) * BK);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(prev));     // this warp is done with it
 #pragma unroll
@@ -905,7 +957,8 @@ EncodeTiled encode_fn() {
 
 // The 4-D map of one (B, S, H, hd) input: dimensions (hd, inner, outer, B)
 // where inner is whichever of S and H has the smaller stride, a box of 64
-// columns x box_rows rows, 128-byte swizzle, zeros past the ends.  A
+// columns x box_rows rows, 128-byte swizzle, zeros past the ends (the
+// columns of a last box past hd 80 or 96 too).  A
 // dimension of size 1 gets a nominal stride.  Returns false if
 // cuTensorMapEncodeTiled refuses the map.
 bool encode(CUtensorMap* map, const void* ptr, int hd, int s, int h, int batch, long long ss,
@@ -952,14 +1005,14 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace wg
 
 // The variant that takes (dtype, head_dim): 0 attn_fwd_mma_kernel with FMAs
-// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32 / 80 / 96
-// / 192), 2 attn_fwd_wgmma_kernel (bf16 hd 64 / 128); -1 none.
+// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32), 2
+// attn_fwd_wgmma_kernel (bf16 hd 64 / 80 / 96 / 128 / 192); -1 none.
 int variant(int dtype, int hd) {
   if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 96 && hd != 128 &&
       hd != 192)
     return -1;
   if (dtype == 0) return 0;
-  if (dtype == 1) return hd == 64 || hd == 128 ? 2 : 1;
+  if (dtype == 1) return hd == 16 || hd == 32 ? 1 : 2;
   return -1;
 }
 
@@ -974,11 +1027,11 @@ cudaError_t dispatch_hd(const Params& p, int dtype, int hd, int batch, cudaStrea
     case 192: return mma::launch<float, 192>(p, batch, stream);
     case 1016: return mma::launch<__nv_bfloat16, 16>(p, batch, stream);
     case 1032: return mma::launch<__nv_bfloat16, 32>(p, batch, stream);
-    case 1080: return mma::launch<__nv_bfloat16, 80>(p, batch, stream);
-    case 1096: return mma::launch<__nv_bfloat16, 96>(p, batch, stream);
-    case 1192: return mma::launch<__nv_bfloat16, 192>(p, batch, stream);
     case 2064: return wg::launch<64>(p, batch, stream);
+    case 2080: return wg::launch<80>(p, batch, stream);
+    case 2096: return wg::launch<96>(p, batch, stream);
     case 2128: return wg::launch<128>(p, batch, stream);
+    case 2192: return wg::launch<192>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -994,11 +1047,11 @@ int smem_bytes(int dtype, int hd) {
     case 192: return (int)mma::Plan<float, 192>::kBytes;
     case 1016: return (int)mma::Plan<__nv_bfloat16, 16>::kBytes;
     case 1032: return (int)mma::Plan<__nv_bfloat16, 32>::kBytes;
-    case 1080: return (int)mma::Plan<__nv_bfloat16, 80>::kBytes;
-    case 1096: return (int)mma::Plan<__nv_bfloat16, 96>::kBytes;
-    case 1192: return (int)mma::Plan<__nv_bfloat16, 192>::kBytes;
     case 2064: return (int)wg::Plan<64>::kBytes;
+    case 2080: return (int)wg::Plan<80>::kBytes;
+    case 2096: return (int)wg::Plan<96>::kBytes;
     case 2128: return (int)wg::Plan<128>::kBytes;
+    case 2192: return (int)wg::Plan<192>::kBytes;
     default: return -1;
   }
 }

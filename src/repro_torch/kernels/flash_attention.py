@@ -5,9 +5,9 @@ the Pallas TPU kernel ``repro/kernels/flash_attention.py::_attn_kernel`` and
 its GQA wrapper ``repro/kernels/ops.py::flash_attention``.  It takes CUDA
 tensors only and raises on what the kernel does not take.  The source holds
 two kernels, chosen by dtype and head_dim (``check_layout`` names the one a
-call launches): bf16 at head_dim 64 / 128 runs ``attn_fwd_wgmma_kernel``
-(wgmma, TMA, a ring of K/V stages), bf16 at 16 / 32 / 80 / 96 / 192 and all
-of float32 run ``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
+call launches): bf16 at head_dim 64 / 80 / 96 / 128 / 192 runs
+``attn_fwd_wgmma_kernel`` (wgmma, TMA, a ring of K/V stages), bf16 at 16 /
+32 and all of float32 run ``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
 ``flash_attention_plain`` computes the same function in plain PyTorch, with
 the same ``-1e30`` masking sentinel, ``max(l, 1e-20)`` finalize and kv-major
 GQA grouping; the CPU path and the on-card comparisons use it.
@@ -93,10 +93,10 @@ def flops(b: int, sq: int, skv: int, hq: int, hd: int, causal: bool,
 
 # The kernel variants of csrc/flash_attention.cu, by the code its
 # flash_attention_variant returns: float32 on FMAs and bf16 head_dim 16 / 32
-# / 80 / 96 / 192 on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 /
-# 128 runs attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
+# on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 / 80 / 96 / 128 /
+# 192 runs attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
 VARIANTS = ("mma_fma", "mma_sync", "wgmma_tma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)
 _TMA_STRIDE_LIMIT = 2 ** 40
 
 

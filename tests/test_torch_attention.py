@@ -192,8 +192,8 @@ def _layout(b=2, s=64, hq=8, hkv=2, hd=64, elt=2, fused=False):
 
 @pytest.mark.parametrize("elt,hd,variant", [
     (2, 64, "wgmma_tma"), (2, 128, "wgmma_tma"),
-    (2, 16, "mma_sync"), (2, 32, "mma_sync"), (2, 80, "mma_sync"),
-    (2, 96, "mma_sync"), (2, 192, "mma_sync"),
+    (2, 16, "mma_sync"), (2, 32, "mma_sync"), (2, 80, "wgmma_tma"),
+    (2, 96, "wgmma_tma"), (2, 192, "wgmma_tma"),
     (4, 16, "mma_fma"), (4, 32, "mma_fma"), (4, 64, "mma_fma"),
     (4, 80, "mma_fma"), (4, 96, "mma_fma"), (4, 128, "mma_fma"),
     (4, 192, "mma_fma"),
@@ -233,6 +233,27 @@ def test_check_layout_refuses_what_a_tma_map_cannot_take(case, match):
         fa.check_layout(shapes, strides, 2, bases)
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["contiguous", "fused"])
+@pytest.mark.parametrize("case", ["zero head stride", "stride of 2**40 bytes"])
+@pytest.mark.parametrize("hd", [80, 96, 192])
+def test_check_layout_holds_the_tma_rule_at_hd_80_96_192(hd, case, fused):
+    """bf16 at head_dim 80 / 96 / 192 runs the wgmma kernel, so a layout
+    that a TMA map cannot take raises (the mma kernel took a zero stride);
+    float32 at the same head dims stays on the FMA kernel and takes it."""
+    shapes, strides, bases = _layout(hd=hd, fused=fused)
+    assert fa.check_layout(shapes, strides, 2, bases) == "wgmma_tma"
+    strides = [list(st) for st in strides]
+    if case == "zero head stride":
+        strides[2][2] = 0                       # v broadcast over its heads
+    else:
+        strides[1][0] = 2 ** 39                 # k's batch stride: 2**40 bytes
+    with pytest.raises(ValueError, match="2\\*\\*40"):
+        fa.check_layout(shapes, strides, 2, bases)
+    if case == "zero head stride":
+        bases4 = [b * 2 for b in bases]
+        assert fa.check_layout(shapes, strides, 4, bases4) == "mma_fma"
+
+
 def test_check_layout_ignores_the_stride_of_a_size_one_dim():
     """A dimension of size 1 is never stepped over: B = 1, S = 1 or H = 1
     may carry any stride (as a sliced or unsqueezed view does), on every
@@ -244,6 +265,47 @@ def test_check_layout_ignores_the_stride_of_a_size_one_dim():
     shapes, strides, bases = _layout(hd=32)
     strides[1] = (strides[1][0], strides[1][1], 0, 1)   # k broadcast
     assert fa.check_layout(shapes, strides, 2, bases) == "mma_sync"
+
+
+@pytest.mark.parametrize("arch,hd", [("zamba2-2.7b", 80),
+                                     ("phi-3-vision-4.2b", 96),
+                                     ("nemotron-4-340b", 192)])
+def test_model_paths_hand_the_wgmma_kernel_a_layout_it_takes(arch, hd,
+                                                             monkeypatch):
+    """The paths that reach attention at head_dim 80 / 96 / 192 (zamba2's
+    shared block, phi-3-vision with and without patch embeddings,
+    nemotron's heads), reduced, on the CPU: ``prefill`` and ``forward``
+    hand the op q / k / v whose layouts, read as the bf16 tensors the card
+    would get (the same element strides, offsets at 2 bytes an element),
+    pass ``check_layout``'s TMA rule and name ``wgmma_tma``."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.decode import prefill
+    cfg = configs.reduced(configs.get_config(arch), dtype="float32",
+                          head_dim=hd)
+    seen, op = [], ops.flash_attention_op
+
+    def probe(q, k, v, causal, window):
+        ts = (q, k, v)
+        seen.append(fa.check_layout(
+            [t.shape for t in ts], [t.stride() for t in ts], 2,
+            [4096 + 2 * t.storage_offset() for t in ts]))
+        return op(q, k, v, causal, window)
+
+    monkeypatch.setattr(ops, "flash_attention_op", probe)
+    lm = LM.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+    kw = {}
+    if cfg.num_patches:
+        kw["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.num_patches, cfg.d_model)),
+            dtype=torch.float32)
+    with torch.inference_mode():
+        prefill(lm.compute_params(), cfg, toks, 48)
+        lm(toks, **kw)
+    per_pass = cfg.num_layers // (cfg.attn_every or 1)
+    assert seen == ["wgmma_tma"] * 2 * per_pass
 
 
 # ---------------------------------------------------------------------------

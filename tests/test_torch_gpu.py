@@ -11,7 +11,8 @@ Flash attention: bf16 within one bf16 ulp of the output (8e-3 where
 float32 precision as the plain version does and only the output's own
 rounding differs), float32 1e-4 (same f32 arithmetic in another summation
 order, no TF32); on both kernels of the source (wgmma + TMA for bf16 at
-head_dim 64 / 128, mma.sync or FMAs for the rest), at the wgmma kernel's
+head_dim 64 / 80 / 96 / 128 / 192, mma.sync for bf16 at 16 / 32, FMAs for
+float32), at the wgmma kernel's
 tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
 1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact
 against its plain version and numpy, on CUDA tensors and through the
@@ -30,7 +31,8 @@ masks, at chip_smoke.py's shapes, through every VB and both load paths
 copy; a CUDA prefill never calls the float32 precompute; reduced rwkv6-3b
 prefill on ``cuda`` of 40, 12 and 7 tokens (chunks 8, 12 and 7) launches
 it once per layer and matches ``device="cpu"``.  The hybrid family:
-attention at zamba2's head_dim 80 (MHA 32 / 32, GQA, windows, ragged S),
+attention at zamba2's head_dim 80 (MHA 32 / 32, GQA, windows, ragged S;
+the wgmma kernel in bf16),
 the recurrence as ``mamba2_apply`` calls it (float32, inclusive, K 64 /
 V 128, q broadcast over the heads), and reduced zamba2's ``generate``
 against the CPU with its launches counted.  The audio family: attention
@@ -40,8 +42,10 @@ and decoder shapes, on a cross cache's row view, the Function's grads at
 Sq != Skv, and reduced whisper's ``generate`` against the CPU with
 3 launches a layer in prefill.  The vlm family: attention at head_dim 96
 (phi-3-vision, MHA 32 / 32) and 192 (nemotron-4-340b, GQA 96 / 8) on the
-mma kernel, with GQA, windows, ragged S and Sq != Skv, their shared memory
-as the kernel's plan sizes it, and reduced phi-3-vision at head_dim 96
+wgmma kernel in bf16 and the FMA kernel in float32, with GQA, windows,
+ragged S and Sq != Skv, their shared memory as each kernel's plan sizes
+it, the wgmma kernel's 80 / 96 / 192 instances on every case the ring, the
+boxes and the masks meet, and reduced phi-3-vision at head_dim 96
 with patch embeddings against the CPU with one launch a layer.  Under a
 mesh: attention through ``local_map`` on ranks sharing the card, gloo's
 collectives on CUDA tensors, and the recurrence on a (1, 1) NCCL mesh
@@ -981,8 +985,8 @@ def test_moe_generate_launches_attention_once_per_layer(cuda):
 @pytest.mark.parametrize("b,s", [(4, 2048), (1, 300)])
 def test_kernel_at_the_zamba2_shape(cuda, b, s, dtype):
     """zamba2-2.7b's shared attention: MHA 32 / 32, head_dim 80, causal:
-    the mma kernel (mma.sync in bf16, FMAs in float32)."""
-    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    the wgmma kernel in bf16, the FMA kernel in float32."""
+    variant = "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma"
     _check(*_qkv(cuda, b, s, 32, 32, 80, dtype, seed=s), variant)
 
 
@@ -1060,8 +1064,8 @@ SQ_SKV = [(224, 1500), (1500, 224), (1, 1500), (129, 63), (300, 1)]
 
 @pytest.mark.parametrize("dtype,hd,variant", [
     (torch.bfloat16, 64, "wgmma_tma"), (torch.bfloat16, 128, "wgmma_tma"),
-    (torch.bfloat16, 80, "mma_sync"), (torch.float32, 64, "mma_fma"),
-    (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 192, "mma_sync"),
+    (torch.bfloat16, 80, "wgmma_tma"), (torch.float32, 64, "mma_fma"),
+    (torch.bfloat16, 96, "wgmma_tma"), (torch.bfloat16, 192, "wgmma_tma"),
     (torch.float32, 96, "mma_fma"), (torch.float32, 192, "mma_fma")],
     ids=["bf16-hd64", "bf16-hd128", "bf16-hd80", "f32-hd64", "bf16-hd96",
          "bf16-hd192", "f32-hd96", "f32-hd192"])
@@ -1160,14 +1164,14 @@ def test_audio_generate_launches_attention_three_times_per_layer(cuda):
 
 # ---------------------------------------------------------------------------
 # the vlm family: attention at head_dim 96 (phi-3-vision) and 192
-# (nemotron-4-340b) on the mma kernel
+# (nemotron-4-340b) on the wgmma kernel (bf16) and the FMA kernel (float32)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s", [(4, 2048), (1, 300)])
 def test_kernel_at_the_phi3_shape(cuda, b, s, dtype):
     """phi-3-vision-4.2b's attention: MHA 32 / 32, head_dim 96, causal."""
-    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    variant = "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma"
     _check(*_qkv(cuda, b, s, 32, 32, 96, dtype, seed=s), variant)
 
 
@@ -1175,7 +1179,7 @@ def test_kernel_at_the_phi3_shape(cuda, b, s, dtype):
 @pytest.mark.parametrize("s", [2048, 300])
 def test_kernel_at_the_nemotron_head_shape(cuda, s, dtype):
     """nemotron-4-340b's attention heads: 96 / 8 (GQA 12) of 192, causal."""
-    variant = "mma_sync" if dtype == torch.bfloat16 else "mma_fma"
+    variant = "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma"
     _check(*_qkv(cuda, 1, s, 96, 8, 192, dtype, seed=s), variant)
 
 
@@ -1191,16 +1195,67 @@ def test_kernel_hd96_hd192_groups_windows_and_edges(cuda, hq, hkv, window,
            window=window)
 
 
+# The wgmma kernel's head dims that are not a multiple of 64 or need a
+# three-stage ring: (label, (B, Sq, Hq, Hkv[, Skv]), causal, window, fused)
+WGMMA_NEW_CASES = [
+    ("s1", (2, 1, 8, 2), True, None, False),
+    ("s63", (2, 63, 8, 2), True, None, False),
+    ("s127", (2, 127, 8, 2), True, None, False),
+    ("s129", (2, 129, 8, 2), True, None, False),
+    ("s1000", (2, 1000, 8, 2), True, None, False),
+    ("b1-mqa-s333", (1, 333, 16, 1), True, None, False),
+    ("b1-gqa8-s257", (1, 257, 16, 2), True, None, False),
+    ("window1", (1, 1000, 4, 4), True, 1, False),
+    ("window48", (1, 1000, 4, 4), True, 48, False),
+    ("window200", (1, 300, 8, 2), True, 200, False),
+    ("nc-window200", (1, 300, 4, 2), False, 200, False),
+    ("nc-224x1500", (2, 224, 8, 2, 1500), False, None, False),
+    ("nc-1500x224", (2, 1500, 8, 2, 224), False, None, False),
+    ("nc-1x1500", (2, 1, 8, 2, 1500), False, None, False),
+    ("nc-129x63", (2, 129, 8, 2, 63), False, None, False),
+    ("nc-300x1", (2, 300, 8, 2, 1), False, None, False),
+    ("fused", (2, 257, 8, 2), True, None, True),
+    ("fused-window100", (2, 257, 8, 2), True, 100, True),
+    ("fused-nc", (2, 200, 4, 4), False, None, True),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_NEW_CASES, ids=[c[0] for c in
+                                                       WGMMA_NEW_CASES])
+@pytest.mark.parametrize("hd", [80, 96, 192])
+def test_wgmma_kernel_at_hd_80_96_192(cuda, hd, case):
+    """bf16 at head_dim 80 and 96 (a second 64-column box that TMA fills
+    in part, the PV product at n80 / n96) and 192 (three boxes, a 3-stage
+    ring, the PV product at n192 completed before S is issued): ragged Sq /
+    Skv off the 64-key and 128-row tiles, B = 1, S = 1, GQA groups 1 / 4 /
+    8 / 16, windows across tile edges, non-causal with Sq != Skv, and views
+    of a fused qkv projection; one bf16 ulp of the plain version."""
+    _, shape, causal, window, fused = case
+    b, sq, hq, hkv = shape[:4]
+    if fused:
+        g = torch.Generator(device="cpu").manual_seed(hd + sq)
+        x = torch.randn(b, sq, (hq + 2 * hkv) * hd, generator=g).to(
+            cuda, torch.bfloat16).view(b, sq, hq + 2 * hkv, hd)
+        q, k, v = x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
+    else:
+        q, k, v = _qkv(cuda, b, sq, hq, hkv, hd, torch.bfloat16,
+                       seed=hd + sq, skv=shape[4] if len(shape) > 4 else None)
+    _check(q, k, v, "wgmma_tma", causal=causal, window=window)
+
+
 @pytest.mark.parametrize("dtype,hd,nbytes", [
-    (torch.bfloat16, 96, 27136), (torch.bfloat16, 192, 53248),
+    (torch.bfloat16, 96, 164968), (torch.bfloat16, 192, 197712),
     (torch.float32, 96, 94208), (torch.float32, 192, 167936)])
 def test_smem_bytes_at_hd96_and_hd192(cuda, dtype, hd, nbytes):
-    """The mma kernel's Plan: K (64 x (hd + pad)) and V (bf16: transposed,
-    hd x 72; float32: 64 x (hd + 4)), float32 also Q and four warps' 16 x
-    68 P rows; at 192 above the 48 KB default, which the launch opts into."""
+    """bf16, the wgmma kernel's Plan: 1 KB of alignment, Q (two 64-column
+    boxes of 128 rows at hd 96, three at 192) and a ring of K and V tiles
+    (4 stages of two 64 x 64 boxes each; 3 stages of three at 192), then
+    the mbarriers.  float32, the FMA kernel's: K, V and Q (64 x (hd + 4))
+    and four warps' 16 x 68 P rows.  All above the 48 KB default, which
+    the launch opts into."""
     assert fa.smem_bytes(dtype, hd) == nbytes
     assert fa.built_variant(dtype, hd) == (
-        "mma_sync" if dtype == torch.bfloat16 else "mma_fma")
+        "wgmma_tma" if dtype == torch.bfloat16 else "mma_fma")
 
 
 def test_vlm_forward_with_patches_launches_once_per_layer(cuda):
