@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero before the result line:
                float32 references.
   2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
                (one nvcc per source, all at once); prints build seconds and
-               ptxas registers / shared memory.
+               ptxas registers / shared memory; the attention variant and
+               shared memory by dtype and head_dim, and the C side's
+               variant held to the wrapper's for every head_dim 1..512 in
+               float32, bf16 and float16.
   3. kernels — each kernel against its plain PyTorch version on the card:
                flash attention at the serving path's shape, at
                deepseek-moe-16b's (MHA 16 / 16, head_dim 128), at
@@ -172,7 +175,7 @@ Phases, in order; any failure exits non-zero before the result line:
                first layer); the int8 state's bytes a rank beside
                float32's.  (4) Expert parallelism
                on (1, 2), 2 gloo ranks: full-width deepseek-moe-16b cut to
-               its dense layer and 3 MoE layers (EP_LAYERS), bf16-held
+               its dense layer and 1 MoE layer (EP_LAYERS), bf16-held
                weights drawn into their shards one rank at a time, one
                prefill of 4 x 2048 at capacity factor 16 through the
                sequence-sharded dispatch: last-position logits within 1e-2
@@ -187,6 +190,7 @@ Phases, in order; any failure exits non-zero before the result line:
                depth (SSM_LAYERS) on (data 2, model 2), 4 gloo ranks in
                the grant's rank order: float32 masters drawn into their
                shards, bf16 compute, AdamW float32, remat full, chunk 16
+               for rwkv6-3b and RunConfig's 128 for zamba2-2.7b
                (SSM_CHUNK), 4 x 1024 (cut from 4 x 2048 for the ranks' summed peak), 1
                warm-up and 1 timed step; before the ranks start, the same
                first step on one rank with no mesh.  Gates: the first
@@ -320,6 +324,16 @@ Phases, in order; any failure exits non-zero before the result line:
                (B·H 160 and 40); then the recurrence at the Mamba2 path's
                shape and call (float32 operands, q broadcast over the
                heads, bound with q read once).
+  6b. coverage — each shape and dtype the kernels took last, once at full
+               size against its plain version, then timed with its bound:
+               attention at B 4, S 2048, 32 / 8 heads of 48 (wgmma at the
+               64 width), 100, 256 and 320 (the split kernel) in bf16 and
+               float16, with SDPA beside; the recurrence at K 24, V 40
+               (float32, a bonus) and at zamba2-2.7b's Mamba2 call, both at
+               RunConfig's chunk 128 (two sub-blocks of 64 rows); and,
+               recorded only, whether rwkv6-3b's random decays stay finite
+               at chunk 128 (they overflow float32 in the reference's
+               formulation).
   7. dryrun  — the compile-only dry run (``repro_torch.launch.dryrun``:
                fake tensors of the cuda device on a fake process group, no
                allocation, no launch), in one background process started
@@ -448,6 +462,20 @@ WHISPER_CROSS = (WHISPER_BATCH, WHISPER_PROMPT, 8, 8, 64, WHISPER_FRAMES)
 PHI3_ATTN = (BATCH, PROMPT, 32, 32, 96)
 PHI3_PATCHES = 256
 NEMOTRON_ATTN = (1, PROMPT, 96, 8, 192)
+# Phase 6b: the shapes the kernels took last (any head_dim in float32, bf16
+# and float16; any K / V and any chunk that divides T), each once at full
+# size against its plain version and timed: attention at B 4, S 2048, 32 /
+# 8 heads of COVER_HEAD_DIMS in bf16 and float16; the recurrence at K 24,
+# V 40 (B 4, 40 heads, T 2048, float32, a bonus) and at zamba2-2.7b's
+# Mamba2 call, both at RunConfig's chunk COVER_CHUNK; and, recorded only,
+# rwkv6-3b's random decays at that chunk, which overflow float32 in the
+# reference's formulation too
+COVER_ATTN = (BATCH, PROMPT, 32, 8)
+COVER_HEAD_DIMS = (48, 100, 256, 320)
+COVER_RWKV = (BATCH, 40, PROMPT, 24, 40)
+COVER_CHUNK = 128
+# the head dims whose variant and shared memory the build logs
+SMEM_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 100, 128, 192, 256, 320, 512)
 # Published dense peaks of one H100 SXM at its 700 W limit.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_TF32_FLOPS = 495e12
@@ -502,34 +530,37 @@ MOE_KINDS = {**KERNEL_KINDS, "moe dispatch": (
     "compute_cuda_kernel")}
 # Phase 4h: ranks sharing the card.  The collective probe's ranks and
 # bytes; FSDP + TP tinyllama steps (the 4c batch); deepseek's EP prefill at
-# a capacity factor that drops nothing, cut to its dense layer and 3 MoE
+# a capacity factor that drops nothing, cut to its dense layer and 1 MoE
 # layers: each MoE layer's two all-to-alls carry the E x capacity slot
 # blocks (3.2 GB a rank in float32 at factor 16) through gloo's host
 # staging
 # (1 warm-up and 1 timed step, for the script's time limit)
 DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 1, 1
-EP_LAYERS, EP_FACTOR = 4, 16.0
+EP_LAYERS, EP_FACTOR = 2, 16.0
 # Phase 4h (5), (6): the ssm and hybrid families' sharded train steps on
 # (data 2, model 2).  Cut from 4 x 2048 to 4 x 1024, then in depth:
-# rwkv6-3b to 8 of 32 layers (cut further for the script's time limit
-# once phase 4h gained steps 7-10), zamba2-2.7b to 12 of 54 (two
+# rwkv6-3b to 4 of 32 layers (cut further for the script's time limit
+# once phase 4h gained steps 7-10, and again when phase 6b came and slower
+# hosts took the script to its limit), zamba2-2.7b to 12 of 54 (two
 # groups, so x0 is carried and the shared block runs twice).  The four
 # ranks share the card's 80 GB, and each holds its shards of the float32
 # masters, grads and AdamW moments, which the functional update holds
 # twice at a step's end: at full depth rwkv6-3b's ranks ran out of the
 # card's memory; and phase 4h must leave the whole script inside its time
 # limit.  Remat full
-# (each layer keeps its input); chunk 16, the serving path's.  RunConfig's
-# 128 (the reference's TPU tile) runs on the card, the kernel at 64
-# (kernels.rwkv6.kernel_chunk), but the backward recomputes through the
-# plain chunk scan at 128, whose float32 exponentials overflow on
-# rwkv6-3b's decays: NaN grads, as the reference's own formulation gives
-# a NaN loss at chunk 128 on these decays (on the CPU, 2 layers at full
-# width; finite at 64)
+# (each layer keeps its input).  The chunk: zamba2-2.7b trains at
+# RunConfig's 128 (the reference's TPU tile), which the kernel runs in two
+# sub-blocks of 64 rows and the backward recomputes at 128 too; its Mamba2
+# log decay (dt·A, A = -1 at init) keeps the centred exponentials near
+# e^44 over 128 steps, inside float32.  rwkv6-3b keeps chunk 16, the
+# serving path's: at 128 its random decays (down to the clamp, -4 a step)
+# overflow float32 in the reference's own formulation (a NaN loss on the
+# CPU, 2 layers at full width; finite at 64), in the kernel's as well
 SSM_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
-SSM_BATCH, SSM_SEQ, SSM_CHUNK, SSM_REMAT = 4, 1024, 16, "full"
+SSM_BATCH, SSM_SEQ, SSM_REMAT = 4, 1024, "full"
+SSM_CHUNK = {"rwkv6-3b": 16, "zamba2-2.7b": 128}
 SSM_WARMUP, SSM_TIMED = 1, 1
-SSM_LAYERS = {"rwkv6-3b": 8, "zamba2-2.7b": 12}
+SSM_LAYERS = {"rwkv6-3b": 4, "zamba2-2.7b": 12}
 # the compute dtype of the single-rank gate.  Random Mamba2 blocks amplify
 # rounding: the single rank's own bf16 grads sit as far from its float32
 # grads as the grads are long, and their norm lands 0.2% to 67% from
@@ -547,17 +578,18 @@ SSM_WITNESS_BATCHES = (0, 1)
 # (data 2, model 2).  Whisper-base at full width and depth: 16 requests of
 # 1500 frames (n_audio_ctx) and 448 decoder tokens (n_text_ctx), remat
 # none.  Phi-3-vision-4.2b at full width, 4 x 1024 with 256 patch
-# embeddings, remat full, cut from 32 to 8 layers: at about 28 bytes a
+# embeddings, remat full, cut from 32 to 4 layers: at about 28 bytes a
 # parameter summed over the ranks at the functional update's end (masters,
 # grads, two moments, the update's second copy), 32 layers would need
 # about 117 GB of the card's 80.  At 12 layers the ranks' summed peak was
 # 60 GiB: the step ran alone, but after phase 4h's earlier steps the card
-# ran out of memory (the cause is not broken down); 8 layers (1.10 B
-# parameters with the embeddings) also keep the script inside its limit
+# ran out of memory (the cause is not broken down); 4 layers keep the
+# script inside its limit on slower hosts too (8, 1.10 B parameters with
+# the embeddings, ran until phase 6b came)
 MESH_TRAIN = {"whisper-base": dict(layers=None, batch=16, seq=448,
                                    frames=1500, remat="none", launches=18,
                                    variant="wgmma_tma"),
-              "phi-3-vision-4.2b": dict(layers=8, batch=4, seq=1024,
+              "phi-3-vision-4.2b": dict(layers=4, batch=4, seq=1024,
                                         patches=256, remat="full",
                                         variant="wgmma_tma")}
 MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 1, 1
@@ -627,7 +659,8 @@ def bound(q, k, v, causal, window):
     import torch
     b, sq, hq, hd = q.shape
     flops = 4.0 * hd * b * hq * live_pairs(sq, k.shape[1], causal, window)
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = (PEAK_F32_FLOPS if q.dtype == torch.float32 else
+            PEAK_BF16_FLOPS)                  # bf16 and fp16 alike
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -1136,12 +1169,13 @@ def check_rwkv6(dev) -> float:
     return path_err
 
 
-def mamba2_operands(dev, shape, seed):
+def mamba2_operands(dev, shape, seed, spread=0.5):
     """The recurrence's operands as ``models.ssm.mamba2_apply`` builds them
     on the card: float32 q = C (B, T, K) broadcast over the heads (head
     stride 0), k = B·dt (B, H, T, K), v the (B, H, T, hd) view of a (B, T,
     H·hd) tensor, and the scalar log decay dt·A broadcast over K and made
-    contiguous; dt = softplus(N(0, 1)), A = -exp(N(0, 0.5))."""
+    contiguous; dt = softplus(N(0, 1)), A = -exp(N(0, spread)) (spread 0:
+    the model's A at init, -1)."""
     import torch
     b, h, t, dk, dv = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1150,7 +1184,7 @@ def mamba2_operands(dev, shape, seed):
         return torch.randn(size, generator=gen, device=dev)
     c, bb = normal(b, t, dk), normal(b, t, dk)
     dt = torch.nn.functional.softplus(normal(b, t, h))
-    a = -torch.exp(normal(h) * 0.5)
+    a = -torch.exp(normal(h) * spread)
     q = c[:, None].expand(b, h, t, dk)
     k = bb[:, None] * dt.transpose(1, 2)[..., None]
     v = normal(b, t, h * dv).view(b, t, h, dv).transpose(1, 2)
@@ -1195,6 +1229,127 @@ def check_mamba2_call(dev) -> float:
         del q, k, v, ld, out, S, ref, ref_S
     torch.cuda.empty_cache()
     return err_path
+
+
+def coverage_phase(dev, smi: str) -> dict:
+    """Phase 6b: each variant the kernels took last, once at a full-size
+    shape against its plain version (16-bit attention within one ulp of the
+    output, float32 recurrence within F32_TOL), then timed: kernel, plain
+    version and, for attention, ``scaled_dot_product_attention`` with the
+    kv heads expanded (a yardstick the port never calls), beside the bound.
+    Returns the rows by kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6 as kr
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = {"flash_attention": [], "rwkv6_chunked": []}
+    b, s, hq, hkv = COVER_ATTN
+    for hd in COVER_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                       .to(dtype) for h in (hq, hkv, hkv))
+            before = fa.launches
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            row = {"shape": f"B {b}, S {s}, {hq} / {hkv} heads of {hd}, "
+                            f"{str(dtype)[6:]}, causal",
+                   "variant": fa.last_variant,
+                   "launches": fa.launches - before}
+            ref = fa.flash_attention_plain(q, k, v, True, None)
+            diff = (out.float() - ref.float()).abs()
+            ulp = (bf16_bound(ref.float()) if dtype == torch.bfloat16 else
+                   torch.exp2(torch.floor(torch.log2(
+                       ref.float().abs().clamp_min(1e-30))) - 10)
+                   .clamp_min(2 ** -10))
+            ok = bool(torch.isfinite(out.float()).all()
+                      and (diff <= ulp).all())
+            row["max_abs_err"] = diff.max().item()
+            del out, ref, diff, ulp
+            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+            row["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, True, None),
+                iters=3)
+            g = hq // hkv
+            qh = q.transpose(1, 2).contiguous()
+            kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous() for t in (k, v))
+            row["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh,
+                                                     is_causal=True))
+            row["bound_ms"], row["bound_by"] = bound(q, k, v, True, None)
+            log(f"6b flash_attention {row['shape']} ({row['variant']}): "
+                f"max_abs_err {row['max_abs_err']:.3e} (tol one ulp of the "
+                f"output) {'ok' if ok else 'MISMATCH'}; kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
+            if not ok:
+                fail(f"6b flash_attention at head_dim {hd} {dtype}: kernel "
+                     f"disagrees with its plain version")
+            rows["flash_attention"].append(row)
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
+    b, h, t, dk, dv = COVER_RWKV
+    mb, mh, mt, mk, mv = MAMBA_PATH
+    cases = (
+        ("K 24, V 40", COVER_RWKV, True, False,
+         lambda: rwkv6_case_inputs(dev, COVER_RWKV, True, "mild", 31)),
+        ("zamba2-2.7b's Mamba2 call", MAMBA_PATH, False, True,
+         lambda: (*mamba2_operands(dev, MAMBA_PATH, 31, spread=0.0), None)))
+    for name, shape, excl, shared_q, make in cases:
+        b, h, t, dk, dv = shape
+        q, k, v, ld, u = make()
+        before = kr.launches
+        out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=COVER_CHUNK)
+        torch.cuda.synchronize()
+        row = {"shape": f"B·H {b * h}, T {t}, K {dk}, V {dv}, chunk "
+                        f"{COVER_CHUNK}, {'bonus' if excl else 'inclusive'}"
+                        f", float32", "plan": kr.last_plan,
+               "launches": kr.launches - before}
+        ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u,
+                                          chunk=COVER_CHUNK)
+        ok = (bool(torch.isfinite(out).all() and torch.isfinite(S).all())
+              and torch.allclose(out, ref, atol=F32_TOL, rtol=F32_TOL)
+              and torch.allclose(S, ref_S, atol=F32_TOL, rtol=F32_TOL))
+        row["max_abs_err"] = (out - ref).abs().max().item()
+        del out, S, ref, ref_S
+        row["ms"] = time_ms(lambda: kr.rwkv6_fused(q, k, v, ld, bonus=u,
+                                                   chunk=COVER_CHUNK))
+        row["plain_ms"] = time_ms(lambda: kr.rwkv6_fused_plain(
+            q, k, v, ld, bonus=u, chunk=COVER_CHUNK), iters=3)
+        row["bound_ms"], row["bound_by"] = rwkv6_bound(
+            b * h, t, dk, dv, COVER_CHUNK, excl, False, 4, h,
+            shared_q=shared_q)
+        row["library_ms"] = None
+        log(f"6b rwkv6 {name} ({row['shape']}, plan {row['plan']}): "
+            f"max_abs_err {row['max_abs_err']:.3e} (tol {F32_TOL:g}) "
+            f"{'ok' if ok else 'MISMATCH'}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); no single PyTorch call computes it; "
+            f"{smi}")
+        if not ok:
+            fail(f"6b rwkv6 {name}: kernel disagrees with its plain version")
+        rows["rwkv6_chunked"].append(row)
+        del q, k, v, ld, u
+        torch.cuda.empty_cache()
+    # recorded, not gated: rwkv6-3b's random decays at chunk 128
+    q, k, v, ld, u = rwkv6_case_inputs(dev, RWKV_PATH, True, "model", 31,
+                                       "bfloat16", True)
+    out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=COVER_CHUNK)
+    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u,
+                                      chunk=COVER_CHUNK)
+    torch.cuda.synchronize()
+    finite = {"kernel_out": bool(torch.isfinite(out.float()).all()),
+              "kernel_S": bool(torch.isfinite(S).all()),
+              "plain_out": bool(torch.isfinite(ref.float()).all()),
+              "plain_S": bool(torch.isfinite(ref_S).all())}
+    log(f"6b rwkv6 rwkv6-3b's random decays (bf16 views, B·H "
+        f"{RWKV_PATH[0] * RWKV_PATH[1]}, T {RWKV_PATH[2]}) at chunk "
+        f"{COVER_CHUNK}, recorded: finite {finite} (plan {kr.last_plan})")
+    rows["rwkv6_3b_chunk128_finite"] = finite
+    del q, k, v, ld, u, out, S, ref, ref_S
+    torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_counters():
@@ -2626,7 +2781,7 @@ def ssm_single_rank(dev, arch: str) -> dict:
     from repro_torch.train.train_step import loss_and_grads
     from repro_torch.train.tree import leaves
     cfg = ssm_cfg(arch)
-    ctx = ModelContext(remat=SSM_REMAT, ssm_chunk=SSM_CHUNK)
+    ctx = ModelContext(remat=SSM_REMAT, ssm_chunk=SSM_CHUNK[arch])
     source = SyntheticSource(DataConfig(cfg.vocab_size, SSM_SEQ, SSM_BATCH))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2727,7 +2882,8 @@ def ssm_train_rank(rank: int, world: int, arch: str, order) -> dict:
     cfg = ssm_cfg(arch)
     mesh = make_smoke_mesh((2, 2), ranks=order, device="cuda")
     ctx = make_context(mesh, cfg, RunConfig(
-        remat=SSM_REMAT, sequence_parallel=False, ssm_chunk=SSM_CHUNK))
+        remat=SSM_REMAT, sequence_parallel=False,
+        ssm_chunk=SSM_CHUNK[arch]))
     t0 = time.perf_counter()
     params = init_sharded(cfg, ctx.mesh, seed=0)
     init_s = time.perf_counter() - t0
@@ -2777,7 +2933,7 @@ def ssm_train_rank(rank: int, world: int, arch: str, order) -> dict:
              else None)
     return {"losses": losses, "grad_norms": norms, "step_s": times,
             "launches": launches, "init_s": init_s, "gate": gate,
-            "in_project_ms": split, "kernel_chunk": kr.last_plan["chunk"],
+            "in_project_ms": split, "launched_chunk": kr.last_plan["chunk"],
             "last_shape": {"rwkv6_chunked": kr.last_shape,
                            "flash_attention": fa.last_shape},
             "view": tuple(ctx.mesh.mesh.shape),
@@ -2810,7 +2966,8 @@ def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
     log(f"4h {arch} (data 2, model 2, view {r0['view']}), rank order "
         f"{order}, full width, {depth}, float32 masters drawn into their "
         f"shards ({r0['init_s']:.1f} s), bf16 compute, AdamW float32, remat "
-        f"{SSM_REMAT}, chunk {SSM_CHUNK}, {SSM_BATCH} x {SSM_SEQ}: step ms "
+        f"{SSM_REMAT}, chunk {SSM_CHUNK[arch]}, {SSM_BATCH} x {SSM_SEQ}: "
+        f"step ms "
         + ", ".join(f"{x * 1e3:.1f}" for x in step_s)
         + f" ({SSM_WARMUP} warm-up); timed {step_ms:.1f} ms/step, "
         f"{tokens / step_ms * 1e3:.0f} tokens/s ({label}); losses "
@@ -2865,13 +3022,12 @@ def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
     if any(n != want for r in ranks for n in r["launches"]):
         fail(f"4h {arch}: launches a step {[r['launches'] for r in ranks]}"
              f", expected {want}")
-    from repro_torch.kernels.rwkv6 import kernel_chunk
-    chunks = [r["kernel_chunk"] for r in ranks]
-    log(f"4h {arch}: chunk {SSM_CHUNK}, the kernel's chunk by rank "
-        f"{chunks}")
-    if any(c != kernel_chunk(SSM_SEQ, SSM_CHUNK) for c in chunks):
-        fail(f"4h {arch}: the kernel ran at chunks {chunks}, not "
-             f"{kernel_chunk(SSM_SEQ, SSM_CHUNK)}")
+    chunks = [r["launched_chunk"] for r in ranks]
+    log(f"4h {arch}: chunk {SSM_CHUNK[arch]}, the chunk the kernel launched"
+        f" at by rank {chunks}")
+    if any(c != SSM_CHUNK[arch] for c in chunks):
+        fail(f"4h {arch}: the kernel ran at chunks {chunks}, not the "
+             f"{SSM_CHUNK[arch]} asked for")
     for name, shape in local.items():
         got = [tuple(r["last_shape"][name]) for r in ranks]
         if any(g != shape for g in got):
@@ -2881,7 +3037,7 @@ def ssm_step(dev, arch: str, order, smi: str, label: str) -> dict:
             "grad_norms": r0["grad_norms"], "single": one,
             "gate_dtype": SSM_GATE[arch], "gaps": gaps,
             "in_project_ms": r0["in_project_ms"],
-            "kernel_chunk": r0["kernel_chunk"],
+            "launched_chunk": r0["launched_chunk"],
             "launches_per_step": r0["launches"][0],
             "local_shape": {k: list(r0["last_shape"][k]) for k in local},
             "peak_gb": peaks, "wall_s": wall}
@@ -4913,20 +5069,24 @@ def main() -> None:
     log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, text in report.items():
         log_ptxas(name, text)
-    for dtype in (torch.bfloat16, torch.float32):
-        sizes = {hd: fa.smem_bytes(dtype, hd) for hd in fa.HEAD_DIMS}
-        log(f"flash_attention {dtype} dynamic shared memory per CTA "
-            f"(bytes, by head_dim): {sizes}")
-    # head_dim 80 (zamba2), 96 (phi-3-vision) and 192 (nemotron-4-340b) on
-    # the wgmma kernel in bf16 and the FMA kernel in float32, as the
-    # wrapper's check_layout names them
-    for dtype, want in ((torch.bfloat16, "wgmma_tma"),
-                        (torch.float32, "mma_fma")):
-        for hd in (80, 96, 192):
-            if fa.built_variant(dtype, hd) != want:
-                fail(f"the built library launches "
-                     f"{fa.built_variant(dtype, hd)} for {dtype} head_dim "
-                     f"{hd}, not {want}")
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sizes = {hd: (fa.built_variant(dtype, hd), fa.smem_bytes(dtype, hd))
+                 for hd in SMEM_HEAD_DIMS}
+        log(f"flash_attention {dtype} variant and dynamic shared memory per "
+            f"CTA (bytes), by head_dim on 16-byte rows: {sizes}")
+    # the C side's variant for every head_dim and dtype, on 16-byte rows
+    # and not, as the wrapper's variant_of (check_layout) names it: head_dim
+    # 80 (zamba2), 96 (phi-3-vision) and 192 (nemotron-4-340b) on the wgmma
+    # kernel in bf16 and float16 and the FMA kernel in float32 among them
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        esize = torch.tensor([], dtype=dtype).element_size()
+        for hd in range(1, fa.MAX_HEAD_DIM + 1):
+            for aligned in (True, False):
+                want = fa.variant_of(esize, hd, aligned)
+                if fa.built_variant(dtype, hd, aligned) != want:
+                    fail(f"the built library launches "
+                         f"{fa.built_variant(dtype, hd, aligned)} for {dtype}"
+                         f" head_dim {hd} (aligned {aligned}), not {want}")
 
     # 7 (started here, held at the end). the dry run, in the background ---
     dryrun_started = start_background(dryrun_child, "dryrun")
@@ -5273,6 +5433,11 @@ def main() -> None:
     del mq, mk, mv, mld
     log_ptxas("rwkv6", report["rwkv6"])
 
+    # 6b. the shapes and dtypes the kernels took last, once each ---------
+    t0 = time.perf_counter()
+    cover = coverage_phase(dev, smi)
+    log(f"phase 6b took {time.perf_counter() - t0:.1f} s")
+
     # 7. the dry run: step (3)'s cell on fake ranks, the production cells --
     t0 = time.perf_counter()
     dry = dryrun_phase(dryrun_started, sweep_started, dist, smi)
@@ -5284,6 +5449,18 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:36",
         "variant": path_variant,
+        "variants": {
+            "wgmma_tma": "attn_fwd_wgmma_kernel: bf16 and float16, head_dim "
+                         "a multiple of 8 up to 192 but 16 and 32, at "
+                         "widths 64 / 80 / 96 / 128 / 192",
+            "mma_sync": "attn_fwd_mma_kernel: bf16 and float16 head_dim 16 "
+                        "and 32 on 16-byte rows",
+            "mma_fma": "attn_fwd_mma_kernel: float32 head_dim 16 / 32 / 64 "
+                       "/ 80 / 96 / 128 / 192 on 16-byte rows",
+            "mma_split": "attn_fwd_split_kernel: every other head_dim in "
+                         "1..512 and dtype, and rows off 16 bytes; O's "
+                         "columns split 128 a CTA"},
+        "coverage": cover["flash_attention"],
         "launches": launches["flash_attention"], "max_abs_err": path_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -5382,6 +5559,8 @@ def main() -> None:
         "ms": rwkv_ms, "kernel_ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
         "bound_ms": rwkv_bound_ms, "bound_by": rwkv_by, "library_ms": None,
         "vb": rwkv_plan["vb"], "vb_ms": vb_ms,
+        "coverage": cover["rwkv6_chunked"],
+        "rwkv6_3b_chunk128_finite": cover["rwkv6_3b_chunk128_finite"],
         "train_grad_max_abs_err": grad_errs["rwkv6_chunked"],
         "shape": f"B·H {RWKV_PATH[0] * RWKV_PATH[1]}, T {RWKV_PATH[2]}, K "
                  f"{RWKV_PATH[3]}, V {RWKV_PATH[4]}, chunk {RWKV_CHUNK}, "
@@ -5402,8 +5581,8 @@ def main() -> None:
                       "layers": dist[arch]["layers"],
                       "launches_per_rank_per_step":
                           dist[arch]["launches_per_step"]["rwkv6_chunked"],
-                      "chunk": SSM_CHUNK,
-                      "kernel_chunk": dist[arch]["kernel_chunk"],
+                      "chunk": SSM_CHUNK[arch],
+                      "launched_chunk": dist[arch]["launched_chunk"],
                       "local_shape":
                           dist[arch]["local_shape"]["rwkv6_chunked"]}
                for arch in SSM_ARCHS}},

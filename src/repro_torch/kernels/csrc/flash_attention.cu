@@ -8,20 +8,27 @@
 // to -1e30 (not -inf) and the finalize acc / max(l, 1e-20).  GQA reads kv head
 // h / (Hq / Hkv) directly instead of repeating K/V (kv-major grouping, as
 // src/repro/models/attention.py:119).  Inputs are read in their (B, S, H, hd)
-// layout through strides: no transpose or pad copy.
+// layout through strides: no transpose or pad copy.  Like the Pallas kernel it
+// takes any head_dim (here 1 to 512) in float32, bf16 or float16; P stays
+// float32 (16-bit types carry it as two halves, below).
 //
 // Bound on the H100 at the serving path's shape (B=4, S=2048, Hq=32, Hkv=4,
 // hd=64, causal, bf16): ~69 GFLOP of live products against ~75 MB of q/k/v/o,
 // so it is bound by the tensor cores (0.0695 ms at 989 TFLOP/s), not by memory
 // (~22 us at 3.35 TB/s).  The Pallas kernel keeps P in float32 for the PV
-// product; here P goes through the tensor cores as two bf16 halves
-// (P_hi = bf16(P), P_lo = bf16(P - P_hi)) into one float32 accumulator, which
+// product; here P goes through the tensor cores as two 16-bit halves
+// (P_hi = T(P), P_lo = T(P - P_hi)) into one float32 accumulator, which
 // is 1.5x the products the bound counts: 0.104 ms at the peak rate.
 //
-// Variants, chosen by dtype and head_dim in dispatch_hd (never one for another):
+// Variants, chosen by dtype, head_dim and whether every row is 16-byte
+// aligned, in variant() (never one for another); T is bf16 or float16:
 //
-//   attn_fwd_wgmma_kernel — bf16, head_dim 64, 80, 96, 128 and 192 (80 is
-//     zamba2's heads, 96 phi-3-vision's, 192 nemotron-4-340b's).  One CTA of
+//   attn_fwd_wgmma_kernel — 16-bit, instances at head_dim 64, 80, 96, 128
+//     and 192 (80 is zamba2's heads, 96 phi-3-vision's, 192
+//     nemotron-4-340b's), each in two forms: hd equal to its width, and the
+//     head dims below it that are a multiple of 8 (hd 8 to 192 but 16 and
+//     32), the map reading hd columns and zero-filling the rest (below),
+//     only hd columns stored.  One CTA of
 //     three warpgroups takes 128 q rows.  What held the mma.sync design back,
 //     and what this one does about it:
 //     * mma.sync m16n8k16 with fragments read from shared memory by 32-bit
@@ -73,19 +80,39 @@
 //     Tiles the masks leave dead are never loaded, and only tiles
 //     that a mask cuts are masked element by element.  Longest causal rows
 //     first.
-//   attn_fwd_mma_kernel — bf16 head_dim 16 and 32 (mma.sync m16n8k16, P as
-//     P_hi + P_lo from registers, V transposed into shared memory), and all
-//     of float32 at every head dim (plain FMAs, no TF32, P through shared
-//     memory): 64 q rows a CTA of 4 warps, 64-row K/V tiles loaded
-//     synchronously.  Every loop runs over HD / 16 k-steps and HD / 8
-//     n-tiles and every tile row is HD / 8 (bf16) or HD / 4 (float32) 16-byte
-//     chunks, so any multiple of 16 works.  The padded rows (HD + 8 bf16, HD
-//     + 4 float32 elements) keep a warp's fragment reads on distinct banks.
-//     float32 above head_dim 32 (69,632 bytes at 64, 167,936 at 192) takes
-//     more shared memory than the 48 KB default, which launch() opts into.
+//   attn_fwd_mma_kernel — 16-bit head_dim 16 and 32 (mma.sync m16n8k16, P
+//     as P_hi + P_lo from registers, V transposed into shared memory), and
+//     float32 at head_dim 16, 32, 64, 80, 96, 128 and 192 (plain FMAs, no
+//     TF32, P through shared memory), rows 16-byte aligned: 64 q rows a CTA
+//     of 4 warps, 64-row K/V tiles loaded synchronously.  Every loop runs
+//     over HD / 16 k-steps and HD / 8 n-tiles and every tile row is HD / 8
+//     (16-bit) or HD / 4 (float32) 16-byte chunks, so any multiple of 16
+//     works.  The padded rows (HD + 8 16-bit, HD + 4 float32 elements) keep a
+//     warp's fragment reads on distinct banks.  float32 above head_dim 32
+//     (69,632 bytes at 64, 167,936 at 192) takes more shared memory than the
+//     48 KB default, which launch() opts into.
+//   attn_fwd_split_kernel — every other (dtype, head_dim, layout): 16-bit
+//     head dims that are not a multiple of 8 (their rows cannot be 16-byte
+//     aligned, which TMA and the 16-byte loads need) or above 192, float32
+//     head dims off the seven instances, and the mma kernel's head dims on
+//     rows off 16 bytes.  What it does about the two limits:
+//     * O above 192 columns does not fit a CTA's registers (at 192 the
+//       wgmma kernel already spills).  O's columns are split over CTAs, 128
+//       each (grid x runs over q tiles x column blocks), and each CTA
+//       recomputes S = Q K^T over the whole head: at head_dim 320, 3 CTAs
+//       a q tile, 3x the QK^T products.
+//     * Q and K rows of any width and alignment.  Q (64 rows, hd padded to
+//       64) sits in shared memory, K comes in chunks of 64 columns and V in
+//       the CTA's 128 columns, each loaded element by element with zeros
+//       past hd and past S (no 16-byte rule), so the padded columns add
+//       zero to S and to O; only columns below hd are stored.  The products
+//       are the mma kernel's (mma.sync for 16-bit, FMAs for float32), one
+//       instance a dtype with hd at run time.  Q and K are read per 64-key
+//       tile once per column block: a simple kernel that is right first.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,35 +121,151 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;   // the reference's sentinel, never -inf
+constexpr int MAX_HEAD_DIM = 512;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int Sq, Skv, Hq, Hkv;
+  int Sq, Skv, Hq, Hkv, hd;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int causal;
   int window;                       // <= 0: no window
   float sm_scale;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
+template <typename T>
+constexpr bool kSixteen = !std::is_same<T, float>::value;   // bf16 or float16
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x) {
+  if constexpr (kHalf<T>)
+    return __float2half_rn(x);
+  else if constexpr (kSixteen<T>)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
 }
 
-// (x0, x1) as two packed bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), so
-// that hi + lo carries x to ~16 mantissa bits.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+// Two floats as one packed pair of T (.x, the low half, = lo).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// (x0, x1) as two packed pairs of T, hi = T(x) and lo = T(x - hi), so that
+// hi + lo carries x to ~16 (bf16) or ~22 (float16) mantissa bits.
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack2<T>(x0, x1);
+  float2 hf;
+  if constexpr (kHalf<T>)
+    hf = __half22float2(*reinterpret_cast<const __half2*>(&hi));
+  else
+    hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = pack2<T>(x0 - hf.x, x1 - hf.y);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__half* p, float x0, float x1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x0, x1);
+}
+
+// Two adjacent 16-bit values as one 32-bit fragment register.
+template <typename T>
+__device__ __forceinline__ uint32_t ld_pair(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D += A(16x16, row) * B(16x8, col), T inputs, f32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (kHalf<T>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Scale, mask and online softmax of one 64-key tile starting at k0, for
+// the two rows (qpos) of one thread of the mma and split kernels, in the
+// mma accumulator layout: s holds the raw scores and leaves holding P; the
+// row statistics are reduced over the 4 lanes of a quad, which together hold
+// a row's 64 columns; alpha is the factor by which the accumulator must be
+// rescaled.
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m_i)[2],
+                                               float (&l_i)[2], float (&alpha)[2],
+                                               const int (&qpos)[2], int k0, int tig,
+                                               const Params& p) {
+  float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int hr = i >> 1;
+      const int kpos = k0 + nt * 8 + tig * 2 + (i & 1);
+      bool ok = kpos < p.Skv;
+      if (p.causal) ok = ok && qpos[hr] >= kpos;
+      if (p.window > 0) ok = ok && qpos[hr] - kpos < p.window;
+      const float x = ok ? s[nt][i] * p.sm_scale : NEG_INF;
+      s[nt][i] = x;
+      mx[hr] = fmaxf(mx[hr], x);
+    }
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    alpha[hr] = expf(m_i[hr] - mx[hr]);
+    m_i[hr] = mx[hr];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float e = expf(s[nt][i] - m_i[i >> 1]);
+      s[nt][i] = e;
+      rs[i >> 1] += e;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
+    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
+    l_i[hr] = l_i[hr] * alpha[hr] + rs[hr];
+  }
 }
 
 // ---------------------------------------------------------------------------
-// attn_fwd_mma_kernel: bf16 head_dim 16 / 32 and float32
+// attn_fwd_mma_kernel: 16-bit head_dim 16 / 32 and float32 at its seven
+// instance widths
 // ---------------------------------------------------------------------------
 
 namespace mma {
@@ -136,32 +279,18 @@ constexpr int NTHREADS = NWARPS * 32;
 // aligned and spreads the fragment reads of one warp over distinct banks.
 template <typename T, int HD>
 struct Plan {
-  static constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool k16 = kSixteen<T>;
   static constexpr int PAD = 16 / sizeof(T);
   static constexpr int KSTR = HD + PAD;        // K rows; Q and V rows too for fp32
-  static constexpr int VTSTR = BK + PAD;       // bf16: V stored transposed, (hd, BK)
+  static constexpr int VTSTR = BK + PAD;       // 16-bit: V stored transposed, (hd, BK)
   static constexpr int PSTR = BK + 4;          // fp32: per-warp P rows
-  static constexpr int K_ELEMS = BK * KSTR;    // bf16 stages the Q tile here first
-  static constexpr int V_ELEMS = kBF16 ? HD * VTSTR : BK * KSTR;
-  static constexpr int Q_ELEMS = kBF16 ? 0 : BQ * KSTR;
-  static constexpr int P_FLOATS = kBF16 ? 0 : NWARPS * 16 * PSTR;
+  static constexpr int K_ELEMS = BK * KSTR;    // 16-bit stages the Q tile here first
+  static constexpr int V_ELEMS = k16 ? HD * VTSTR : BK * KSTR;
+  static constexpr int Q_ELEMS = k16 ? 0 : BQ * KSTR;
+  static constexpr int P_FLOATS = k16 ? 0 : NWARPS * 16 * PSTR;
   static constexpr size_t kBytes =
       (size_t)(K_ELEMS + V_ELEMS + Q_ELEMS) * sizeof(T) + (size_t)P_FLOATS * sizeof(float);
 };
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Copy 64 rows [row0, row0 + 64) of one head into shared memory (row-major,
 // stride dst_stride), 16 bytes per thread per step; rows at or past `rows`
@@ -180,20 +309,18 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_stride, const T* src,
   }
 }
 
-// bf16 V tile stored transposed, vt[d][j], so that the PV product's B
+// 16-bit V tile stored transposed, vt[d][j], so that the PV product's B
 // fragments are 32-bit reads along j.
-template <int HD, int VTSTR>
-__device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* vt,
-                                                     const __nv_bfloat16* src,
-                                                     long long row_stride, int row0,
-                                                     int rows) {
+template <typename T, int HD, int VTSTR>
+__device__ __forceinline__ void load_tile_transposed(T* vt, const T* src, long long row_stride,
+                                                     int row0, int rows) {
   constexpr int CPR = HD / 8;
   for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
     const int r = c / CPR, col = (c % CPR) * 8;
     const int g = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (g < rows) val = *reinterpret_cast<const uint4*>(src + g * row_stride + col);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+    const T* e = reinterpret_cast<const T*>(&val);
 #pragma unroll
     for (int i = 0; i < 8; ++i) vt[(col + i) * VTSTR + r] = e[i];
   }
@@ -234,8 +361,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
   float m_i[2] = {NEG_INF, NEG_INF};
   float l_i[2] = {0.f, 0.f};
 
-  uint32_t qa[HD / 16][4];   // bf16: Q as mma A fragments, kept in registers
-  if constexpr (P::kBF16) {
+  uint32_t qa[HD / 16][4];   // 16-bit: Q as mma A fragments, kept in registers
+  if constexpr (P::k16) {
     load_tile<T, HD>(k_s, P::KSTR, qg, p.q_ss, q0, p.Sq);
     __syncthreads();
 #pragma unroll
@@ -260,8 +387,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
 
     __syncthreads();   // every warp is done with the previous tile (and Q staging)
     load_tile<T, HD>(k_s, P::KSTR, kg, p.k_ss, k0, p.Skv);
-    if constexpr (P::kBF16) {
-      load_tile_transposed<HD, P::VTSTR>(v_s, vg, p.v_ss, k0, p.Skv);
+    if constexpr (P::k16) {
+      load_tile_transposed<T, HD, P::VTSTR>(v_s, vg, p.v_ss, k0, p.Skv);
     } else {
       load_tile<T, HD>(v_s, P::KSTR, vg, p.v_ss, k0, p.Skv);
     }
@@ -273,13 +400,13 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-    if constexpr (P::kBF16) {
+    if constexpr (P::k16) {
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const T* kb = k_s + (nt * 8 + group) * P::KSTR + kk * 16 + tig * 2;
-          mma_bf16(s[nt], qa[kk], ld_pair(kb), ld_pair(kb + 8));
+          mma16<T>(s[nt], qa[kk], ld_pair(kb), ld_pair(kb + 8));
         }
       }
     } else {
@@ -298,53 +425,15 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
       }
     }
 
-    // scale, mask, online softmax (row statistics reduced over the 4 lanes
-    // of a quad, which together hold one row's 64 columns)
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int hr = i >> 1;
-        const int kpos = k0 + nt * 8 + tig * 2 + (i & 1);
-        bool ok = kpos < p.Skv;
-        if (p.causal) ok = ok && qpos[hr] >= kpos;
-        if (p.window > 0) ok = ok && qpos[hr] - kpos < p.window;
-        const float x = ok ? s[nt][i] * p.sm_scale : NEG_INF;
-        s[nt][i] = x;
-        mx[hr] = fmaxf(mx[hr], x);
-      }
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      alpha[hr] = expf(m_i[hr] - mx[hr]);
-      m_i[hr] = mx[hr];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = expf(s[nt][i] - m_i[i >> 1]);
-        s[nt][i] = e;
-        rs[i >> 1] += e;
-      }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
-      l_i[hr] = l_i[hr] * alpha[hr] + rs[hr];
-    }
+    float alpha[2];
+    online_softmax(s, m_i, l_i, alpha, qpos, k0, tig, p);
 #pragma unroll
     for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o_acc[dt][i] *= alpha[i >> 1];
 
     // O += P V
-    if constexpr (P::kBF16) {
+    if constexpr (P::k16) {
       // the accumulator layout of two adjacent n-tiles is the A-fragment
       // layout of one 16-wide k step: P never leaves registers.  P goes in
       // as P_hi + P_lo (two products into one accumulator), keeping its f32
@@ -352,16 +441,16 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
 #pragma unroll
       for (int t = 0; t < BK / 16; ++t) {
         uint32_t a_hi[4], a_lo[4];
-        split_bf16(s[2 * t][0], s[2 * t][1], a_hi[0], a_lo[0]);
-        split_bf16(s[2 * t][2], s[2 * t][3], a_hi[1], a_lo[1]);
-        split_bf16(s[2 * t + 1][0], s[2 * t + 1][1], a_hi[2], a_lo[2]);
-        split_bf16(s[2 * t + 1][2], s[2 * t + 1][3], a_hi[3], a_lo[3]);
+        split2<T>(s[2 * t][0], s[2 * t][1], a_hi[0], a_lo[0]);
+        split2<T>(s[2 * t][2], s[2 * t][3], a_hi[1], a_lo[1]);
+        split2<T>(s[2 * t + 1][0], s[2 * t + 1][1], a_hi[2], a_lo[2]);
+        split2<T>(s[2 * t + 1][2], s[2 * t + 1][3], a_hi[3], a_lo[3]);
 #pragma unroll
         for (int dt = 0; dt < HD / 8; ++dt) {
           const T* vb = v_s + (dt * 8 + group) * P::VTSTR + t * 16 + tig * 2;
           const uint32_t b0 = ld_pair(vb), b1 = ld_pair(vb + 8);
-          mma_bf16(o_acc[dt], a_hi, b0, b1);
-          mma_bf16(o_acc[dt], a_lo, b0, b1);
+          mma16<T>(o_acc[dt], a_hi, b0, b1);
+          mma16<T>(o_acc[dt], a_lo, b0, b1);
         }
       }
     } else {
@@ -395,15 +484,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_mma_kernel(const Params p) 
     const float l = fmaxf(l_i[hr], 1e-20f);
     T* orow = og + qpos[hr] * p.o_ss;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const float x0 = o_acc[dt][2 * hr] / l, x1 = o_acc[dt][2 * hr + 1] / l;
-      const int col = dt * 8 + tig * 2;
-      if constexpr (P::kBF16) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
-      } else {
-        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
-      }
-    }
+    for (int dt = 0; dt < HD / 8; ++dt)
+      store_pair(orow + dt * 8 + tig * 2, o_acc[dt][2 * hr] / l, o_acc[dt][2 * hr + 1] / l);
   }
 }
 
@@ -424,16 +506,231 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// attn_fwd_wgmma_kernel: bf16 head_dim 64 / 80 / 96 / 128 / 192
+// attn_fwd_split_kernel: every other head_dim, any layout with a unit last
+// stride, every dtype
 // ---------------------------------------------------------------------------
+
+namespace split {
+
+constexpr int BQ = 64;              // q rows per CTA
+constexpr int BK = 64;              // kv rows per tile
+constexpr int DK = 64;              // head columns of a K chunk in S = Q K^T
+constexpr int DV = 128;             // columns of O (and of V) a CTA owns
+constexpr int NWARPS = BQ / 16;
+constexpr int NTHREADS = NWARPS * 32;
+
+// Shared memory: Q (64 rows of hd padded to DK, at run time), one K chunk
+// (64 x DK), the CTA's V columns (transposed for 16-bit, (DV, BK)) and, in
+// float32, each warp's P rows.  Rows padded by 16 bytes as in the mma
+// kernel.  Mirrored by kernels/flash_attention.py::split_smem_bytes.
+template <typename T>
+struct Plan {
+  static constexpr bool k16 = kSixteen<T>;
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int KSTR = DK + PAD;
+  static constexpr int VSTR = k16 ? BK + PAD : DV + PAD;
+  static constexpr int V_ELEMS = k16 ? DV * VSTR : BK * VSTR;
+  static constexpr int PSTR = BK + 4;
+  static constexpr int P_FLOATS = k16 ? 0 : NWARPS * 16 * PSTR;
+  __host__ __device__ static int qstr(int hd) { return (hd + DK - 1) / DK * DK + PAD; }
+  __host__ __device__ static size_t bytes(int hd) {
+    return (size_t)(BQ * qstr(hd) + BK * KSTR + V_ELEMS) * sizeof(T) +
+           (size_t)P_FLOATS * sizeof(float);
+  }
+};
+
+// Rows [row0, row0 + rn) x columns [c0, c0 + cn) of one head, element by
+// element (any row stride, any alignment), into dst (row-major at stride
+// ds, or transposed: dst[col * ds + row]); zeros past `rows` and past hd.
+template <typename T, bool TRANSPOSE>
+__device__ __forceinline__ void load_block(T* dst, int ds, const T* src, long long row_stride,
+                                           int row0, int rn, int rows, int c0, int cn, int hd) {
+  for (int i = threadIdx.x; i < rn * cn; i += NTHREADS) {
+    const int r = i / cn, c = i % cn;
+    const int g = row0 + r, col = c0 + c;
+    const T val = g < rows && col < hd ? src[g * row_stride + col] : from_f<T>(0.f);
+    if (TRANSPOSE)
+      dst[c * ds + r] = val;
+    else
+      dst[r * ds + c] = val;
+  }
+}
+
+// One CTA: 64 q rows of one head and DV columns of their O; grid x runs
+// over (q tile, column block).  S = Q K^T is taken over the whole head in
+// chunks of DK columns (each column block's CTA recomputes it), the online
+// softmax as in the mma kernel, then O += P V over the CTA's columns.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) attn_fwd_split_kernel(const Params p, int nsplit) {
+  using P = Plan<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = p.hd, qstr = P::qstr(hd), hdp = qstr - P::PAD;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + BQ * qstr;
+  T* v_s = k_s + BK * P::KSTR;
+  float* p_s = reinterpret_cast<float*>(v_s + P::V_ELEMS);   // fp32 only
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane >> 2, tig = lane & 3;
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x / nsplit) * BQ;   // longest causal rows first
+  const int c0 = ((int)blockIdx.x % nsplit) * DV;             // this CTA's O columns
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  const int r_lo = warp * 16 + group;
+  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
+
+  float o_acc[DV / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < DV / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o_acc[dt][i] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF};
+  float l_i[2] = {0.f, 0.f};
+
+  load_block<T, false>(q_s, qstr, qg, p.q_ss, q0, BQ, p.Sq, 0, hdp, hd);
+
+  const int nk = (p.Skv + BK - 1) / BK;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    if (p.causal && !(k0 <= q0 + BQ - 1)) continue;
+    if (p.window > 0 && !(k0 + BK > q0 - p.window + 1)) continue;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    for (int d0 = 0; d0 < hd; d0 += DK) {
+      __syncthreads();   // the previous chunk's and tile's readers are done
+      load_block<T, false>(k_s, P::KSTR, kg, p.k_ss, k0, BK, p.Skv, d0, DK, hd);
+      if (d0 == 0)
+        load_block<T, P::k16>(v_s, P::VSTR, vg, p.v_ss, k0, BK, p.Skv, c0, DV, hd);
+      __syncthreads();
+      if constexpr (P::k16) {
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk) {
+          const T* qb = q_s + r_lo * qstr + d0 + kk * 16 + tig * 2;
+          const uint32_t a[4] = {ld_pair(qb), ld_pair(qb + 8 * qstr), ld_pair(qb + 8),
+                                 ld_pair(qb + 8 * qstr + 8)};
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+            const T* kb = k_s + (nt * 8 + group) * P::KSTR + kk * 16 + tig * 2;
+            mma16<T>(s[nt], a, ld_pair(kb), ld_pair(kb + 8));
+          }
+        }
+      } else {
+        for (int d = 0; d < DK; ++d) {
+          const float qlo = q_s[r_lo * qstr + d0 + d];
+          const float qhi = q_s[(r_lo + 8) * qstr + d0 + d];
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float kv = k_s[(nt * 8 + tig * 2 + e) * P::KSTR + d];
+              s[nt][e] = fmaf(qlo, kv, s[nt][e]);
+              s[nt][2 + e] = fmaf(qhi, kv, s[nt][2 + e]);
+            }
+          }
+        }
+      }
+    }
+
+    float alpha[2];
+    online_softmax(s, m_i, l_i, alpha, qpos, k0, tig, p);
+#pragma unroll
+    for (int dt = 0; dt < DV / 8; ++dt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_acc[dt][i] *= alpha[i >> 1];
+
+    // O += P V over this CTA's columns
+    if constexpr (P::k16) {
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t) {
+        uint32_t a_hi[4], a_lo[4];
+        split2<T>(s[2 * t][0], s[2 * t][1], a_hi[0], a_lo[0]);
+        split2<T>(s[2 * t][2], s[2 * t][3], a_hi[1], a_lo[1]);
+        split2<T>(s[2 * t + 1][0], s[2 * t + 1][1], a_hi[2], a_lo[2]);
+        split2<T>(s[2 * t + 1][2], s[2 * t + 1][3], a_hi[3], a_lo[3]);
+#pragma unroll
+        for (int dt = 0; dt < DV / 8; ++dt) {
+          const T* vb = v_s + (dt * 8 + group) * P::VSTR + t * 16 + tig * 2;
+          const uint32_t b0 = ld_pair(vb), b1 = ld_pair(vb + 8);
+          mma16<T>(o_acc[dt], a_hi, b0, b1);
+          mma16<T>(o_acc[dt], a_lo, b0, b1);
+        }
+      }
+    } else {
+      float* pw = p_s + warp * 16 * P::PSTR;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pw[(group + 8 * (i >> 1)) * P::PSTR + nt * 8 + tig * 2 + (i & 1)] = s[nt][i];
+      __syncwarp();
+      for (int jj = 0; jj < BK; ++jj) {
+        const float plo = pw[group * P::PSTR + jj];
+        const float phi = pw[(group + 8) * P::PSTR + jj];
+#pragma unroll
+        for (int dt = 0; dt < DV / 8; ++dt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float vv = v_s[jj * P::VSTR + dt * 8 + tig * 2 + e];
+            o_acc[dt][e] = fmaf(plo, vv, o_acc[dt][e]);
+            o_acc[dt][2 + e] = fmaf(phi, vv, o_acc[dt][2 + e]);
+          }
+        }
+      }
+    }
+  }
+
+  // finalize: acc / max(l, 1e-20) in the input dtype, element by element,
+  // only the columns below hd
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (qpos[hr] >= p.Sq) continue;
+    const float l = fmaxf(l_i[hr], 1e-20f);
+    T* orow = og + qpos[hr] * p.o_ss;
+#pragma unroll
+    for (int dt = 0; dt < DV / 8; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + dt * 8 + tig * 2 + e;
+        if (col < hd) orow[col] = from_f<T>(o_acc[dt][2 * hr + e] / l);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const size_t bytes = Plan<T>::bytes(p.hd);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const int nsplit = (p.hd + DV - 1) / DV;
+  const dim3 grid((p.Sq + BQ - 1) / BQ * nsplit, p.Hq, batch);
+  attn_fwd_split_kernel<T><<<grid, NTHREADS, bytes, stream>>>(p, nsplit);
+  return cudaGetLastError();
+}
+
+}  // namespace split
 
 namespace wg {
 
 constexpr int BQ = 128;             // q rows per CTA: two consumer warpgroups
 constexpr int BK = 64;              // kv rows per tile
 constexpr int NTHREADS = 384;       // warpgroup 0 produces, 1 and 2 consume
-constexpr int Q_BOX = BQ * 128;     // one TMA box of Q: 128 rows x 64 bf16
-constexpr int KV_BOX = BK * 128;    // one TMA box of K or V: 64 rows x 64 bf16
+constexpr int Q_BOX = BQ * 128;     // one TMA box of Q: 128 rows x 64 16-bit values
+constexpr int KV_BOX = BK * 128;    // one TMA box of K or V: 64 rows x 64 16-bit values
 constexpr uint32_t WAIT_LIMIT = 1u << 24;    // mbarrier tries before a trap
 // A running max below this is the masking sentinel times the scale: the row
 // has met no live score yet.
@@ -554,91 +851,114 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// D(64 x N, f32) (+)= A * B: m64nNk16 bf16.  _ss: A and B from shared
-// memory, both K-major.  _rs: A from registers (the m16n8k16 A-fragment
-// layout, per warp), B from shared memory, MN-major (transposed B).
+// D(64 x N, f32) (+)= A * B: m64nNk16 in T's type (bf16 or f16).  _ss: A
+// and B from shared memory, both K-major.  _rs: A from registers (the
+// m16n8k16 A-fragment layout, per warp), B from shared memory, MN-major
+// (transposed B).  Each asm is written once for the type name TY.
 #define ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+#define WGMMA_SS_N64(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                      \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
+               "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                        \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24)                       \
+               : "l"(da), "l"(db), "r"(scale_d))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kHalf<T>)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
 }
+#undef WGMMA_SS_N64
+
+#define WGMMA_RS_N64(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"  \
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define WGMMA_RS_N80(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " " \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39"  \
+               "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n" \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define WGMMA_RS_N96(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " " \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"  \
+               "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n" \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define WGMMA_RS_N128(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"  \
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), \
+                 ACC8(48), ACC8(56) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define WGMMA_RS_N192(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " " \
+               "{"                                                         \
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+               "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+               "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"  \
+               "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+               : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), \
+                 ACC8(48), ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 // The RS product at the N of O += P V: head_dim 64, 80, 96, 128 or 192.
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 192, "no RS instance");
   if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kHalf<T>) WGMMA_RS_N64("f16"); else WGMMA_RS_N64("bf16");
   } else if constexpr (N == 80) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kHalf<T>) WGMMA_RS_N80("f16"); else WGMMA_RS_N80("bf16");
   } else if constexpr (N == 96) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kHalf<T>) WGMMA_RS_N96("f16"); else WGMMA_RS_N96("bf16");
   } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
-          ACC8(48), ACC8(56)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kHalf<T>) WGMMA_RS_N128("f16"); else WGMMA_RS_N128("bf16");
   } else if constexpr (N == 192) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-        : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40),
-          ACC8(48), ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (kHalf<T>) WGMMA_RS_N192("f16"); else WGMMA_RS_N192("bf16");
   }
 }
+#undef WGMMA_RS_N64
+#undef WGMMA_RS_N80
+#undef WGMMA_RS_N96
+#undef WGMMA_RS_N128
+#undef WGMMA_RS_N192
 #undef ACC8
 
 // The softmax state of one consumer thread's two rows (qpos[0] and
@@ -655,27 +975,27 @@ struct Rows {
 // S = Q K^T for one warpgroup's 64 rows against a BK-key tile: exactly
 // hd / 16 k16 steps (4, 5, 6, 8 or 12), four to a 64-column box, so the
 // zero-filled columns of a last box (hd 80, 96) cost no product.
-template <int HD>
+template <typename T, int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q, uint32_t k) {
   static_assert(BK == 64, "S is one m64n64 accumulator");
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n64(s, sw128_desc(q + (kk / 4) * Q_BOX + col, 16, 1024),
+    wgmma_ss_n64<T>(s, sw128_desc(q + (kk / 4) * Q_BOX + col, 16, 1024),
                  sw128_desc(k + (kk / 4) * KV_BOX + col, 16, 1024), kk > 0);
   }
 }
 
 // O += P V with P as P_hi then P_lo: V (kv, hd) is MN-major B, 16 kv rows a
 // k16 step, each further 64-column box one leading offset away.
-template <int HD>
+template <typename T, int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&a_hi)[BK / 16][4],
                                          const uint32_t (&a_lo)[BK / 16][4], uint32_t v) {
 #pragma unroll
   for (int kt = 0; kt < BK / 16; ++kt) {
     const uint64_t db = sw128_desc(v + kt * 16 * 128, KV_BOX, 1024);
-    wgmma_rs<HD>(o, a_hi[kt], db);
-    wgmma_rs<HD>(o, a_lo[kt], db);
+    wgmma_rs<T, HD>(o, a_hi[kt], db);
+    wgmma_rs<T, HD>(o, a_lo[kt], db);
   }
 }
 
@@ -744,13 +1064,14 @@ __device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&alpha)[2], R
 
 // P as the PV product's A fragments: accumulator n-blocks 2t and 2t + 1 are
 // the A fragment of k16 step t.  P_hi + P_lo keep its float32 precision.
+template <typename T>
 __device__ __forceinline__ void to_fragments(const float (&s)[BK / 2], uint32_t (&a_hi)[BK / 16][4],
                                              uint32_t (&a_lo)[BK / 16][4]) {
 #pragma unroll
   for (int kt = 0; kt < BK / 16; ++kt)
 #pragma unroll
     for (int f = 0; f < 4; ++f)
-      split_bf16(s[8 * kt + 2 * f], s[8 * kt + 2 * f + 1], a_hi[kt][f], a_lo[kt][f]);
+      split2<T>(s[8 * kt + 2 * f], s[8 * kt + 2 * f + 1], a_hi[kt][f], a_lo[kt][f]);
 }
 
 // Thread roles: warpgroup 0 is the producer (one thread issues every TMA
@@ -758,7 +1079,7 @@ __device__ __forceinline__ void to_fragments(const float (&s)[BK / 2], uint32_t 
 // of a consumer warpgroup holds, as a wgmma accumulator does, rows
 // 16 * (t / 32) + (t % 32) / 4 and that + 8; element 4 * j + i of a row block
 // is column 8 * j + 2 * (t % 4) + (i & 1) of row half i >> 1.
-template <int HD>
+template <typename T, int HD, bool FULL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const Params p,
@@ -863,13 +1184,13 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     mbar_wait(k_full(0), 0);
     turn_wait(cw);
     wgmma_fence();
-    issue_qk<HD>(s, q_wg, k_s(0));
+    issue_qk<T, HD>(s, q_wg, k_s(0));
     wgmma_commit();
     turn_pass(cw);
     wgmma_wait<0>();
     fence_regs(s);
     softmax(s, alpha, rows, p, j_lo * BK);
-    to_fragments(s, a_hi, a_lo);
+    to_fragments<T>(s, a_hi, a_lo);
   }
   for (int n = 1; n < ntiles; ++n) {
     const int st = n % STAGES, prev = (n - 1) % STAGES;
@@ -878,9 +1199,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     turn_wait(cw);
     wgmma_fence();
     if constexpr (P::OVERLAP) {
-      issue_qk<HD>(s, q_wg, k_s(st));
+      issue_qk<T, HD>(s, q_wg, k_s(st));
       wgmma_commit();
-      issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
+      issue_pv<T, HD>(o, a_hi, a_lo, v_s(prev));
       wgmma_commit();
       turn_pass(cw);
       wgmma_wait<1>();                           // S of tile n is in
@@ -889,12 +1210,12 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       wgmma_wait<0>();                           // PV of tile n - 1 is done
       fence_regs(o);
     } else {
-      issue_pv<HD>(o, a_hi, a_lo, v_s(prev));
+      issue_pv<T, HD>(o, a_hi, a_lo, v_s(prev));
       wgmma_commit();
       wgmma_wait<0>();                           // PV of tile n - 1 is done
       fence_regs(o);
       wgmma_fence();
-      issue_qk<HD>(s, q_wg, k_s(st));
+      issue_qk<T, HD>(s, q_wg, k_s(st));
       wgmma_commit();
       turn_pass(cw);
       wgmma_wait<0>();                           // S of tile n is in
@@ -905,32 +1226,33 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     if (lane == 0) mbar_arrive(empty(prev));     // this warp is done with it
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    to_fragments(s, a_hi, a_lo);
+    to_fragments<T>(s, a_hi, a_lo);
   }
   if (ntiles > 0) {
     const int last = (ntiles - 1) % STAGES;
     mbar_wait(v_full(last), ((ntiles - 1) / STAGES) & 1);
     turn_wait(cw);
     wgmma_fence();
-    issue_pv<HD>(o, a_hi, a_lo, v_s(last));
+    issue_pv<T, HD>(o, a_hi, a_lo, v_s(last));
     wgmma_commit();
     if (cw == 0) turn_pass(cw);
     wgmma_wait<0>();
     fence_regs(o);
   }
 
-  // finalize: acc / max(l, 1e-20), written in bf16
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  // finalize: acc / max(l, 1e-20), written in T; columns past hd are not
+  // stored (FULL: hd is the instance's width, and the store needs no test,
+  // which would cost the exact widths 2-4% of their time)
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (rows.qpos[hr] >= p.Sq) continue;
     const float l = fmaxf(rows.l[hr], 1e-20f);
-    __nv_bfloat16* orow = og + rows.qpos[hr] * p.o_ss;
+    T* orow = og + rows.qpos[hr] * p.o_ss;
 #pragma unroll
     for (int d8 = 0; d8 < HD / 8; ++d8) {
       const float x0 = o[4 * d8 + 2 * hr] / l, x1 = o[4 * d8 + 2 * hr + 1] / l;
-      *reinterpret_cast<__nv_bfloat162*>(orow + d8 * 8 + tig * 2) =
-          __floats2bfloat162_rn(x0, x1);
+      if (FULL || d8 * 8 < p.hd) store_pair(orow + d8 * 8 + tig * 2, x0, x1);
     }
   }
 }
@@ -955,14 +1277,15 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// The 4-D map of one (B, S, H, hd) input: dimensions (hd, inner, outer, B)
-// where inner is whichever of S and H has the smaller stride, a box of 64
-// columns x box_rows rows, 128-byte swizzle, zeros past the ends (the
-// columns of a last box past hd 80 or 96 too).  A
-// dimension of size 1 gets a nominal stride.  Returns false if
-// cuTensorMapEncodeTiled refuses the map.
-bool encode(CUtensorMap* map, const void* ptr, int hd, int s, int h, int batch, long long ss,
-            long long sh, long long sb, int box_rows, int* heads_inner) {
+// The 4-D map of one (B, S, H, hd) input of 16-bit type `dtype`: dimensions
+// (hd, inner, outer, B) where inner is whichever of S and H has the smaller
+// stride, a box of 64 columns x box_rows rows, 128-byte swizzle, zeros past
+// the ends (the columns of a last box past hd too: hd 80 or 96, or any hd
+// below the instance's padded width).  A dimension of size 1 gets a nominal
+// stride.  Returns false if cuTensorMapEncodeTiled refuses the map.
+bool encode(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int hd, int s, int h,
+            int batch, long long ss, long long sh, long long sb, int box_rows,
+            int* heads_inner) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   if (s == 1) ss = hd;
@@ -977,111 +1300,179 @@ bool encode(CUtensorMap* map, const void* ptr, int hd, int s, int h, int batch, 
   const cuuint32_t box[4] = {64, hin ? 1u : rows, hin ? rows : 1u, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   *heads_inner = hin ? 1 : 0;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 
-template <int HD>
+// The instance of width HD runs hd == HD (FULL) or any smaller hd that is
+// a multiple of 8 (the map reads hd columns; the wrapper's TMA rule holds
+// the rows).
+template <typename T, int HD, bool FULL>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int q_hin, k_hin, v_hin;
-  const int hd = HD;
-  if (!encode(&tq, p.q, hd, p.Sq, p.Hq, batch, p.q_ss, p.q_sh, p.q_sb, BQ, &q_hin) ||
-      !encode(&tk, p.k, hd, p.Skv, p.Hkv, batch, p.k_ss, p.k_sh, p.k_sb, BK, &k_hin) ||
-      !encode(&tv, p.v, hd, p.Skv, p.Hkv, batch, p.v_ss, p.v_sh, p.v_sb, BK, &v_hin))
+  const CUtensorMapDataType dt =
+      kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode(&tq, dt, p.q, p.hd, p.Sq, p.Hq, batch, p.q_ss, p.q_sh, p.q_sb, BQ, &q_hin) ||
+      !encode(&tk, dt, p.k, p.hd, p.Skv, p.Hkv, batch, p.k_ss, p.k_sh, p.k_sb, BK, &k_hin) ||
+      !encode(&tv, dt, p.v, p.hd, p.Skv, p.Hkv, batch, p.v_ss, p.v_sh, p.v_sb, BK, &v_hin))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = Plan<HD>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      attn_fwd_wgmma_kernel<T, HD, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, batch);
-  attn_fwd_wgmma_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p, q_hin, k_hin,
-                                                                 v_hin);
+  attn_fwd_wgmma_kernel<T, HD, FULL><<<grid, NTHREADS, bytes, stream>>>(tq, tk, tv, p, q_hin,
+                                                                          k_hin, v_hin);
   return cudaGetLastError();
 }
 
 }  // namespace wg
 
-// The variant that takes (dtype, head_dim): 0 attn_fwd_mma_kernel with FMAs
-// (float32), 1 attn_fwd_mma_kernel with mma.sync (bf16 hd 16 / 32), 2
-// attn_fwd_wgmma_kernel (bf16 hd 64 / 80 / 96 / 128 / 192); -1 none.
-int variant(int dtype, int hd) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 80 && hd != 96 && hd != 128 &&
-      hd != 192)
-    return -1;
-  if (dtype == 0) return 0;
-  if (dtype == 1) return hd == 16 || hd == 32 ? 1 : 2;
-  return -1;
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+// The variant that takes (dtype, head_dim, rows 16-byte aligned): 0
+// attn_fwd_mma_kernel with FMAs (float32 at its seven widths), 1
+// attn_fwd_mma_kernel with mma.sync (16-bit hd 16 / 32), 2
+// attn_fwd_wgmma_kernel (16-bit hd a multiple of 8 up to 192, but 16 and
+// 32; the TMA rule on the rows is the wrapper's to hold), 3
+// attn_fwd_split_kernel (the rest); -1 none.  dtype: 0 float32, 1 bf16, 2
+// float16.  Mirrored by kernels/flash_attention.py::variant_of.
+int variant(int dtype, int hd, int aligned) {
+  if (hd < 1 || hd > MAX_HEAD_DIM || dtype < 0 || dtype > 2) return -1;
+  if (dtype == 0) {
+    const bool inst = hd == 16 || hd == 32 || hd == 64 || hd == 80 || hd == 96 || hd == 128 ||
+                      hd == 192;
+    return inst && aligned ? 0 : 3;
+  }
+  if (hd == 16 || hd == 32) return aligned ? 1 : 3;
+  return hd % 8 == 0 && hd <= 192 ? 2 : 3;
 }
 
-cudaError_t dispatch_hd(const Params& p, int dtype, int hd, int batch, cudaStream_t stream) {
-  switch (variant(dtype, hd) * 1000 + hd) {
+// The wgmma instance of the least width that holds hd.
+int wgmma_width(int hd) { return hd <= 64 ? 64 : hd <= 80 ? 80 : hd <= 96 ? 96 : hd <= 128 ? 128 : 192; }
+
+template <typename T>
+cudaError_t dispatch16(const Params& p, int var, int batch, cudaStream_t stream) {
+  if (var == 1) return p.hd == 16 ? mma::launch<T, 16>(p, batch, stream)
+                                  : mma::launch<T, 32>(p, batch, stream);
+  if (var == 3) return split::launch<T>(p, batch, stream);
+  const int width = wgmma_width(p.hd);
+  if (p.hd == width) {
+    switch (width) {
+      case 64: return wg::launch<T, 64, true>(p, batch, stream);
+      case 80: return wg::launch<T, 80, true>(p, batch, stream);
+      case 96: return wg::launch<T, 96, true>(p, batch, stream);
+      case 128: return wg::launch<T, 128, true>(p, batch, stream);
+      default: return wg::launch<T, 192, true>(p, batch, stream);
+    }
+  }
+  switch (width) {
+    case 64: return wg::launch<T, 64, false>(p, batch, stream);
+    case 80: return wg::launch<T, 80, false>(p, batch, stream);
+    case 96: return wg::launch<T, 96, false>(p, batch, stream);
+    case 128: return wg::launch<T, 128, false>(p, batch, stream);
+    default: return wg::launch<T, 192, false>(p, batch, stream);
+  }
+}
+
+cudaError_t dispatch(const Params& p, int dtype, int var, int batch, cudaStream_t stream) {
+  if (var < 0) return cudaErrorInvalidValue;
+  if (dtype == 1) return dispatch16<__nv_bfloat16>(p, var, batch, stream);
+  if (dtype == 2) return dispatch16<__half>(p, var, batch, stream);
+  if (var == 3) return split::launch<float>(p, batch, stream);
+  switch (p.hd) {
     case 16: return mma::launch<float, 16>(p, batch, stream);
     case 32: return mma::launch<float, 32>(p, batch, stream);
     case 64: return mma::launch<float, 64>(p, batch, stream);
     case 80: return mma::launch<float, 80>(p, batch, stream);
     case 96: return mma::launch<float, 96>(p, batch, stream);
     case 128: return mma::launch<float, 128>(p, batch, stream);
-    case 192: return mma::launch<float, 192>(p, batch, stream);
-    case 1016: return mma::launch<__nv_bfloat16, 16>(p, batch, stream);
-    case 1032: return mma::launch<__nv_bfloat16, 32>(p, batch, stream);
-    case 2064: return wg::launch<64>(p, batch, stream);
-    case 2080: return wg::launch<80>(p, batch, stream);
-    case 2096: return wg::launch<96>(p, batch, stream);
-    case 2128: return wg::launch<128>(p, batch, stream);
-    case 2192: return wg::launch<192>(p, batch, stream);
-    default: return cudaErrorInvalidValue;
+    default: return mma::launch<float, 192>(p, batch, stream);
   }
 }
 
-int smem_bytes(int dtype, int hd) {
-  switch (variant(dtype, hd) * 1000 + hd) {
+int smem_bytes(int dtype, int hd, int aligned) {
+  const int var = variant(dtype, hd, aligned);
+  if (var < 0) return -1;
+  if (var == 3)
+    return (int)(dtype == 0 ? split::Plan<float>::bytes(hd)
+                            : split::Plan<__nv_bfloat16>::bytes(hd));   // both 16-bit alike
+  if (var == 2) {
+    switch (wgmma_width(hd)) {
+      case 64: return (int)wg::Plan<64>::kBytes;
+      case 80: return (int)wg::Plan<80>::kBytes;
+      case 96: return (int)wg::Plan<96>::kBytes;
+      case 128: return (int)wg::Plan<128>::kBytes;
+      default: return (int)wg::Plan<192>::kBytes;
+    }
+  }
+  if (var == 1)
+    return (int)(hd == 16 ? mma::Plan<__nv_bfloat16, 16>::kBytes
+                          : mma::Plan<__nv_bfloat16, 32>::kBytes);
+  switch (hd) {
     case 16: return (int)mma::Plan<float, 16>::kBytes;
     case 32: return (int)mma::Plan<float, 32>::kBytes;
     case 64: return (int)mma::Plan<float, 64>::kBytes;
     case 80: return (int)mma::Plan<float, 80>::kBytes;
     case 96: return (int)mma::Plan<float, 96>::kBytes;
     case 128: return (int)mma::Plan<float, 128>::kBytes;
-    case 192: return (int)mma::Plan<float, 192>::kBytes;
-    case 1016: return (int)mma::Plan<__nv_bfloat16, 16>::kBytes;
-    case 1032: return (int)mma::Plan<__nv_bfloat16, 32>::kBytes;
-    case 2064: return (int)wg::Plan<64>::kBytes;
-    case 2080: return (int)wg::Plan<80>::kBytes;
-    case 2096: return (int)wg::Plan<96>::kBytes;
-    case 2128: return (int)wg::Plan<128>::kBytes;
-    case 2192: return (int)wg::Plan<192>::kBytes;
-    default: return -1;
+    default: return (int)mma::Plan<float, 192>::kBytes;
   }
+}
+
+// Whether every walked (b, s, h) row of one input starts on 16 bytes (a
+// dimension of size 1 is never stepped over).
+bool rows16(const void* ptr, const long long* st, int b, int s, int h, int esize) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const int n[3] = {b, s, h};
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1 && (st[i] * esize) % 16) return false;
+  return true;
 }
 
 }  // namespace
 
-// Dynamic shared memory of one CTA, in bytes (-1: not a supported variant).
-extern "C" int flash_attention_smem_bytes(int dtype, int hd) { return smem_bytes(dtype, hd); }
+// Dynamic shared memory of one CTA, in bytes (-1: no variant takes it), for
+// (dtype, head_dim) on rows 16-byte aligned or not.
+extern "C" int flash_attention_smem_bytes(int dtype, int hd, int aligned) {
+  return smem_bytes(dtype, hd, aligned);
+}
 
-// Which kernel variant flash_attention_fwd launches for (dtype, head_dim):
-// 0 mma kernel with FMAs, 1 mma kernel with mma.sync, 2 wgmma + TMA; -1 none.
-// head_dim is one of 16, 32, 64, 80, 96, 128, 192.
-extern "C" int flash_attention_variant(int dtype, int hd) { return variant(dtype, hd); }
+// Which kernel variant flash_attention_fwd launches for (dtype, head_dim,
+// rows 16-byte aligned): 0 mma kernel with FMAs, 1 mma kernel with mma.sync,
+// 2 wgmma + TMA, 3 split kernel; -1 none.
+extern "C" int flash_attention_variant(int dtype, int hd, int aligned) {
+  return variant(dtype, hd, aligned);
+}
 
 // q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), o (B, Sq, Hq, hd), each with a unit
 // last stride; strides[12] holds the (batch, seq, head) strides, in elements,
-// of q, k, v and o in that order.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue also when
-// cuTensorMapEncodeTiled refuses a TMA map).
+// of q, k, v and o in that order.  dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16; hd in 1..512.  Returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue also when cuTensorMapEncodeTiled refuses a
+// TMA map).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int batch, int sq, int skv, int hq, int hkv,
                                    int hd, const long long* strides, int causal, int window,
                                    float sm_scale, void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
-  p.Sq = sq; p.Skv = skv; p.Hq = hq; p.Hkv = hkv;
+  p.Sq = sq; p.Skv = skv; p.Hq = hq; p.Hkv = hkv; p.hd = hd;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_ss = strides[10]; p.o_sh = strides[11];
   p.causal = causal; p.window = window; p.sm_scale = sm_scale;
-  return (int)dispatch_hd(p, dtype, hd, batch, static_cast<cudaStream_t>(stream));
+  const int esize = dtype == 0 ? 4 : 2;
+  const bool aligned = rows16(q, strides, batch, sq, hq, esize) &&
+                       rows16(k, strides + 3, batch, skv, hkv, esize) &&
+                       rows16(v, strides + 6, batch, skv, hkv, esize);
+  return (int)dispatch(p, dtype, variant(dtype, hd, aligned), batch,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -3,14 +3,19 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu``, the counterpart of
 the Pallas TPU kernel ``repro/kernels/flash_attention.py::_attn_kernel`` and
 its GQA wrapper ``repro/kernels/ops.py::flash_attention``.  It takes CUDA
-tensors only and raises on what the kernel does not take.  The source holds
-two kernels, chosen by dtype and head_dim (``check_layout`` names the one a
-call launches): bf16 at head_dim 64 / 80 / 96 / 128 / 192 runs
-``attn_fwd_wgmma_kernel`` (wgmma, TMA, a ring of K/V stages), bf16 at 16 /
-32 and all of float32 run ``attn_fwd_mma_kernel`` (mma.sync, or FMAs).
-``flash_attention_plain`` computes the same function in plain PyTorch, with
-the same ``-1e30`` masking sentinel, ``max(l, 1e-20)`` finalize and kv-major
-GQA grouping; the CPU path and the on-card comparisons use it.
+tensors only, at any head_dim from 1 to ``MAX_HEAD_DIM`` in float32, bf16 or
+float16, and raises on what the kernel does not take.  The source holds
+three kernels, chosen by dtype, head_dim and the rows' alignment
+(``check_layout`` names the one a call launches): 16-bit head dims that are
+a multiple of 8 up to 192 (16 and 32 aside) run ``attn_fwd_wgmma_kernel``
+(wgmma, TMA, a ring of K/V stages) at the least of its instance widths
+``WGMMA_HEAD_DIMS`` that holds them; 16-bit 16 / 32 and float32 at
+``MMA_HEAD_DIMS`` on 16-byte rows run ``attn_fwd_mma_kernel`` (mma.sync,
+or FMAs); every other call runs ``attn_fwd_split_kernel`` (O's columns
+split over CTAs, element loads).  ``flash_attention_plain`` computes the
+same function in plain PyTorch, with the same ``-1e30`` masking sentinel,
+``max(l, 1e-20)`` finalize and kv-major GQA grouping; the CPU path and the
+on-card comparisons use it.
 
 Both take q (B, Sq, Hq, hd) and k/v (B, Skv, Hkv, hd) with Hq a multiple of
 Hkv; q head h reads kv head h // (Hq // Hkv).  As in the reference kernel,
@@ -34,8 +39,8 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 512
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
 last_variant = None   # the variant of the last launch (VARIANTS)
@@ -92,12 +97,25 @@ def flops(b: int, sq: int, skv: int, hq: int, hd: int, causal: bool,
 
 
 # The kernel variants of csrc/flash_attention.cu, by the code its
-# flash_attention_variant returns: float32 on FMAs and bf16 head_dim 16 / 32
-# on mma.sync share attn_fwd_mma_kernel; bf16 head_dim 64 / 80 / 96 / 128 /
-# 192 runs attn_fwd_wgmma_kernel (wgmma, TMA, a ring of K/V stages).
-VARIANTS = ("mma_fma", "mma_sync", "wgmma_tma")
-WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)
+# flash_attention_variant returns: float32 on FMAs and 16-bit head_dim 16 /
+# 32 on mma.sync share attn_fwd_mma_kernel; 16-bit head dims that are a
+# multiple of 8 up to 192 run attn_fwd_wgmma_kernel (wgmma, TMA, a ring of
+# K/V stages) at its instance widths; attn_fwd_split_kernel takes the rest.
+VARIANTS = ("mma_fma", "mma_sync", "wgmma_tma", "mma_split")
+MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)   # float32 instances
+WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)         # wgmma instance widths
+SPLIT_COLUMNS = 128    # O columns a CTA of the split kernel owns
 _TMA_STRIDE_LIMIT = 2 ** 40
+
+
+def variant_of(element_size: int, hd: int, aligned: bool) -> str:
+    """The variant a (dtype, head_dim) takes on rows that are 16-byte
+    aligned or not, as ``csrc/flash_attention.cu::variant`` chooses it."""
+    if element_size == 4:
+        return "mma_fma" if aligned and hd in MMA_HEAD_DIMS else "mma_split"
+    if hd in (16, 32):
+        return "mma_sync" if aligned else "mma_split"
+    return "wgmma_tma" if hd % 8 == 0 and hd <= 192 else "mma_split"
 
 
 def check_layout(shapes, strides, element_size: int, bases) -> str:
@@ -105,46 +123,71 @@ def check_layout(shapes, strides, element_size: int, bases) -> str:
 
     ``shapes`` and ``strides`` are the (B, S, H, hd) shapes and element
     strides of q, k and v, ``bases`` their data addresses; ``element_size``
-    is 4 (float32) or 2 (bf16).  Every variant needs a unit last stride, a
-    16-byte aligned base and byte strides that are multiples of 16 (the TMA
-    maps' rule, and the 16-byte loads' of the mma kernel), and a head_dim in
-    ``HEAD_DIMS``; the TMA maps also need each stride in (0, 2**40) bytes.
-    A dimension of size 1 is never stepped over, so its stride is free."""
+    is 4 (float32) or 2 (bf16, float16).  Every variant needs a unit last
+    stride and a head_dim in 1..``MAX_HEAD_DIM``.  Where the rows are not
+    16-byte aligned (a base or a walked byte stride off 16), the mma
+    kernel's head dims go to the split kernel, whose loads are narrower;
+    the wgmma kernel's TMA maps need 16-byte rows and each stride in
+    (0, 2**40) bytes, and raise otherwise.  A dimension of size 1 is never
+    stepped over, so its stride is free."""
     hd = shapes[0][3]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if element_size == 4:
-        variant = "mma_fma"
-    else:
-        variant = "wgmma_tma" if hd in WGMMA_HEAD_DIMS else "mma_sync"
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    steps = {}
     for name, shape, stride, base in zip("qkv", shapes, strides, bases):
-        steps = [st * element_size for n, st in zip(shape[:3], stride[:3])
-                 if n > 1]                   # byte strides that are walked
-        if stride[3] != 1 or base % 16 or any(b % 16 for b in steps):
+        if stride[3] != 1:
             raise ValueError(f"flash_attention: {name} needs a unit last "
-                             f"stride, 16-byte aligned rows and base; got "
-                             f"strides {tuple(stride)}, base {base:#x}")
-        if variant == "wgmma_tma" and any(
-                not 0 < b < _TMA_STRIDE_LIMIT for b in steps):
-            raise ValueError(f"flash_attention: {name} byte strides must be "
-                             f"in (0, 2**40) for a TMA map; got strides "
-                             f"{tuple(stride)}")
+                             f"stride; got strides {tuple(stride)}")
+        steps[name] = [st * element_size for n, st in zip(shape[:3],
+                                                           stride[:3])
+                       if n > 1]                 # byte strides that are walked
+    aligned = all(base % 16 == 0 and not any(b % 16 for b in steps[name])
+                  for name, base in zip("qkv", bases))
+    variant = variant_of(element_size, hd, aligned)
+    if variant == "wgmma_tma":
+        for name, stride, base in zip("qkv", strides, bases):
+            if base % 16 or any(b % 16 for b in steps[name]):
+                raise ValueError(f"flash_attention: {name} needs a unit last "
+                                 f"stride, 16-byte aligned rows and base for "
+                                 f"a TMA map; got strides {tuple(stride)}, "
+                                 f"base {base:#x}")
+            if any(not 0 < b < _TMA_STRIDE_LIMIT for b in steps[name]):
+                raise ValueError(f"flash_attention: {name} byte strides must "
+                                 f"be in (0, 2**40) for a TMA map; got "
+                                 f"strides {tuple(stride)}")
     return variant
+
+
+def split_smem_bytes(element_size: int, hd: int) -> int:
+    """Dynamic shared memory of one CTA of the split kernel, as its
+    ``split::Plan`` lays it out: Q (64 rows of hd padded to 64), a 64 x 64
+    K chunk, 128 V columns of a 64-key tile and, in float32, the warps' P
+    rows; each row padded by 16 bytes."""
+    pad = 16 // element_size
+    qstr = -(-hd // 64) * 64 + pad
+    v_elems = (SPLIT_COLUMNS * (64 + pad) if element_size == 2
+               else 64 * (SPLIT_COLUMNS + pad))
+    p_floats = 0 if element_size == 2 else 4 * 16 * 68
+    return (64 * qstr + 64 * (64 + pad) + v_elems) * element_size \
+        + 4 * p_floats
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> str:
     check_window(window)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be on q's CUDA "
-                             f"device, got {t.device}")
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODE:
             raise ValueError(f"flash_attention: q/k/v must share one dtype of "
-                             f"{sorted(map(str, _DTYPE_CODE))}, got {t.dtype}")
+                             f"{sorted(map(str, _DTYPE_CODE))}, got {t.dtype}"
+                             f" (no tensor core computes float64 attention)")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, hd), "
                              f"got shape {tuple(t.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be on q's CUDA "
+                             f"device, got {t.device}")
     b, _, hq, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -167,21 +210,26 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
         for name in ("flash_attention_smem_bytes", "flash_attention_variant"):
-            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).argtypes = [i, i, i]
             getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
-    """Dynamic shared memory of one CTA of the kernel variant."""
-    return _lib().flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim)
+def smem_bytes(dtype: torch.dtype, head_dim: int,
+               aligned: bool = True) -> int:
+    """Dynamic shared memory of one CTA of the variant that takes (dtype,
+    head_dim) on rows 16-byte aligned or not."""
+    return _lib().flash_attention_smem_bytes(_DTYPE_CODE[dtype], head_dim,
+                                             int(aligned))
 
 
-def built_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The variant the built library launches for (dtype, head_dim): the
-    C side's own dispatch, against which ``check_layout``'s name is held."""
+def built_variant(dtype: torch.dtype, head_dim: int,
+                  aligned: bool = True) -> str:
+    """The variant the built library launches for (dtype, head_dim, rows
+    16-byte aligned): the C side's own dispatch, against which
+    ``check_layout``'s name is held."""
     return VARIANTS[_lib().flash_attention_variant(_DTYPE_CODE[dtype],
-                                                   head_dim)]
+                                                   head_dim, int(aligned))]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

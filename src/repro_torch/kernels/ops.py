@@ -34,7 +34,7 @@ from ..device import is_dtensor
 from . import flash_attention as _fa
 from . import rwkv6 as _kr
 from .flash_attention import flash_attention, flash_attention_plain
-from .rwkv6 import kernel_chunk, rwkv6_fused, rwkv6_fused_plain
+from .rwkv6 import rwkv6_fused, rwkv6_fused_plain
 
 
 def _check_device(name: str, *xs: Optional[torch.Tensor]) -> None:
@@ -93,9 +93,8 @@ def rwkv6_fused_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    log_decay: torch.Tensor, bonus: Optional[torch.Tensor],
                    initial_state: Optional[torch.Tensor], chunk: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused recurrence as one op at ``chunk``, the chunk the kernel
-    runs (``kernel_chunk``'s on the card): the plain version on the CPU,
-    the kernel on CUDA; (out (B, H, T, V) in q's dtype in the kernel's
+    """The fused recurrence as one op at ``chunk``: the plain version on the
+    CPU, the kernel on CUDA; (out (B, H, T, V) in q's dtype in the kernel's
     layout, final S (B, H, K, V))."""
     out, s = rwkv6_fused_plain(q, k, v, log_decay, bonus=bonus, chunk=chunk,
                                initial_state=initial_state)
@@ -278,15 +277,14 @@ class _Rwkv6Mix(torch.autograd.Function):
     CPU) -> (out, final S), both differentiable; the backward recomputes
     through ``models.ssm.chunked_linear_attention_scan``, the reference's
     chunk scan with its bonus diagonal (``repro/models/ssm.py:36-100``).
-    On the card a chunk above the kernel's ``MAX_CHUNK`` runs at its largest
-    divisor that the kernel takes (``rwkv6.kernel_chunk``: 128 at 64)."""
+    Both passes run at the chunk asked for, on the card as on the CPU, as
+    the reference's forward and recompute do."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_decay, bonus, initial_state, chunk: int):
         ctx.save_for_backward(q, k, v, log_decay, bonus, initial_state)
         ctx.chunk = chunk
-        run = kernel_chunk(q.shape[2], chunk) if q.is_cuda else chunk
-        return rwkv6_fused_op(q, k, v, log_decay, bonus, initial_state, run)
+        return rwkv6_fused_op(q, k, v, log_decay, bonus, initial_state, chunk)
 
     @staticmethod
     def backward(ctx, g_out, g_state):

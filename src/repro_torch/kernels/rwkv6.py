@@ -5,8 +5,8 @@ plain version.
 kernel ``repro/kernels/rwkv6.py::_rwkv_kernel`` together with the decay
 precompute and the bonus diagonal that ``repro/kernels/ops.py:97-123`` does
 around it in XLA.  It reads the model's q, k (B, H, T, K), v (B, H, T, V)
-and log decay (B, H, T, K) once, in their dtype (bf16 or float32) and
-through their strides, and returns (out (B, H, T, V) in q's dtype, a view
+and log decay (B, H, T, K) once, in their dtype (float32, bf16 or float16)
+and through their strides, and returns (out (B, H, T, V) in q's dtype, a view
 of a (B, T, H, V) tensor; final S (B, H, K, V) float32) of
 
     o_chunk = q_in · S + mask(q_intra · k_intraᵀ) · v  [+ (Σ_k q·u·k) · v]
@@ -26,10 +26,13 @@ Its bound at the serving path's shape (B·H 160, T 2048, K = V = 64, chunk
 takes 0.0392 ms, the products at a third of the TF32 rate since they run as
 3xTF32 (0.0923 ms if all of it ran at 67 TFLOP/s).  One CTA owns (b·h, VB
 columns of V); the next chunk's raw tiles come by cp.async into a 2-deep
-ring; the three products run on the tensor cores in 3xTF32.  The library
-makes the launch plan (VB 32 unless the caller names one, the threads, the
-ring or direct loads) and reports it back; the kernel's note gives the
-design.
+ring; the three products run on the tensor cores in 3xTF32.  It takes every
+K and V from 1 to ``MAX_DIM`` and every chunk that divides T, as the Pallas
+kernel does: a chunk above ``MAX_SUB`` rows (or whose tiles do not fit)
+runs in sub-blocks inside the kernel, at the chunk's own exponentials.
+:func:`plan` makes the launch plan (VB 32 unless the caller names one, the
+sub-block's rows, the threads, the ring or direct loads) on the host, so the
+CPU tests can pin it; the kernel's note gives the design.
 
 ``rwkv6_fused_plain`` computes the same function as ``rwkv6_inputs`` →
 ``rwkv6_chunked_plain`` → the bonus diagonal, for the CPU path and the
@@ -51,35 +54,104 @@ import torch
 from . import build
 
 LOG_DECAY_MIN = -4.0  # per-step clamp; e^-4 ≈ 0.018, far below trained decays
-KV_DIMS = (8, 16, 32, 64, 128)
-MAX_CHUNK = 64
+MAX_DIM = 256                    # K and V each in 1..MAX_DIM
+MAX_SUB = 64                     # rows of a sub-block inside a chunk
 VB_CHOICES = (8, 16, 32, 64)     # V columns per CTA a caller may name
+DEFAULT_VB = 32                  # the fastest column block on the serving path
+MAX_SMEM = 232448                # bytes of shared memory a CTA can have
+RING = 2                         # stages of the cp.async ring
 NO_SMEM = -2                     # the library's code: the CTA does not fit
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 launches = 0          # kernel launches since the last reset (tests, smoke)
-last_plan: Optional[dict] = None   # the last launch's VB, threads, loads,
-#                                    smem and chunk
+last_plan: Optional[dict] = None   # the last launch's VB, sub-block rows,
+#                                    threads, loads, smem and chunk
 last_shape = None     # (B, H, T, K, V) of the last launch
 
 
 def check_chunk(t: int, chunk: int) -> None:
-    """The kernel takes every chunk from 1 to 64 that divides T (the model
-    path's ``_fit_chunk`` gives a 12-token prompt chunk 12)."""
-    if chunk < 1 or chunk > MAX_CHUNK or t % chunk:
-        raise ValueError(f"chunk must be in 1..{MAX_CHUNK} and divide T={t}, "
-                         f"got {chunk}")
-
-
-def kernel_chunk(t: int, chunk: int) -> int:
-    """The chunk the kernel runs a call of ``chunk`` at: the largest divisor
-    of ``chunk`` that is at most ``MAX_CHUNK`` (so it divides T wherever
-    ``chunk`` does).  RunConfig's 128, the reference's TPU tile, runs at 64:
-    the recurrence carries its state exactly across chunk boundaries, so a
-    chunk's size changes only the rounding."""
+    """The kernel takes every chunk that divides T, as the reference's
+    Pallas kernel does (the model path's ``_fit_chunk`` gives a 12-token
+    prompt chunk 12; RunConfig's 128 runs at 128)."""
     if chunk < 1 or t % chunk:
         raise ValueError(f"chunk must be >= 1 and divide T={t}, got {chunk}")
-    return max(d for d in range(1, min(chunk, MAX_CHUNK) + 1)
-               if chunk % d == 0)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def layout_bytes(dk: int, vb: int, cs: int, chunk: int, esize: int,
+                 ring: bool) -> int:
+    """Shared memory of one CTA under a plan, region by region as
+    ``csrc/rwkv6.cu::layout`` counts it: the ring of raw rows, the four
+    float32 tiles at K padded to 8, v, the scores, S and its next buffer
+    (and P and its next where a chunk runs in several sub-blocks) and the
+    per-column vectors."""
+    kp = (dk + 7) & ~7
+    multi = cs < chunk
+    return (_align16((RING if ring else 0) * cs * (3 * dk + vb) * esize)
+            + _align16((3 * (kp + 4) + kp + 8) * cs * 4)
+            + _align16(cs * (vb + 8) * 4)
+            + _align16(cs * (((cs + 7) & ~7) + 4) * 4)
+            + _align16((4 if multi else 2) * kp * (vb + 8) * 4)
+            + _align16((dk + cs + (4 * dk if multi else 0)) * 4))
+
+
+def _widest_vb(dv: int) -> int:
+    """V rounded up to a power of two, at least 8: the widest column block
+    that leaves no CTA without a column of its own."""
+    wide = 8
+    while wide < dv:
+        wide *= 2
+    return wide
+
+
+def plan(dk: int, dv: int, chunk: int, esize: int, *,
+         vb: Optional[int] = None, rows_aligned: bool = True) -> dict:
+    """The launch plan of a call: the widest column block from ``vb`` (or
+    ``DEFAULT_VB``, narrowed to V rounded up to a power of two) down to 8
+    that fits, with the most rows a sub-block can take (the chunk's, up to
+    ``MAX_SUB``, then 32, 16, 8), direct loads first; then the cp.async
+    ring if every row is 16-byte aligned (``rows_aligned``), K and V rows
+    are whole 16-byte units and the ring fits too.  An explicit ``vb`` is
+    kept: ``NO_SMEM`` in "smem" says it cannot fit.  The serving paths keep
+    the plans they had with chunks up to 64 (one sub-block a chunk)."""
+    if vb is None:
+        wide = min(_widest_vb(dv), DEFAULT_VB)
+        vbs = [w for w in VB_CHOICES if w <= wide][::-1]
+    else:
+        vbs = [vb]
+    top = min(chunk, MAX_SUB)
+    subs = [top] + [c for c in (32, 16, 8) if c < top]
+    for w in vbs:
+        for cs in subs:
+            if layout_bytes(dk, w, cs, chunk, esize, False) > MAX_SMEM:
+                continue
+            ring = (rows_aligned and (dk * esize) % 16 == 0
+                    and (dv * esize) % 16 == 0
+                    and layout_bytes(dk, w, cs, chunk, esize, True)
+                    <= MAX_SMEM)
+            return {"vb": w, "cs": cs, "threads": 256 if w == 64 else 128,
+                    "loads": "ring" if ring else "direct",
+                    "smem": layout_bytes(dk, w, cs, chunk, esize, ring),
+                    "chunk": chunk}
+    return {"vb": vbs[-1], "cs": subs[-1],
+            "threads": 256 if vbs[-1] == 64 else 128, "loads": "direct",
+            "smem": NO_SMEM, "chunk": chunk}
+
+
+def rows_aligned(tensors) -> bool:
+    """Whether every (b, h, t) row of each tensor starts on 16 bytes: the
+    base and each walked stride (a dimension of size 1 is never stepped
+    over) a multiple of 16 bytes, as ``csrc/rwkv6.cu::aligned16`` holds
+    the ring to."""
+    for x in tensors:
+        if x.data_ptr() % 16 or any(
+                n > 1 and (st * x.element_size()) % 16
+                for n, st in zip(x.shape[:3], x.stride()[:3])):
+            return False
+    return True
 
 
 def flops(b: int, h: int, t: int, dk: int, dv: int, chunk: int) -> int:
@@ -188,9 +260,9 @@ def rwkv6_fused_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check(q, k, v, log_decay, bonus, chunk, initial_state, vb) -> None:
     named = (("q", q), ("k", k), ("v", v), ("log_decay", log_decay),
              ("bonus", bonus), ("initial_state", initial_state))
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"rwkv6_fused: q must be bf16 or float32, got "
-                         f"{q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"rwkv6_fused: q must be float16, bf16 or float32, "
+                         f"got {q.dtype}")
     for name, x in named[1:4]:
         if x.dtype != q.dtype:
             raise ValueError(f"rwkv6_fused: {name} is {x.dtype}, q is "
@@ -206,13 +278,14 @@ def _check(q, k, v, log_decay, bonus, chunk, initial_state, vb) -> None:
         if tuple(x.shape) != want[name]:
             raise ValueError(f"rwkv6_fused: {name} has shape "
                              f"{tuple(x.shape)}, expected {want[name]}")
-    if dk not in KV_DIMS or dv not in KV_DIMS:
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
         raise ValueError(f"rwkv6_fused: K={dk} and V={dv} must each be in "
-                         f"{KV_DIMS}")
+                         f"1..{MAX_DIM}")
     check_chunk(t, chunk)
-    if vb is not None and (vb not in VB_CHOICES or dv % vb):
+    if vb is not None and (vb not in VB_CHOICES or vb > _widest_vb(dv)):
         raise ValueError(f"rwkv6_fused: vb={vb} must be one of {VB_CHOICES} "
-                         f"and divide V={dv}")
+                         f"and no wider than V={dv} rounded up to a power "
+                         f"of two")
     for name, x in named[:4]:
         if x.stride(-1) != 1:
             raise ValueError(f"rwkv6_fused: {name} must have inner stride 1,"
@@ -235,7 +308,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.rwkv6_fused_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [p, i, p, p]
+        fn.argtypes = ([p] * 8 + [i] * 7 + [p, i, i, i, i, p,
+                                            ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return lib
 
@@ -248,7 +322,7 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper kernel on CUDA tensors, read in place through their
     strides (inner stride 1); returns (out (B, H, T, V) in q's dtype, final
-    S (B, H, K, V) float32), on the current stream.  The library makes the
+    S (B, H, K, V) float32), on the current stream.  :func:`plan` makes the
     launch plan (``last_plan``); ``vb`` overrides its column block (for
     measurement)."""
     global launches, last_plan, last_shape
@@ -258,6 +332,12 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     ins = (q, k, v, log_decay)
+    how = plan(dk, dv, chunk, q.element_size(), vb=vb,
+               rows_aligned=rows_aligned(ins))
+    if how["smem"] == NO_SMEM:
+        raise ValueError(f"rwkv6_fused: vb={how['vb']} does not fit in a "
+                         f"CTA's shared memory at K={dk}, chunk {chunk}, "
+                         f"even in sub-blocks of {how['cs']} rows")
     out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
     s_out = torch.empty((b, h, dk, dv), dtype=torch.float32, device=q.device)
     u = None if bonus is None else bonus.float().contiguous()   # (H, K)
@@ -265,26 +345,26 @@ def rwkv6_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           initial_state.float().reshape(b * h, dk, dv).contiguous())
     strides = (ctypes.c_longlong * 12)(*(s for x in ins
                                          for s in x.stride()[:3]))
-    plan = (ctypes.c_int * 4)()
+    smem = ctypes.c_int(0)
     fn = _lib().rwkv6_fused_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(x.data_ptr() for x in ins),
                  None if u is None else u.data_ptr(),
                  None if s0 is None else s0.data_ptr(), out.data_ptr(),
-                 s_out.data_ptr(), int(q.dtype == torch.bfloat16), b, h, t,
-                 dk, dv, chunk, strides, vb or 0, stream, plan)
-    if err == NO_SMEM:
-        raise ValueError(f"rwkv6_fused: vb={plan[0]} needs {plan[3]} bytes "
-                         f"of shared memory at K={dk}, chunk {chunk}, more "
-                         f"than a CTA can have")
+                 s_out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, t, dk, dv,
+                 chunk, strides, how["vb"], how["cs"],
+                 int(how["loads"] == "ring"), how["threads"], stream,
+                 ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"rwkv6_fused: kernel launch failed with "
-                           f"cudaError_t {err}")
+                           f"{'NO_SMEM' if err == NO_SMEM else 'cudaError_t'}"
+                           f" {err} (plan {how})")
+    if smem.value != how["smem"]:
+        raise RuntimeError(f"rwkv6_fused: the library lays out "
+                           f"{smem.value} bytes of shared memory, the plan "
+                           f"{how['smem']}")
     launches += 1
     last_shape = (b, h, t, dk, dv)
-    last_plan = {"vb": plan[0], "threads": plan[1],
-                 "loads": "ring" if plan[2] else "direct", "smem": plan[3],
-                 "chunk": chunk}
+    last_plan = how
     return out.transpose(1, 2), s_out
-

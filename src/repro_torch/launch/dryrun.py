@@ -28,9 +28,7 @@ The modelled device is the H100.  A fake tensor holds no memory and a fake
 kernel call launches nothing (the kernels run behind registered ops whose
 fake kernels give only shapes, ``kernels/ops.py``), so a cell needs no card:
 ``--device cuda`` needs a PyTorch built with CUDA, and ``--device cpu`` runs
-the same count on a CPU-only build (the ops dispatch alike; only the
-recurrence's chunk differs, the card's kernel running chunks above 64 at
-``kernels.rwkv6.kernel_chunk``'s divisor).
+the same count on a CPU-only build (the ops dispatch alike).
 
 Differences from the reference, each deliberate:
   * The count is exact at full depth: the port's layers and microbatches are

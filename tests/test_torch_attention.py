@@ -197,6 +197,7 @@ def _layout(b=2, s=64, hq=8, hkv=2, hd=64, elt=2, fused=False):
     (4, 16, "mma_fma"), (4, 32, "mma_fma"), (4, 64, "mma_fma"),
     (4, 80, "mma_fma"), (4, 96, "mma_fma"), (4, 128, "mma_fma"),
     (4, 192, "mma_fma"),
+    (2, 48, "wgmma_tma"), (2, 256, "mma_split"),
 ])
 @pytest.mark.parametrize("fused", [False, True], ids=["contiguous", "fused"])
 def test_check_layout_names_the_variant(elt, hd, variant, fused):
@@ -205,8 +206,8 @@ def test_check_layout_names_the_variant(elt, hd, variant, fused):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("head_dim 48", "head_dim"),
-    ("head_dim 256", "head_dim"),
+    ("head_dim 0", "head_dim"),
+    ("head_dim 513", "head_dim"),
     ("row stride 8 bytes off", "16-byte"),
     ("base 8 bytes off", "16-byte"),
     ("last stride 2", "unit last stride"),

@@ -10,9 +10,11 @@ Flash attention: bf16 within one bf16 ulp of the output (8e-3 where
 |o| < 2; the kernel carries P as bf16 hi + lo halves, so it keeps P's
 float32 precision as the plain version does and only the output's own
 rounding differs), float32 1e-4 (same f32 arithmetic in another summation
-order, no TF32); on both kernels of the source (wgmma + TMA for bf16 at
-head_dim 64 / 80 / 96 / 128 / 192, mma.sync for bf16 at 16 / 32, FMAs for
-float32), at the wgmma kernel's
+order, no TF32); float16 within one float16 ulp; on the three kernels of the
+source (wgmma + TMA for 16-bit head dims that are multiples of 8 up to 192,
+mma.sync for 16-bit 16 / 32, FMAs for float32 at its seven widths, the
+split kernel for the rest), over head dims 1 to 512 (``HEAD_DIMS``, the
+coverage list), at the wgmma kernel's
 tile edges (S 1, 127, 129, 1000, 2048), windows that cross them, GQA groups
 1 / 4 / 8 and views of a fused qkv projection.  Segment max: bit-exact
 against its plain version and numpy, on CUDA tensors and through the
@@ -24,8 +26,10 @@ launch per rate-resolution solve; so do the smoke figures and the golden
 trace through the scheduler service's loop.  RWKV6 chunked recurrence
 (the fused kernel, from raw q / k / v / log decay): output within 1e-4
 (float32) or one bf16 ulp (bf16) of its plain version, final state within
-1e-4, on every K / V in {8, ..., 128}, chunks from 1 to 64 (powers of two
-and the 12, 7, 13 and 3 that ``_fit_chunk`` or a caller may give), both
+1e-4, on K / V from 1 to 256 (``KV_DIMS``, the coverage list), every chunk
+that divides T (powers of two, the 12, 7, 13 and 3 that ``_fit_chunk`` or a
+caller may give, and chunks above 64 in sub-blocks: RunConfig's 128, whose
+forward and grads match autograd through the plain scan at 128), both
 masks, at chip_smoke.py's shapes, through every VB and both load paths
 (cp.async ring, direct), on the model's ``split_heads`` views without a
 copy; a CUDA prefill never calls the float32 precompute; reduced rwkv6-3b
@@ -72,12 +76,30 @@ from repro_torch.serve.decode import prefill  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 F32_TOL = 1e-4
+# the coverage lists: head dims and K / V the kernels are held at, across
+# every variant and the ranges' ends
+HEAD_DIMS = (1, 8, 16, 24, 32, 48, 64, 72, 80, 96, 100, 128, 192, 200, 256,
+             320, 512)
+KV_DIMS = (1, 7, 8, 16, 24, 32, 40, 64, 100, 128, 200, 256)
+PLAN_DIMS = (1, 7, 24, 64, 128, 256)    # K x V x chunk x dtype: the plans
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def bf16_bound(ref):
     """One bf16 ulp of |ref|, at least 8e-3 (the ulp below 2)."""
     mag = ref.abs().clamp_min(1e-30)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp_min(8e-3)
+
+
+def f16_bound(ref):
+    """One float16 ulp of |ref|, at least 2**-10 (the ulp below 2)."""
+    mag = ref.abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 10).clamp_min(2 ** -10)
+
+
+def ulp_bound(ref, dtype):
+    """One ulp of the 16-bit output dtype, the kernels' tolerance there."""
+    return (bf16_bound if dtype == torch.bfloat16 else f16_bound)(ref)
 
 
 @pytest.fixture
@@ -107,16 +129,18 @@ def _check(q, k, v, variant=None, **kw):
                                    kw.get("window"))
     assert out.dtype == q.dtype and out.shape == q.shape
     assert torch.isfinite(out.float()).all()
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         err = (out.float() - ref.float()).abs()
-        assert bool((err <= bf16_bound(ref.float())).all()), err.max().item()
+        assert bool((err <= ulp_bound(ref.float(), q.dtype)).all()), \
+            err.max().item()
     else:
         torch.testing.assert_close(out.float(), ref.float(), atol=F32_TOL,
                                    rtol=F32_TOL)
+    return fa.last_variant
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("b,s,hq,hkv", [
     (2, 128, 4, 4),      # MHA
     (1, 256, 8, 2),      # GQA
@@ -175,8 +199,8 @@ def test_kernel_gqa_groups_and_variants(cuda, hq, hkv, hd, variant):
            variant=variant)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
 def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
     """q/k/v as strided views of one (B, S, (Hq + 2 Hkv) * hd) tensor, the
@@ -194,18 +218,28 @@ def test_kernel_reads_fused_projection_views(cuda, hq, hkv, hd, dtype):
     _check(q, k, v, causal=True, window=100)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
-    """The C side's dispatch_hd and the wrapper's check_layout name the
-    same variant for every (dtype, head_dim)."""
+    """The C side's variant() and the wrapper's check_layout name the same
+    variant for every (dtype, head_dim), on 16-byte rows and, where the
+    wrapper takes them, on rows off 16 bytes; the split kernel's shared
+    memory is the one ``split_smem_bytes`` counts."""
     q, k, v = _qkv(cuda, 1, 8, 2, 1, hd, dtype)
     named = fa.check_layout([t.shape for t in (q, k, v)],
                             [t.stride() for t in (q, k, v)],
                             q.element_size(),
                             [t.data_ptr() for t in (q, k, v)])
-    assert fa.built_variant(dtype, hd) == named
+    aligned = fa.variant_of(q.element_size(), hd, True)
+    assert fa.built_variant(dtype, hd) == aligned
+    if (hd * q.element_size()) % 16 == 0:
+        assert named == aligned
     assert fa.smem_bytes(dtype, hd) > 0
+    off = fa.variant_of(q.element_size(), hd, False)
+    assert fa.built_variant(dtype, hd, aligned=False) == off
+    if off == "mma_split":
+        assert fa.smem_bytes(dtype, hd, aligned=False) == \
+            fa.split_smem_bytes(q.element_size(), hd)
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
@@ -218,15 +252,71 @@ def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 64, 4, 2, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                           v[..., :48].contiguous())
+        wide = torch.zeros(1, 64, 4, 513, device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(wide, wide[:, :, :2], wide[:, :, :2])
     with pytest.raises(ValueError, match="dtype"):
-        fa.flash_attention(q.half(), k.half(), v.half())
+        fa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="stride"):
         fa.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3),
                            k, v)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q[:, :, :3].contiguous(), k, v)
+
+
+# ---------------------------------------------------------------------------
+# coverage: every head_dim and dtype the attention kernels take
+# ---------------------------------------------------------------------------
+
+COVER_HEAD_DIMS = (8, 24, 48, 100, 256, 320)
+COVER_MASKS = {"causal": (True, None, None), "cross": (False, None, 100),
+               "window": (True, 48, None)}   # causal, window, Skv
+
+
+@pytest.mark.parametrize("mask", list(COVER_MASKS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_coverage_attention_kernel_matches_plain(cuda, hd, dtype, mask):
+    """Every head_dim of the coverage list in every dtype, causal,
+    non-causal with Sq 200 != Skv 100 and windowed, GQA 8 / 2: the variant
+    ``check_layout`` names launches and agrees with the plain version."""
+    causal, window, skv = COVER_MASKS[mask]
+    q, k, v = _qkv(cuda, 2, 200, 8, 2, hd, dtype, seed=hd, skv=skv)
+    ran = _check(q, k, v, causal=causal, window=window)
+    assert ran == fa.variant_of(q.element_size(), hd,
+                                (hd * q.element_size()) % 16 == 0)
+
+
+@pytest.mark.parametrize("layout", ["fused", "heads-major", "offset"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", COVER_HEAD_DIMS)
+def test_coverage_attention_layouts(cuda, hd, dtype, layout):
+    """Non-contiguous inputs at the new head dims: views of one fused qkv
+    projection (odd head dims leave its rows off 16 bytes), (B, H, S, hd)
+    tensors seen as (B, S, H, hd), and views one element into a buffer
+    (rows off 16 bytes: the split kernel takes them, the wgmma kernel's TMA
+    maps refuse them with a ValueError)."""
+    b, s, hq, hkv = 2, 257, 8, 2
+    g = torch.Generator(device="cpu").manual_seed(hd)
+    if layout == "fused":
+        x = torch.randn(b, s, (hq + 2 * hkv) * hd, generator=g).to(cuda, dtype)
+        x = x.view(b, s, hq + 2 * hkv, hd)
+        q, k, v = x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
+    elif layout == "heads-major":
+        q, k, v = (torch.randn(b, h, s, hd, generator=g).to(cuda, dtype)
+                   .transpose(1, 2) for h in (hq, hkv, hkv))
+    else:
+        q, k, v = (torch.randn(b * s * h * hd + 1, generator=g)
+                   .to(cuda, dtype)[1:].view(b, s, h, hd)
+                   for h in (hq, hkv, hkv))
+    named = fa.variant_of(q.element_size(), hd, layout != "offset" and (
+        (hq + 2 * hkv if layout == "fused" else 1) * hd
+        * q.element_size()) % 16 == 0)
+    if named == "wgmma_tma" and layout == "offset":
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, k, v)
+        return
+    assert _check(q, k, v) == named
+    _check(q, k, v, causal=True, window=100)
 
 
 def test_prefill_launches_once_per_layer_and_matches_cpu(cuda):
@@ -506,7 +596,7 @@ def _rwkv_inputs(dev, b, h, t, dk, dv, seed=0, bonus=True):
 
 
 RWKV_CASES = (   # (t, K, V, chunk)
-    [(64, d, d, 16) for d in kr.KV_DIMS]               # every K = V
+    [(64, d, d, 16) for d in KV_DIMS]                  # every K = V
     + [(128, 64, 128, 16), (64, 128, 8, 8), (64, 8, 64, 4)]   # K != V
     + [(2048, 64, 64, 16)]                             # the serving path's T
     + [(96, 64, 64, c) for c in (1, 2, 4, 8, 32)]      # every chunk
@@ -529,9 +619,10 @@ def _check_rwkv(q, k, v, ld, u, chunk, s0=None, vb=None):
     assert out.shape == ref.shape and out.dtype == q.dtype
     assert S.shape == ref_S.shape and S.dtype == torch.float32
     assert torch.isfinite(out.float()).all() and torch.isfinite(S).all()
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         diff = (out.float() - ref.float()).abs()
-        assert (diff <= bf16_bound(ref.float())).all(), diff.max().item()
+        assert (diff <= ulp_bound(ref.float(), q.dtype)).all(), \
+            diff.max().item()
     else:
         torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
@@ -651,10 +742,11 @@ def test_rwkv6_direct_loads_when_the_ring_does_not_fit(cuda):
 
 
 def test_rwkv6_plan_picks_vb_threads_and_loads(cuda):
-    """The library's plan: VB 32, 128 threads and the ring on the serving
-    path's layout; VB V when V is narrower; VB 64 with 256 threads when
-    asked; K 128 at chunk 64 in float32 reads directly (its ring would not
-    fit) and cannot take VB 64."""
+    """The plan: VB 32, 128 threads and the ring on the serving path's
+    layout; VB V when V is narrower; VB 64 with 256 threads when asked; K
+    128 at chunk 64 in float32 reads directly (its ring would not fit) and
+    takes VB 64 only in sub-blocks of 32 rows; K 256 cannot take VB 64 at
+    any sub-block."""
     q, k, v, ld, u = _smoke_inputs(cuda, (2, 3, 32, 64, 64), True, "model",
                                    torch.bfloat16, seed=4)
     plan = _check_rwkv(q, k, v, ld, u, 16)
@@ -668,24 +760,29 @@ def test_rwkv6_plan_picks_vb_threads_and_loads(cuda):
     q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 128, 128, 128), False,
                                    "mild", torch.float32, seed=5)
     assert _check_rwkv(q, k, v, ld, u, 64)["vb"] == 32
+    assert _check_rwkv(q, k, v, ld, u, 64, vb=64)["cs"] == 32
+    q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 128, 256, 64), False,
+                                   "mild", torch.float32, seed=5)
     before = kr.launches
     with pytest.raises(ValueError, match="shared memory"):
         kr.rwkv6_fused(q, k, v, ld, chunk=64, vb=64)
     assert kr.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("chunk", [1, 7, 64])
-@pytest.mark.parametrize("dk", kr.KV_DIMS)
-@pytest.mark.parametrize("dv", kr.KV_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunk", [1, 7, 64, 100])
+@pytest.mark.parametrize("dk", PLAN_DIMS)
+@pytest.mark.parametrize("dv", PLAN_DIMS)
 def test_rwkv6_every_default_plan_fits_and_runs(cuda, dv, dk, chunk, dtype):
     """Every K, V, chunk and dtype the wrapper takes gets a plan that fits
-    in shared memory (VB narrowed where needed) and agrees with the plain
-    version."""
+    in shared memory (VB narrowed, or the chunk cut in sub-blocks, where
+    needed) and agrees with the plain version."""
     q, k, v, ld, u = _smoke_inputs(cuda, (1, 2, 2 * chunk, dk, dv), True,
                                    "model", dtype, seed=dk + dv + chunk)
     plan = _check_rwkv(q, k, v, ld, u, chunk)
-    assert plan["smem"] <= 232448 and plan["vb"] <= min(32, dv)
+    assert plan["smem"] <= 232448 and plan["vb"] <= 32
+    assert plan["vb"] <= max(8, 1 << (dv - 1).bit_length())
+    assert plan["cs"] <= min(chunk, kr.MAX_SUB)
 
 
 def test_rwkv6_ring_ignores_the_stride_of_a_size_one_dim(cuda):
@@ -727,8 +824,8 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
         kr.rwkv6_fused(q, k.to(torch.bfloat16), v, ld, chunk=16)
     with pytest.raises(ValueError, match="shape"):
         kr.rwkv6_fused(q, k[:, :, :16], v, ld, chunk=16)
-    with pytest.raises(ValueError, match="K=24"):
-        wide = torch.zeros(1, 2, 32, 24, device=cuda)
+    with pytest.raises(ValueError, match="K=257"):
+        wide = torch.zeros(1, 2, 32, 257, device=cuda)
         kr.rwkv6_fused(wide, wide, v, wide, chunk=16)
     with pytest.raises(ValueError, match="chunk"):
         kr.rwkv6_fused(q, k, v, ld, chunk=128)
@@ -740,6 +837,60 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="vb"):
         kr.rwkv6_fused(q, k, v, ld, chunk=16, vb=12)
     assert kr.launches == before
+
+
+# ---------------------------------------------------------------------------
+# coverage: every K, V, chunk and dtype the recurrence kernel takes
+# ---------------------------------------------------------------------------
+
+# (T, K, V, chunk): the CPU coverage tests' shapes, K / V off powers of two,
+# odd and at the ends of the range, chunks above 64 in sub-blocks (ragged
+# ones too) and a chunk of the whole sequence
+COVER_RWKV = [(256, 24, 40, 128), (256, 256, 16, 256), (256, 64, 128, 128),
+              (256, 100, 36, 32), (200, 7, 1, 100), (130, 256, 256, 65),
+              (96, 1, 7, 96), (2048, 64, 64, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("exclusive", [True, False],
+                         ids=["bonus", "inclusive"])
+@pytest.mark.parametrize("t,dk,dv,chunk", COVER_RWKV,
+                         ids=[f"t{t}-k{a}-v{b}-c{c}"
+                              for t, a, b, c in COVER_RWKV])
+def test_coverage_rwkv6_kernel_matches_plain(cuda, t, dk, dv, chunk,
+                                             exclusive, with_state, dtype):
+    """The fused kernel against its plain version over the coverage
+    shapes, in every dtype: float32 within 1e-4, 16-bit within one ulp of
+    the output, final S within 1e-4.  The chunk of the whole sequence
+    (2048) runs on decays a tenth as steep, so that its exponentials stay
+    in float32's range, as the reference's would not otherwise."""
+    q, k, v, ld, u = _rwkv_inputs(cuda, 1, 2, t, dk, dv, seed=t + dk + dv,
+                                  bonus=exclusive)
+    if chunk > 256:
+        ld = ld * 0.1
+    q, k, v, ld = (x.to(dtype) for x in (q, k, v, ld))
+    s0 = torch.randn(2, dk, dv, device=cuda) if with_state else None
+    plan = _check_rwkv(q, k, v, ld, u, chunk, s0)
+    assert plan["chunk"] == chunk and plan["cs"] <= min(chunk, kr.MAX_SUB)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dk,dv,chunk", [(24, 40, 128), (100, 36, 32),
+                                         (64, 128, 128)])
+def test_coverage_rwkv6_split_heads_views(cuda, dk, dv, chunk, dtype):
+    """The model's ``split_heads`` views of (B, T, H·D) tensors at the new
+    shapes (rows off 16 bytes where H·D is, then direct loads)."""
+    b, t, h = 2, 256, 4
+    g = torch.Generator(device="cpu").manual_seed(dk + dv)
+    flat = [torch.randn(b, t, h * d, generator=g).to(cuda, dtype)
+            for d in (dk, dk, dv, dk)]
+    flat[3] = torch.log(0.3 + 0.7 * torch.rand(b, t, h * dk, generator=g)
+                        ).to(cuda, dtype)
+    q, k, v, ld = (x.view(b, t, h, -1).transpose(1, 2) for x in flat)
+    assert not q.is_contiguous()
+    u = torch.randn(h, dk, device=cuda) * 0.1
+    _check_rwkv(q, k, v, ld, u, chunk)
 
 
 def test_rwkv6_cuda_prefill_never_precomputes_inputs(cuda, monkeypatch):
@@ -1452,31 +1603,83 @@ def test_dtensor_redistribute_under_gloo_on_cuda(cuda, tmp_path):
 # RunConfig's chunk 128 and serving under a mesh (ROADMAP 6c, 6d)
 # ---------------------------------------------------------------------------
 
+def _fault1_case(cuda, shape, exclusive, dtype, seed):
+    """``ops.rwkv6_mix_state`` at chunk 128 on ``shape`` (B, H, T, K, V)
+    with an initial state: the kernel launches once at 128 (``last_plan``),
+    forward and final S match the plain version at 128, and the grads of q,
+    k, v, log decay, bonus and S0 (the Function's backward, the chunk scan
+    at 128) match autograd through ``chunked_linear_attention_scan`` at 128
+    alone.  float32 1e-4; bf16 output within one bf16 ulp (grads in
+    float32 only)."""
+    from repro_torch.models.ssm import chunked_linear_attention_scan
+    b, h, t, dk, dv = shape
+    q, k, v, ld, u = _rwkv_inputs(cuda, b, h, t, dk, dv, seed=seed,
+                                  bonus=exclusive)
+    q, k, v, ld = (x.to(dtype) for x in (q, k, v, ld))
+    s0 = torch.randn(b, h, dk, dv, device=cuda)
+    ins = (q, k, v, ld, u, s0)
+    before = kr.launches
+    if dtype != torch.float32:
+        out, S = ops.rwkv6_mix_state(q, k, v, ld, bonus=u, chunk=128,
+                                     initial_state=s0)
+        torch.cuda.synchronize()
+        assert kr.launches == before + 1 and kr.last_plan["chunk"] == 128
+        ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=128,
+                                          initial_state=s0)
+        diff = (out.float() - ref.float()).abs()
+        assert (diff <= bf16_bound(ref.float())).all(), diff.max().item()
+        torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+        return
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    ws = (torch.randn(b, h, t, dv, generator=g).to(cuda),
+          torch.randn(b, h, dk, dv, generator=g).to(cuda))
+    (out, S), got = _grads(lambda *x: ops.rwkv6_mix_state(
+        *x[:4], bonus=x[4], chunk=128, initial_state=x[5]), ins, ws)
+    torch.cuda.synchronize()
+    assert kr.launches == before + 1 and kr.last_plan["chunk"] == 128
+    (rout, rS), want = _grads(lambda *x: chunked_linear_attention_scan(
+        *x[:4], bonus=x[4], chunk=128, initial_state=x[5]), ins, ws)
+    assert kr.launches == before + 1      # the recompute launches nothing
+    torch.testing.assert_close(out, rout, atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(S, rS, atol=F32_TOL, rtol=F32_TOL)
+    for gr, r in zip(got, want):
+        if r is not None:
+            assert torch.isfinite(gr).all()
+            torch.testing.assert_close(gr, r, atol=F32_TOL, rtol=F32_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("exclusive", [True, False],
                          ids=["rwkv6", "inclusive"])
 def test_rwkv6_kernel_at_run_config_chunk(cuda, exclusive, dtype):
-    """``ops.rwkv6_mix_state`` at chunk 128 (``RunConfig``'s, above the
-    kernel's ``MAX_CHUNK``) launches the kernel at 64 (``last_plan``) and
-    matches the plain version at chunk 128 on the same inputs: float32
-    within 1e-4 (output and final state), bf16 within one bf16 ulp."""
-    q, k, v, ld, u = _rwkv_inputs(cuda, 2, 4, 512, 64, 64, seed=128,
-                                  bonus=exclusive)
-    q, k, v, ld = (x.to(dtype) for x in (q, k, v, ld))
-    s0 = torch.randn(2, 4, 64, 64, device=cuda)
-    before = kr.launches
-    out, S = ops.rwkv6_mix_state(q, k, v, ld, bonus=u, chunk=128,
-                                 initial_state=s0)
+    """Fault 1's test: the recurrence at ``RunConfig``'s chunk 128 runs its
+    forward and its backward at 128, as the reference does (the kernel
+    once ran 64 and the backward recomputed at 128)."""
+    _fault1_case(cuda, (2, 4, 512, 64, 64), exclusive, dtype, 128)
+
+
+def test_rwkv6_run_config_chunk_at_zamba2_shape(cuda):
+    """Fault 1's test at zamba2-2.7b's full-width Mamba2 call (B 4, 40
+    heads, T 2048, K 64, V 128, inclusive, float32)."""
+    _fault1_case(cuda, (4, 40, 2048, 64, 128), False, torch.float32, 2048)
+
+
+def test_rwkv6_chunk_128_on_rwkv6_3b_decays(cuda):
+    """Recorded, not gated: on rwkv6-3b's full-width random decays
+    (-exp(N(-0.5, 1)), clamped at -4 a step) the reference's own chunk-128
+    exponentials leave float32's range; whether the kernel's and the plain
+    version's outputs are finite is printed."""
+    shape = (4, 40, 2048, 64, 64)
+    q, k, v, ld, u = _smoke_inputs(cuda, shape, True, "model",
+                                   torch.bfloat16, seed=3)
+    out, S = kr.rwkv6_fused(q, k, v, ld, bonus=u, chunk=128)
+    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=128)
     torch.cuda.synchronize()
-    assert kr.launches == before + 1 and kr.last_plan["chunk"] == 64
-    ref, ref_S = kr.rwkv6_fused_plain(q, k, v, ld, bonus=u, chunk=128,
-                                      initial_state=s0)
-    if dtype == torch.bfloat16:
-        diff = (out.float() - ref.float()).abs()
-        assert (diff <= bf16_bound(ref.float())).all(), diff.max().item()
-    else:
-        torch.testing.assert_close(out, ref, atol=F32_TOL, rtol=F32_TOL)
-    torch.testing.assert_close(S, ref_S, atol=F32_TOL, rtol=F32_TOL)
+    print(f"rwkv6-3b decays at chunk 128: kernel output finite "
+          f"{bool(torch.isfinite(out.float()).all())}, S finite "
+          f"{bool(torch.isfinite(S).all())}; plain output finite "
+          f"{bool(torch.isfinite(ref.float()).all())}, S finite "
+          f"{bool(torch.isfinite(ref_S).all())}; plan {kr.last_plan}")
 
 
 RUN_CONFIG_ARCHS = {"rwkv6-3b": {}, "zamba2-2.7b": {"num_layers": 4}}
@@ -1513,7 +1716,7 @@ def _run_config_rank(rank, world, arch):
         got = got.full_tensor()
     torch.cuda.synchronize()
     return {"chunk": ctx.ssm_chunk, "launches": (plain_launches, kr.launches),
-            "kernel_chunk": (plain_chunk, kr.last_plan["chunk"]),
+            "launched_chunk": (plain_chunk, kr.last_plan["chunk"]),
             "err": (got - want).abs().max().item(),
             "bit_exact": torch.equal(got, want), "layers": cfg.num_layers}
 
@@ -1521,7 +1724,7 @@ def _run_config_rank(rank, world, arch):
 @pytest.mark.parametrize("arch", list(RUN_CONFIG_ARCHS))
 def test_run_config_chunk_on_a_one_rank_mesh(cuda, arch, tmp_path):
     """``make_context(mesh, cfg, RunConfig())`` keeps chunk 128; the
-    forward runs the recurrence kernel once a layer at chunk 64, with no
+    forward runs the recurrence kernel once a layer at chunk 128, with no
     fallback, and equals the forward with no mesh at chunk 128 (within
     1e-6, bit-exactness printed)."""
     from repro_torch.testing import run_ranks
@@ -1531,7 +1734,7 @@ def test_run_config_chunk_on_a_one_rank_mesh(cuda, arch, tmp_path):
           f" bit-exact {r['bit_exact']}")
     assert r["chunk"] == 128
     assert r["launches"] == (r["layers"], r["layers"])
-    assert r["kernel_chunk"] == (64, 64)
+    assert r["launched_chunk"] == (128, 128)
     assert r["err"] <= 1e-6
 
 

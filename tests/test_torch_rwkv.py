@@ -324,7 +324,7 @@ def _refusal_cases():
     """(name, arguments of rwkv6_fused, message): each refused before the
     device is looked at, so the CPU can check them."""
     q, k, v, ld, u = (_t(x) for x in _seq_inputs(1, 32, 16, 16, b=1, h=2))
-    wide = torch.zeros(1, 2, 32, 24)
+    wide = torch.zeros(1, 2, 32, 257)
     return [
         ("mixed-dtypes", (q, k.double(), v, ld), {}, "one dtype"),
         ("float64", (q.double(), k.double(), v.double(), ld.double()), {},
@@ -332,8 +332,8 @@ def _refusal_cases():
         ("mixed-bf16", (q.to(torch.bfloat16), k, v, ld), {}, "one dtype"),
         ("inner-stride", (q.transpose(2, 3).contiguous().transpose(2, 3), k,
                           v, ld), {}, "inner stride"),
-        ("k24", (wide, wide, v, wide), {}, "K=24"),
-        ("v24", (q, k, torch.zeros(1, 2, 32, 24), ld), {}, "V=24"),
+        ("k257", (wide, wide, v, wide), {}, "K=257"),
+        ("v257", (q, k, torch.zeros(1, 2, 32, 257), ld), {}, "V=257"),
         ("shape", (q, k[:, :, :16], v, ld), {}, "shape"),
         ("chunk-128", (q, k, v, ld), {"chunk": 128}, "chunk"),
         ("chunk-not-dividing", (q, k, v, ld), {"chunk": 5}, "chunk"),
@@ -357,6 +357,22 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(case):
     with pytest.raises(ValueError, match=msg):
         kr.rwkv6_fused(*args, **kw)
     assert kr.launches == before
+
+
+@pytest.mark.parametrize("dk,dv,t,chunk", [(24, 16, 32, 16),
+                                            (16, 24, 32, 16),
+                                            (16, 16, 256, 128)],
+                         ids=["k24", "v24", "chunk-128"])
+def test_fused_wrapper_takes_what_it_once_refused(dk, dv, t, chunk):
+    """K and V off powers of two and chunks above 64 (RunConfig's 128),
+    which the kernel once refused: every check passes, and the wrapper
+    stops only at the CPU tensor."""
+    q, k, v, ld, _ = (_t(x) for x in _seq_inputs(1, t, dk, dv, b=1, h=2))
+    before = kr.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kr.rwkv6_fused(q, k, v, ld, chunk=chunk)
+    assert kr.launches == before
+    assert kr.plan(dk, dv, chunk, 4)["chunk"] == chunk
 
 
 def test_cpu_dispatch_never_calls_the_kernel_wrapper(monkeypatch):
@@ -470,11 +486,19 @@ def test_fused_plain_matches_reference(chunk, decay, with_bonus, with_state,
         assert (np.abs(got - ref) <= ulp).all(), np.abs(got - ref).max()
 
 
-@pytest.mark.parametrize("t,chunk", [(12, 8), (12, 5), (256, 128), (12, 0),
-                                     (65, 65)])
+@pytest.mark.parametrize("t,chunk", [(12, 8), (12, 5), (256, 96), (12, 0),
+                                     (65, 10)])
 def test_check_chunk_refuses(t, chunk):
     with pytest.raises(ValueError, match="chunk"):
         kr.check_chunk(t, chunk)
+
+
+@pytest.mark.parametrize("t,chunk", [(256, 128), (65, 65), (2048, 2048),
+                                     (300, 100)])
+def test_check_chunk_takes_every_divisor(t, chunk):
+    """Every chunk that divides T, as the Pallas kernel takes it: above 64
+    rows the kernel runs the chunk in sub-blocks."""
+    kr.check_chunk(t, chunk)
 
 
 def test_check_chunk_takes_every_chunk_the_model_path_fits():
@@ -493,26 +517,32 @@ def test_fit_chunk_matches_reference():
 
 
 @pytest.mark.parametrize("t", [2048, 1024, 96, 12])
-def test_kernel_chunk_of_run_configs_chunk(t):
+def test_launched_chunk_of_run_configs_chunk(t, monkeypatch):
     """``RunConfig``'s chunk 128 (``make_context``'s) through the model
-    path's ``_fit_chunk`` and then ``kernel_chunk``, the chunk the CUDA path
-    hands the kernel: at most ``MAX_CHUNK``, a divisor of the chunk asked
-    for and of T, and the largest such divisor; a pure function of the
-    shapes, which ``check_chunk`` takes.  At T 2048: 128, run at 64."""
+    path's ``_fit_chunk`` is the chunk the recurrence's op is handed, the
+    one its forward runs and its backward recomputes at: the kernel takes
+    every chunk that divides T (its plan runs a chunk above 64 in
+    sub-blocks), so nothing shrinks it on the card.  At T 2048: 128."""
     from repro_torch.configs import RunConfig
     asked = TT._fit_chunk(t, RunConfig().ssm_chunk)
     assert asked == JT._fit_chunk(t, 128)
-    got = kr.kernel_chunk(t, asked)
-    assert got <= kr.MAX_CHUNK and asked % got == 0 and t % got == 0
-    assert got == max(d for d in range(1, kr.MAX_CHUNK + 1)
-                      if asked % d == 0)
-    kr.check_chunk(t, got)
+    seen, op = [], ops.rwkv6_fused_op
+
+    def probe(q, k, v, ld, bonus, s0, chunk):
+        seen.append(chunk)
+        return op(q, k, v, ld, bonus, s0, chunk)
+
+    monkeypatch.setattr(ops, "rwkv6_fused_op", probe)
+    q, k, v, ld, u = (_t(x) for x in _seq_inputs(t, t, 8, 8, b=1, h=2))
+    q.requires_grad_()
+    out, _ = ops.rwkv6_mix_state(q, k, v, ld, bonus=u, chunk=asked)
+    out.sum().backward()
+    assert seen == [asked]
+    kr.check_chunk(t, asked)
+    plan = kr.plan(8, 8, asked, 2)
+    assert plan["chunk"] == asked and plan["cs"] == min(asked, kr.MAX_SUB)
     if t == 2048:
-        assert (asked, got) == (128, 64)
-    for chunk in (16, 64):
-        assert kr.kernel_chunk(128, chunk) == chunk
-    with pytest.raises(ValueError, match="chunk"):
-        kr.kernel_chunk(100, 128)
+        assert asked == 128
 
 
 @pytest.mark.parametrize("with_bonus", [False, True],
