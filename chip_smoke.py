@@ -327,8 +327,13 @@ Phases, in order; any failure exits non-zero before the result line:
   6b. coverage — each shape and dtype the kernels took last, once at full
                size against its plain version, then timed with its bound:
                attention at B 4, S 2048, 32 / 8 heads of 48 (wgmma at the
-               64 width), 100, 256 and 320 (the split kernel) in bf16 and
-               float16, with SDPA beside; the recurrence at K 24, V 40
+               64 width), 100 and 150 (the column-block kernel by cp.async:
+               200- and 300-byte rows; at 150 the 3-box instance, which
+               spills in bf16 only), 256 and 320 (the column-block kernel
+               by TMA) in bf16
+               and float16, 512 in bf16, and 128 in bf16 on rows off 16
+               bytes (cp.async), each row's variant asserted, with SDPA
+               beside; the recurrence at K 24, V 40
                (float32, a bonus) and at zamba2-2.7b's Mamba2 call, both at
                RunConfig's chunk 128 (two sub-blocks of 64 rows); and,
                recorded only, whether rwkv6-3b's random decays stay finite
@@ -465,13 +470,20 @@ NEMOTRON_ATTN = (1, PROMPT, 96, 8, 192)
 # Phase 6b: the shapes the kernels took last (any head_dim in float32, bf16
 # and float16; any K / V and any chunk that divides T), each once at full
 # size against its plain version and timed: attention at B 4, S 2048, 32 /
-# 8 heads of COVER_HEAD_DIMS in bf16 and float16; the recurrence at K 24,
+# 8 heads, COVER_ATTN_CASES (head_dim, dtype, rows 16-byte aligned or one
+# element off, the variant it must take); the recurrence at K 24,
 # V 40 (B 4, 40 heads, T 2048, float32, a bonus) and at zamba2-2.7b's
 # Mamba2 call, both at RunConfig's chunk COVER_CHUNK; and, recorded only,
 # rwkv6-3b's random decays at that chunk, which overflow float32 in the
 # reference's formulation too
 COVER_ATTN = (BATCH, PROMPT, 32, 8)
-COVER_HEAD_DIMS = (48, 100, 256, 320)
+COVER_ATTN_CASES = (
+    *((hd, dtype, True, variant) for hd, variant in (
+        (48, "wgmma_tma"), (100, "wgmma_cp_async"), (150, "wgmma_cp_async"),
+        (256, "wgmma_cols"), (320, "wgmma_cols"))
+        for dtype in ("bfloat16", "float16")),
+    (512, "bfloat16", True, "wgmma_cols"),
+    (128, "bfloat16", False, "wgmma_cp_async"))
 COVER_RWKV = (BATCH, 40, PROMPT, 24, 40)
 COVER_CHUNK = 128
 # the head dims whose variant and shared memory the build logs
@@ -539,10 +551,11 @@ DIST_WORLD, PROBE_BYTES, DIST_WARMUP, DIST_TIMED = 4, 64 << 20, 1, 1
 EP_LAYERS, EP_FACTOR = 2, 16.0
 # Phase 4h (5), (6): the ssm and hybrid families' sharded train steps on
 # (data 2, model 2).  Cut from 4 x 2048 to 4 x 1024, then in depth:
-# rwkv6-3b to 4 of 32 layers (cut further for the script's time limit
-# once phase 4h gained steps 7-10, and again when phase 6b came and slower
-# hosts took the script to its limit), zamba2-2.7b to 12 of 54 (two
-# groups, so x0 is carried and the shared block runs twice).  The four
+# rwkv6-3b to 2 of 32 layers (cut further each time the script grew:
+# phase 4h's steps 7-10, phase 6b, and a slow host that took it to 1,189
+# s of its 1,200), zamba2-2.7b to 12 of 54 (two groups, so x0 is carried
+# into the second and the tied shared block runs twice: the only card run
+# that trains the hybrid past its first group, so never cut below).  The four
 # ranks share the card's 80 GB, and each holds its shards of the float32
 # masters, grads and AdamW moments, which the functional update holds
 # twice at a step's end: at full depth rwkv6-3b's ranks ran out of the
@@ -560,7 +573,7 @@ SSM_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
 SSM_BATCH, SSM_SEQ, SSM_REMAT = 4, 1024, "full"
 SSM_CHUNK = {"rwkv6-3b": 16, "zamba2-2.7b": 128}
 SSM_WARMUP, SSM_TIMED = 1, 1
-SSM_LAYERS = {"rwkv6-3b": 4, "zamba2-2.7b": 12}
+SSM_LAYERS = {"rwkv6-3b": 2, "zamba2-2.7b": 12}
 # the compute dtype of the single-rank gate.  Random Mamba2 blocks amplify
 # rounding: the single rank's own bf16 grads sit as far from its float32
 # grads as the grads are long, and their norm lands 0.2% to 67% from
@@ -578,30 +591,30 @@ SSM_WITNESS_BATCHES = (0, 1)
 # (data 2, model 2).  Whisper-base at full width and depth: 16 requests of
 # 1500 frames (n_audio_ctx) and 448 decoder tokens (n_text_ctx), remat
 # none.  Phi-3-vision-4.2b at full width, 4 x 1024 with 256 patch
-# embeddings, remat full, cut from 32 to 4 layers: at about 28 bytes a
+# embeddings, remat full, cut from 32 to 2 layers: at about 28 bytes a
 # parameter summed over the ranks at the functional update's end (masters,
 # grads, two moments, the update's second copy), 32 layers would need
 # about 117 GB of the card's 80.  At 12 layers the ranks' summed peak was
 # 60 GiB: the step ran alone, but after phase 4h's earlier steps the card
-# ran out of memory (the cause is not broken down); 4 layers keep the
-# script inside its limit on slower hosts too (8, 1.10 B parameters with
-# the embeddings, ran until phase 6b came)
+# ran out of memory (the cause is not broken down); 2 layers keep the
+# script inside its limit on slower hosts too (8 ran until phase 6b came,
+# 4 until a slow host took the script to 1,189 s)
 MESH_TRAIN = {"whisper-base": dict(layers=None, batch=16, seq=448,
                                    frames=1500, remat="none", launches=18,
                                    variant="wgmma_tma"),
-              "phi-3-vision-4.2b": dict(layers=4, batch=4, seq=1024,
+              "phi-3-vision-4.2b": dict(layers=2, batch=4, seq=1024,
                                         patches=256, remat="full",
                                         variant="wgmma_tma")}
 MESH_TRAIN_WARMUP, MESH_TRAIN_TIMED = 1, 1
 # Phase 4h (9), (10): serving on (data 2, model 2): tinyllama-1.1b's phase
 # 4 prompt and whisper-base's phase 4f shape; greedy decode steps cut from
-# 32 to 4 for gloo's host-staged collectives (each step runs a few a
+# 32 to 2 for gloo's host-staged collectives (each step runs a few a
 # layer, about 1.4 s a tinyllama step) and the script's time limit
 MESH_SERVE = {"tinyllama-1.1b": dict(batch=4, prompt=2048, max_len=2056,
                                      launches=22),
               "whisper-base": dict(batch=16, prompt=224, frames=1500,
                                    max_len=1536, launches=18)}
-MESH_DECODE = 4
+MESH_DECODE = 2
 # Phase 7: the dry run.  Its cells run in one background process started
 # after the build (fake tensors: no allocation, no launch; the process
 # needs only the host's CPU), while the card runs phases 3-6; phase 7 waits
@@ -929,12 +942,12 @@ def bf16_bound(ref):
 def log_ptxas(name: str, text: str) -> None:
     """Log a kernel source's -Xptxas -v report: each entry function (one
     per variant) with its registers, stack and spills, and any wgmma
-    serialisation warning (C7512, which names its function)."""
+    serialisation warning (C7512, C7515: each names its function)."""
     for line in text.splitlines():
         entry = re.search(r"entry function '(\S+)'", line)
         if entry:
             log(f"ptxas {name}: {entry.group(1)}")
-        elif "registers" in line or "spill" in line or "C7512" in line:
+        elif "registers" in line or "spill" in line or "(C751" in line:
             log(f"ptxas {name}:   {line.strip()}")
 
 
@@ -1245,50 +1258,58 @@ def coverage_phase(dev, smi: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(31)
     rows = {"flash_attention": [], "rwkv6_chunked": []}
     b, s, hq, hkv = COVER_ATTN
-    for hd in COVER_HEAD_DIMS:
-        for dtype in (torch.bfloat16, torch.float16):
-            q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
-                       .to(dtype) for h in (hq, hkv, hkv))
-            before = fa.launches
-            out = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            row = {"shape": f"B {b}, S {s}, {hq} / {hkv} heads of {hd}, "
-                            f"{str(dtype)[6:]}, causal",
-                   "variant": fa.last_variant,
-                   "launches": fa.launches - before}
-            ref = fa.flash_attention_plain(q, k, v, True, None)
-            diff = (out.float() - ref.float()).abs()
-            ulp = (bf16_bound(ref.float()) if dtype == torch.bfloat16 else
-                   torch.exp2(torch.floor(torch.log2(
-                       ref.float().abs().clamp_min(1e-30))) - 10)
-                   .clamp_min(2 ** -10))
-            ok = bool(torch.isfinite(out.float()).all()
-                      and (diff <= ulp).all())
-            row["max_abs_err"] = diff.max().item()
-            del out, ref, diff, ulp
-            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
-            row["plain_ms"] = time_ms(
-                lambda: fa.flash_attention_plain(q, k, v, True, None),
-                iters=3)
-            g = hq // hkv
-            qh = q.transpose(1, 2).contiguous()
-            kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2)
-                      .contiguous() for t in (k, v))
-            row["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh,
-                                                     is_causal=True))
-            row["bound_ms"], row["bound_by"] = bound(q, k, v, True, None)
-            log(f"6b flash_attention {row['shape']} ({row['variant']}): "
-                f"max_abs_err {row['max_abs_err']:.3e} (tol one ulp of the "
-                f"output) {'ok' if ok else 'MISMATCH'}; kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"library {row['library_ms']:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
-            if not ok:
-                fail(f"6b flash_attention at head_dim {hd} {dtype}: kernel "
-                     f"disagrees with its plain version")
-            rows["flash_attention"].append(row)
-            del q, k, v, qh, kh, vh
-            torch.cuda.empty_cache()
+    for hd, dtype_name, aligned, want in COVER_ATTN_CASES:
+        dtype = getattr(torch, dtype_name)
+        off = 0 if aligned else 1      # a view one element in
+        q, k, v = (torch.randn((b * s * h * hd + off,), generator=gen,
+                               device=dev).to(dtype)[off:]
+                   .view(b, s, h, hd) for h in (hq, hkv, hkv))
+        before = fa.launches
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        row = {"shape": f"B {b}, S {s}, {hq} / {hkv} heads of {hd}, "
+                        f"{dtype_name}, causal"
+                        + ("" if aligned else ", rows off 16 bytes"),
+               "variant": fa.last_variant,
+               "plan": fa.last_plan,
+               "launches": fa.launches - before}
+        if row["variant"] != want:
+            fail(f"6b flash_attention at head_dim {hd} {dtype_name} "
+                 f"(aligned {aligned}) ran {row['variant']}, not {want}")
+        ref = fa.flash_attention_plain(q, k, v, True, None)
+        diff = (out.float() - ref.float()).abs()
+        ulp = (bf16_bound(ref.float()) if dtype == torch.bfloat16 else
+               torch.exp2(torch.floor(torch.log2(
+                   ref.float().abs().clamp_min(1e-30))) - 10)
+               .clamp_min(2 ** -10))
+        ok = bool(torch.isfinite(out.float()).all()
+                  and (diff <= ulp).all())
+        row["max_abs_err"] = diff.max().item()
+        del out, ref, diff, ulp
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, True, None),
+            iters=3)
+        g = hq // hkv
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        row["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh,
+                                                 is_causal=True))
+        row["bound_ms"], row["bound_by"] = bound(q, k, v, True, None)
+        log(f"6b flash_attention {row['shape']} ({row['variant']}, "
+            f"plan {row['plan']}): "
+            f"max_abs_err {row['max_abs_err']:.3e} (tol one ulp of the "
+            f"output) {'ok' if ok else 'MISMATCH'}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {smi}")
+        if not ok:
+            fail(f"6b flash_attention at head_dim {hd} {dtype}: kernel "
+                 f"disagrees with its plain version")
+        rows["flash_attention"].append(row)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
     b, h, t, dk, dv = COVER_RWKV
     mb, mh, mt, mk, mv = MAMBA_PATH
     cases = (
@@ -5457,9 +5478,16 @@ def main() -> None:
                         "and 32 on 16-byte rows",
             "mma_fma": "attn_fwd_mma_kernel: float32 head_dim 16 / 32 / 64 "
                        "/ 80 / 96 / 128 / 192 on 16-byte rows",
-            "mma_split": "attn_fwd_split_kernel: every other head_dim in "
-                         "1..512 and dtype, and rows off 16 bytes; O's "
-                         "columns split 128 a CTA"},
+            "mma_split": "attn_fwd_split_kernel: float32 at every other "
+                         "head_dim in 1..512, and on rows off 16 bytes; O's "
+                         "columns split 128 a CTA",
+            "wgmma_cols": "attn_fwd_wgmma_cols_kernel (csrc/"
+                          "flash_attention_cols.cu) by TMA: bf16 and "
+                          "float16 head_dim a multiple of 8 above 192, O in "
+                          "column blocks of 128 or 192 a CTA",
+            "wgmma_cp_async": "attn_fwd_wgmma_cols_kernel by cp.async: "
+                              "every other bf16 and float16 head_dim and "
+                              "layout, rows copied at their own alignment"},
         "coverage": cover["flash_attention"],
         "launches": launches["flash_attention"], "max_abs_err": path_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,

@@ -16,6 +16,7 @@ card and nvcc.
 """
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,11 +34,11 @@ SHAPES = {"zamba2-2.7b": (4, 2048, 32, 32, 80),
           "phi-3-vision-4.2b": (4, 2048, 32, 32, 96)}
 # the source's PV product at N = head_dim -> at N = 64 x boxes
 N128 = (("float (&o)[HD / 2], const uint32_t (&a_hi)",
-         "float (&o)[32 * Plan<HD>::NBOX], const uint32_t (&a_hi)"),
-        ("wgmma_rs<HD>(o, a_hi[kt], db);",
-         "wgmma_rs<64 * Plan<HD>::NBOX>(o, a_hi[kt], db);"),
-        ("wgmma_rs<HD>(o, a_lo[kt], db);",
-         "wgmma_rs<64 * Plan<HD>::NBOX>(o, a_lo[kt], db);"),
+         "float (&o)[32 * ((HD + 63) / 64)], const uint32_t (&a_hi)"),
+        ("wgmma_rs<T, HD>(o, a_hi[kt], db);",
+         "wgmma_rs<T, 64 * ((HD + 63) / 64)>(o, a_hi[kt], db);"),
+        ("wgmma_rs<T, HD>(o, a_lo[kt], db);",
+         "wgmma_rs<T, 64 * ((HD + 63) / 64)>(o, a_lo[kt], db);"),
         ("float o[HD / 2];", "float o[32 * P::NBOX];"),
         ("for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;",
          "for (int i = 0; i < 32 * P::NBOX; ++i) o[i] = 0.f;"),
@@ -47,7 +48,12 @@ N128 = (("float (&o)[HD / 2], const uint32_t (&a_hi)",
 
 def compile_all() -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
-    text = (build.CSRC / "flash_attention.cu").read_text()
+    # the shared header inlined, so that both copies build outside csrc/ and
+    # the PV product it holds is patched too
+    text = (build.CSRC / "flash_attention.cu").read_text().replace(
+        '#include "flash_attention.cuh"',
+        (build.CSRC / "flash_attention.cuh").read_text()
+        .replace("#pragma once\n", ""))
     variants = {"n=hd": text, "n128": text}
     for old, new in N128:
         if variants["n128"].count(old) != 1:
@@ -69,10 +75,13 @@ def compile_all() -> dict:
         entry = None
         for line in out.splitlines():
             if "Compiling entry" in line:
-                entry = line.split("wgmma_kernelILi")[1].split("E")[0] \
-                    if "wgmma_kernel" in line else None
+                m = re.search(r"attn_fwd_wgmma_kernelI\d+(__nv_bfloat16|__half)"
+                              r"Li(\d+)ELb([01])", line)
+                entry = (f"{m[1].strip('_')} {m[2]}"
+                         f"{' (hd = width)' if m[3] == '1' else ''}"
+                         if m else None)
             elif entry and ("registers" in line or "spill" in line):
-                print(f"{name} hd {entry}: {line.strip()}")
+                print(f"{name} {entry}: {line.strip()}")
         libs[name] = ctypes.CDLL(str(OUT / f"{name.replace('=', '_')}.so"))
     return libs
 

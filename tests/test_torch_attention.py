@@ -197,7 +197,7 @@ def _layout(b=2, s=64, hq=8, hkv=2, hd=64, elt=2, fused=False):
     (4, 16, "mma_fma"), (4, 32, "mma_fma"), (4, 64, "mma_fma"),
     (4, 80, "mma_fma"), (4, 96, "mma_fma"), (4, 128, "mma_fma"),
     (4, 192, "mma_fma"),
-    (2, 48, "wgmma_tma"), (2, 256, "mma_split"),
+    (2, 48, "wgmma_tma"), (2, 256, "wgmma_cols"),
 ])
 @pytest.mark.parametrize("fused", [False, True], ids=["contiguous", "fused"])
 def test_check_layout_names_the_variant(elt, hd, variant, fused):
@@ -215,6 +215,10 @@ def test_check_layout_names_the_variant(elt, hd, variant, fused):
     ("stride of 2**40 bytes", "2\\*\\*40"),
 ])
 def test_check_layout_refuses_what_a_tma_map_cannot_take(case, match):
+    """Head dims out of range, a last stride other than 1 and strides a TMA
+    map cannot hold (0, 2**40 bytes) raise, naming the limit; rows off 16
+    bytes, which a TMA map cannot take either, are not refused: they go to
+    the column-block kernel's cp.async route."""
     shapes, strides, bases = _layout()
     strides = [list(st) for st in strides]
     if case.startswith("head_dim"):
@@ -230,6 +234,9 @@ def test_check_layout_refuses_what_a_tma_map_cannot_take(case, match):
         strides[1][2] = 0                       # k broadcast over its heads
     else:
         strides[0][0] = 2 ** 39                 # q's batch stride: 2**40 bytes
+    if match == "16-byte":
+        assert fa.check_layout(shapes, strides, 2, bases) == "wgmma_cp_async"
+        return
     with pytest.raises(ValueError, match=match):
         fa.check_layout(shapes, strides, 2, bases)
 

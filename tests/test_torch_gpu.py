@@ -78,8 +78,8 @@ pytestmark = pytest.mark.gpu
 F32_TOL = 1e-4
 # the coverage lists: head dims and K / V the kernels are held at, across
 # every variant and the ranges' ends
-HEAD_DIMS = (1, 8, 16, 24, 32, 48, 64, 72, 80, 96, 100, 128, 192, 200, 256,
-             320, 512)
+HEAD_DIMS = (1, 8, 16, 24, 32, 48, 64, 72, 80, 96, 99, 100, 128, 192, 200,
+             256, 264, 320, 384, 512)
 KV_DIMS = (1, 7, 8, 16, 24, 32, 40, 64, 100, 128, 200, 256)
 PLAN_DIMS = (1, 7, 24, 64, 128, 256)    # K x V x chunk x dtype: the plans
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -224,7 +224,8 @@ def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
     """The C side's variant() and the wrapper's check_layout name the same
     variant for every (dtype, head_dim), on 16-byte rows and, where the
     wrapper takes them, on rows off 16 bytes; the split kernel's shared
-    memory is the one ``split_smem_bytes`` counts."""
+    memory is the one ``split_smem_bytes`` counts, the column-block
+    kernel's the one its ``plan`` counts."""
     q, k, v = _qkv(cuda, 1, 8, 2, 1, hd, dtype)
     named = fa.check_layout([t.shape for t in (q, k, v)],
                             [t.stride() for t in (q, k, v)],
@@ -239,7 +240,11 @@ def test_built_dispatch_matches_check_layout(cuda, hd, dtype):
     assert fa.built_variant(dtype, hd, aligned=False) == off
     if off == "mma_split":
         assert fa.smem_bytes(dtype, hd, aligned=False) == \
-            fa.split_smem_bytes(q.element_size(), hd)
+            fa.split_smem_bytes(hd)
+    for rows16, named_there in ((True, aligned), (False, off)):
+        if named_there in fa.COLS_VARIANTS:
+            assert fa.smem_bytes(dtype, hd, rows16) == fa.plan(
+                hd, 0 if named_there == "wgmma_cols" else 2)["smem"]
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
@@ -293,8 +298,8 @@ def test_coverage_attention_layouts(cuda, hd, dtype, layout):
     """Non-contiguous inputs at the new head dims: views of one fused qkv
     projection (odd head dims leave its rows off 16 bytes), (B, H, S, hd)
     tensors seen as (B, S, H, hd), and views one element into a buffer
-    (rows off 16 bytes: the split kernel takes them, the wgmma kernel's TMA
-    maps refuse them with a ValueError)."""
+    (rows off 16 bytes: the split kernel takes them in float32, the
+    column-block kernel's cp.async route in 16 bits)."""
     b, s, hq, hkv = 2, 257, 8, 2
     g = torch.Generator(device="cpu").manual_seed(hd)
     if layout == "fused":
@@ -311,12 +316,76 @@ def test_coverage_attention_layouts(cuda, hd, dtype, layout):
     named = fa.variant_of(q.element_size(), hd, layout != "offset" and (
         (hq + 2 * hkv if layout == "fused" else 1) * hd
         * q.element_size()) % 16 == 0)
-    if named == "wgmma_tma" and layout == "offset":
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(q, k, v)
-        return
     assert _check(q, k, v) == named
     _check(q, k, v, causal=True, window=100)
+
+
+# the column-block kernel's plan edges (kernels/flash_attention.py::plan):
+# hd 192 (the wgmma kernel's last on 16-byte rows), 200 / 264 the first of
+# two blocks at each width, 256, 320 / 384 the last 64-key and first 32-key
+# tiles, 512; 1 / 99 / 100 the cp.async route's; (Hq, Hkv) GQA 32 / 8, MHA
+COLS_EDGE_DIMS = (1, 99, 100, 192, 200, 256, 264, 320, 384, 512)
+
+
+@pytest.mark.parametrize("heads", [(32, 8), (8, 8)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("mask", list(COVER_MASKS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", COLS_EDGE_DIMS)
+def test_coverage_cols_kernel_at_the_plans_edges(cuda, hd, dtype, mask,
+                                                 heads):
+    """The column-block kernel (by TMA or cp.async; hd 192 on 16-byte rows
+    is the wgmma kernel's) at each edge of its plan, causal, non-causal
+    with Sq 200 != Skv 100 and windowed: within one output ulp of the plain
+    version, through every column block."""
+    causal, window, skv = COVER_MASKS[mask]
+    hq, hkv = heads
+    q, k, v = _qkv(cuda, 1, 200, hq, hkv, hd, dtype, seed=hd, skv=skv)
+    ran = _check(q, k, v, causal=causal, window=window)
+    assert ran == fa.variant_of(2, hd, hd % 8 == 0)
+    if ran in fa.COLS_VARIANTS:
+        assert fa.last_plan == fa.plan(hd, fa.last_plan["align"])
+        assert fa.last_plan["align"] == (0 if ran == "wgmma_cols"
+                                         else fa.row_align(
+                                             [t.shape for t in (q, k, v)],
+                                             [t.stride() for t in (q, k, v)],
+                                             2, [t.data_ptr()
+                                                 for t in (q, k, v)]))
+
+
+def test_coverage_built_variant_at_every_head_dim(cuda):
+    """The library's variant() names what the wrapper's variant_of names
+    for every head_dim 1-512 in every dtype, on 16-byte rows and not."""
+    for dtype in DTYPES:
+        esize = torch.tensor([], dtype=dtype).element_size()
+        for hd in range(1, fa.MAX_HEAD_DIM + 1):
+            for aligned in (True, False):
+                assert fa.built_variant(dtype, hd, aligned) == \
+                    fa.variant_of(esize, hd, aligned), (dtype, hd, aligned)
+
+
+@pytest.mark.parametrize("elements_off", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [16, 64, 100, 128, 192, 256, 512])
+def test_coverage_cp_async_at_every_alignment(cuda, hd, dtype, elements_off):
+    """Views ``elements_off`` 16-bit elements into their buffers (rows on 2,
+    4, 8 bytes; 8 elements is 16 bytes again, the TMA variants'): the
+    cp.async route copies at the rows' own alignment, causal and windowed,
+    GQA 8 / 2, within one output ulp of the plain version."""
+    b, s, hq, hkv = 2, 130, 8, 2
+    g = torch.Generator(device="cpu").manual_seed(hd + elements_off)
+    q, k, v = (torch.randn(b * s * h * hd + elements_off, generator=g)
+               .to(cuda, dtype)[elements_off:].view(b, s, h, hd)
+               for h in (hq, hkv, hkv))
+    align = fa.row_align([t.shape for t in (q, k, v)],
+                         [t.stride() for t in (q, k, v)], 2,
+                         [t.data_ptr() for t in (q, k, v)])
+    if hd % 8 == 0:        # the rows' strides are whole 16-byte units
+        assert align == (16 if elements_off == 8 else 2 * elements_off)
+    named = fa.variant_of(2, hd, align == 16)
+    assert _check(q, k, v) == named
+    _check(q, k, v, causal=True, window=50)
+    if named == "wgmma_cp_async":
+        assert fa.last_plan["align"] == align
 
 
 def test_prefill_launches_once_per_layer_and_matches_cpu(cuda):

@@ -16,13 +16,19 @@ to head_dim 512 and K / V 256.  Seeded numpy inputs go to both packages:
   log U(0.3, 1): output and final state within 1e-5 of their scale, and as
   close to a float64 evaluation as the reference is (the test says why);
 * on the CPU, where no kernel runs, the choices the card makes from the
-  shapes alone: the attention variant ``check_layout`` names, the
-  recurrence's launch plan (the serving paths' plans unchanged, every K, V
-  and chunk in range fitting), and the refusals at the ranges' ends.
+  shapes alone: the attention variant ``check_layout`` names (every 16-bit
+  head_dim on a ``wgmma`` variant, the split kernel float32's alone), the
+  column-block kernel's launch plan at the plan's edges and its fit at
+  every 16-bit head_dim, the rows' alignment its cp.async route copies at,
+  the recurrence's launch plan (the serving paths' plans unchanged, every
+  K, V and chunk in range fitting), and the refusals at the ranges' ends.
 
 On the card the kernels are held against their plain versions over the same
 shapes: ``-m gpu tests/test_torch_gpu.py -k coverage``.
 """
+
+import re
+import shutil
 
 import numpy as np
 import pytest
@@ -97,15 +103,21 @@ def _contiguous(hd, elt, hq=4, hkv=2, b=2, s=64):
     (2, 8, "wgmma_tma"), (2, 24, "wgmma_tma"), (2, 48, "wgmma_tma"),
     (2, 72, "wgmma_tma"), (2, 112, "wgmma_tma"), (2, 184, "wgmma_tma"),
     (2, 16, "mma_sync"), (2, 32, "mma_sync"),
-    (2, 1, "mma_split"), (2, 100, "mma_split"), (2, 200, "mma_split"),
-    (2, 256, "mma_split"), (2, 320, "mma_split"), (2, 512, "mma_split"),
+    (2, 1, "wgmma_cp_async"), (2, 100, "wgmma_cp_async"),
+    (2, 200, "wgmma_cols"), (2, 256, "wgmma_cols"), (2, 320, "wgmma_cols"),
+    (2, 512, "wgmma_cols"),
     (4, 8, "mma_split"), (4, 48, "mma_split"), (4, 100, "mma_split"),
     (4, 256, "mma_split"), (4, 512, "mma_split"), (4, 64, "mma_fma"),
+    (2, 192, "wgmma_tma"), (2, 264, "wgmma_cols"), (2, 384, "wgmma_cols"),
+    (2, 99, "wgmma_cp_async"), (2, 511, "wgmma_cp_async"),
+    (4, 1, "mma_split"), (4, 192, "mma_fma"),
 ])
 def test_check_layout_names_the_variant_at_every_head_dim(elt, hd, variant):
     """The variant each head_dim takes on contiguous q / k / v: 16-bit
     multiples of 8 up to 192 on the wgmma kernel (16 and 32 on mma.sync),
-    the rest and float32 off the seven instances on the split kernel."""
+    above 192 on the column-block kernel by TMA, the other 16-bit head dims
+    (rows off 16 bytes: hd 100 is 200-byte rows) on its cp.async route;
+    float32 off the seven instances on the split kernel."""
     shapes, strides, bases = _contiguous(hd, elt)
     assert fa.check_layout(shapes, strides, elt, bases) == variant
 
@@ -113,24 +125,164 @@ def test_check_layout_names_the_variant_at_every_head_dim(elt, hd, variant):
 @pytest.mark.parametrize("elt,hd", [(4, 64), (4, 192), (2, 16), (2, 32)])
 def test_rows_off_16_bytes_take_the_split_kernel(elt, hd):
     """The mma kernel's head dims on rows off 16 bytes (a view one element
-    into its buffer) go to the split kernel, whose loads are narrower; the
-    wgmma kernel's still raise (its TMA maps need the rule)."""
+    into its buffer): float32 goes to the split kernel, 16-bit to the
+    column-block kernel's cp.async route (no longer the split kernel), as
+    do the wgmma kernel's head dims (which raised before that route: its
+    TMA maps need 16-byte rows)."""
     shapes, strides, bases = _contiguous(hd, elt)
-    assert fa.check_layout(shapes, strides, elt,
-                           [b + elt for b in bases]) == "mma_split"
+    assert fa.check_layout(shapes, strides, elt, [b + elt for b in bases]) \
+        == ("mma_split" if elt == 4 else "wgmma_cp_async")
     shapes, strides, bases = _contiguous(64, 2)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.check_layout(shapes, strides, 2, [b + 2 for b in bases])
+    assert fa.check_layout(shapes, strides, 2, [b + 2 for b in bases]) \
+        == "wgmma_cp_async"
 
 
 def test_split_kernel_fits_at_every_head_dim():
-    """The split kernel's shared memory (Q at hd padded to 64, a K chunk,
-    128 V columns, float32's P rows) fits a CTA from head_dim 1 to 512."""
-    for elt in (2, 4):
-        sizes = [fa.split_smem_bytes(elt, hd)
-                 for hd in range(1, fa.MAX_HEAD_DIM + 1)]
-        assert max(sizes) == sizes[-1] <= kr.MAX_SMEM
-    assert fa.split_smem_bytes(4, 512) == 200704
+    """The split kernel, float32's alone now, lays out Q at hd padded to 64,
+    a K chunk, 128 V columns and the warps' P rows: the count fits a CTA
+    from head_dim 1 to 512, and equals ``split::Plan::bytes`` (the card's
+    ``test_built_dispatch_matches_check_layout`` holds the library to it)
+    at the pinned head dims."""
+    sizes = [fa.split_smem_bytes(hd) for hd in range(1, fa.MAX_HEAD_DIM + 1)]
+    assert max(sizes) == sizes[-1] <= fa.MAX_SMEM
+    assert {hd: fa.split_smem_bytes(hd) for hd in (1, 64, 100, 512)} == {
+        1: 86016, 64: 86016, 100: 102400, 512: 200704}
+
+
+# the column-block kernel's plans at the plan's edges, by route: (boxes,
+# width, keys a tile, stages, bytes, blocks).  By TMA: 200 the first head
+# dim (4 boxes, two blocks of 128), 256, 264 / 320 the first and last of 5
+# boxes (two blocks of 192, 32-key tiles), 328 the first of 8, 392 the
+# first of three blocks, 512.  By cp.async also 1 / 99 / 100 / 128 (2
+# boxes, one block of 128) and 192 (3 boxes, one block of 192).
+COLS_PLANS = {
+    1: (2, 128, 64, 4, 164968, [(0, 1)]),
+    99: (2, 128, 64, 4, 164968, [(0, 99)]),
+    100: (2, 128, 64, 4, 164968, [(0, 100)]),
+    128: (2, 128, 64, 4, 164968, [(0, 128)]),
+    192: (3, 192, 64, 3, 197712, [(0, 192)]),
+    200: (4, 128, 64, 3, 214096, [(0, 128), (128, 72)]),
+    256: (4, 128, 64, 3, 214096, [(0, 128), (128, 128)]),
+    264: (5, 192, 32, 4, 214120, [(0, 192), (192, 72)]),
+    320: (5, 192, 32, 4, 214120, [(0, 192), (192, 128)]),
+    328: (8, 192, 32, 2, 222264, [(0, 192), (192, 136)]),
+    384: (8, 192, 32, 2, 222264, [(0, 192), (192, 192)]),
+    392: (8, 192, 32, 2, 222264, [(0, 192), (192, 192), (384, 8)]),
+    512: (8, 192, 32, 2, 222264, [(0, 192), (192, 192), (384, 128)]),
+}
+
+
+@pytest.mark.parametrize("hd", list(COLS_PLANS))
+def test_cols_plan_at_the_plans_edges(hd):
+    """Each edge's plan on the cp.async route at every copy width and, above
+    192, by TMA; a stage more would not fit (or the ring is at its most)."""
+    boxes, width, bk, stages, smem, blocks = COLS_PLANS[hd]
+    for align in ((0, 16, 8, 2) if hd > 192 else (16, 8, 4, 2)):
+        assert fa.plan(hd, align) == {
+            "boxes": boxes, "width": width, "bk": bk, "stages": stages,
+            "bq": 128, "align": align, "smem": smem, "blocks": blocks}
+    assert (width, bk) == fa.cols_instance(boxes)
+    assert smem == fa.cols_smem_bytes(boxes, width, bk, stages)
+    assert fa.cols_smem_bytes(boxes, width, bk, stages + 1) > fa.MAX_SMEM \
+        or stages == fa.MAX_STAGES
+
+
+def test_every_16_bit_head_dim_runs_on_wgmma_with_a_plan_that_fits():
+    """Every 16-bit head_dim 1-512 on aligned and unaligned rows takes a
+    ``wgmma`` variant, never the split kernel; multiples of 8 on 16-byte
+    rows take a TMA one (16 and 32 aside).  Where the column-block kernel
+    takes it, its plan's boxes hold hd, its blocks cover hd exactly at the
+    instance's width (a multiple of 8, at most 192, the fewest such
+    blocks), its ring has at least two stages, and it fits a CTA's 227
+    KB."""
+    for hd in range(1, fa.MAX_HEAD_DIM + 1):
+        for aligned in (True, False):
+            variant = fa.variant_of(2, hd, aligned)
+            assert variant in ("wgmma_tma", "wgmma_cols", "wgmma_cp_async",
+                               "mma_sync"), (hd, aligned)
+            if aligned and hd % 8 == 0 and hd not in (16, 32):
+                assert variant in ("wgmma_tma", "wgmma_cols"), hd
+            if variant not in fa.COLS_VARIANTS:
+                continue
+            pl = fa.plan(hd, 0 if variant == "wgmma_cols" else 2)
+            width, blocks = pl["width"], pl["blocks"]
+            # the route's least instance that holds hd
+            assert pl["boxes"] in fa.COLS_BOXES[variant]
+            assert 64 * pl["boxes"] >= hd
+            assert all(64 * b < hd for b in fa.COLS_BOXES[variant]
+                       if b < pl["boxes"])
+            assert (width, pl["bk"]) == fa.cols_instance(pl["boxes"])
+            assert width % 8 == 0 and width <= fa.COLS_MAX_WIDTH
+            assert len(blocks) == -(-hd // fa.COLS_MAX_WIDTH)
+            assert [c for c, _ in blocks] == list(range(0, hd, width))
+            assert sum(n for _, n in blocks) == hd
+            assert all(0 < n <= width for _, n in blocks)
+            assert 2 <= pl["stages"] <= fa.MAX_STAGES
+            assert pl["smem"] == fa.cols_smem_bytes(
+                pl["boxes"], width, pl["bk"], pl["stages"])
+            assert pl["smem"] <= fa.MAX_SMEM == 232448
+
+
+@pytest.mark.parametrize("off,stride_pad,align", [
+    (0, 0, 16), (8, 0, 8), (4, 0, 4), (2, 0, 2), (0, 4, 8), (0, 1, 2),
+])
+def test_row_align_is_the_widest_copy_every_row_allows(off, stride_pad,
+                                                       align):
+    """The cp.async route copies at the rows' alignment: a base ``off``
+    bytes off 16, or k's row stride ``stride_pad`` elements (2 bytes each)
+    longer, cut the copies to 8, 4 or 2 bytes."""
+    shapes, strides, bases = _contiguous(64, 2)
+    strides = [list(st) for st in strides]
+    strides[1][1] += stride_pad
+    assert fa.row_align(shapes, strides, 2, [b + off for b in bases]) == align
+    variant = fa.check_layout(shapes, strides, 2, [b + off for b in bases])
+    assert variant == ("wgmma_tma" if align == 16 else "wgmma_cp_async")
+
+
+def test_contiguous_head_dims_off_8_rows_align_as_their_strides_do():
+    """hd 100 rows (200 bytes) start on 8 bytes, odd head dims on 2, hd 68
+    (136 bytes) on 8: the copies the cp.async route makes there."""
+    for hd, align in ((100, 8), (99, 2), (1, 2), (68, 8), (258, 4)):
+        shapes, strides, bases = _contiguous(hd, 2)
+        assert fa.row_align(shapes, strides, 2, bases) == align, hd
+        assert fa.check_layout(shapes, strides, 2, bases) == "wgmma_cp_async"
+
+
+def test_cols_plan_refuses_what_no_instance_takes():
+    """Head dims out of range, copies of no width the rows can have, and a
+    TMA plan where the wgmma kernel takes the head_dim (192 and below)."""
+    with pytest.raises(ValueError, match="head_dim 513"):
+        fa.plan(513)
+    with pytest.raises(ValueError, match="3-byte"):
+        fa.plan(64, 3)
+    with pytest.raises(ValueError, match="head_dim 192, 0-byte"):
+        fa.plan(192, 0)
+
+
+def test_sources_include_only_headers_the_build_hashes(tmp_path,
+                                                      monkeypatch):
+    """Each kernel source is one library and includes only csrc's headers;
+    an edit to a header rebuilds every library, an edit to a source only
+    its own."""
+    from repro_torch.kernels import build
+    assert {"flash_attention", "flash_attention_cols"} <= set(build.sources())
+    for src in build.sources().values():
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert inc.endswith(".cuh") and (build.CSRC / inc).exists(), inc
+    shutil.copytree(build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+
+    def targets():
+        return {n: build._target(p) for n, p in build.sources().items()}
+
+    before = targets()
+    with open(tmp_path / "csrc" / "rwkv6.cu", "a") as f:
+        f.write("\n")
+    edited = targets()
+    assert {n for n in before if edited[n] != before[n]} == {"rwkv6"}
+    with open(tmp_path / "csrc" / "flash_attention.cuh", "a") as f:
+        f.write("\n")
+    assert all(t != edited[n] for n, t in targets().items())
 
 
 @pytest.mark.parametrize("hd", [0, 513])
