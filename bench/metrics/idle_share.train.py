@@ -1,0 +1,12 @@
+"""The device's idle share over the traced train segment: 1 - the union of
+the kernels' intervals over the segment's length."""
+
+from bench import readers
+
+RANGES = {}
+
+
+def read(view):
+    if view.kind != "train":
+        return None
+    return readers.idle_share(view)
